@@ -7,19 +7,34 @@ Phases, each printing one JSON line:
 
 1. device: the card's name, count and ``nvidia-smi`` power limit; exits
    non-zero without a result when PyTorch sees no card;
-2. build: compiles the three CUDA kernels from ``csrc/`` (one ``nvcc`` each,
+2. build: compiles the four CUDA kernels from ``csrc/`` (one ``nvcc`` each,
    in parallel) and reports the seconds and ``ptxas`` resource lines;
-3. kernels: calls each kernel's wrapper at the shapes the serving main path
-   gives it (student_medium, V=32000, B=256 x beam 5 = 1280 rows, 4-bit),
-   holds it against its plain PyTorch version on the same inputs, and times
-   kernel, plain version and a one-call PyTorch yardstick with CUDA events;
+3. kernels: calls each serving kernel's wrapper at the shapes the serving
+   main path gives it (student_medium, V=32000, B=256 x beam 5 = 1280 rows,
+   4-bit), holds it against its plain PyTorch version on the same inputs,
+   and times kernel, plain version and a one-call PyTorch yardstick with
+   CUDA events;
 4. main path: ``pack_decoder`` → ``beam_search_packed`` at full width (depth
    as published: 2 layers), checks the launch counters (3 dequant-matmul,
    1 fused top-k, 1 combine per decode step), finite scores, and f32 tokens
    equal to the port's CPU plain path on 16 sentences; then times the packed
    bf16 path and the dense FP32 ``beam_search`` on the card;
 5. profile: device time by kernel over one packed beam search
-   (``torch.profiler``) and the device's busy share of that run.
+   (``torch.profiler``) and the device's busy share of that run;
+6. train kernel: the fake-quant kernel at the train step's shape (every
+   quantizable leaf of student_medium: 105,984 buckets x 256), bit-exact
+   against its plain version for 2/4/8 bits x linear/abs-max and on
+   constant and zero buckets, timed against the plain version;
+7. train path: 4-bit STE knowledge distillation of student_medium from the
+   2x500 teacher at ``bench.py --train --family seq2seq``'s shape (V=32000,
+   B=128, L=24, Adam 1e-3, clip 5, KD w=0.7 T=5): ``nmt_task`` →
+   ``create_train_state`` → ``make_train_step`` for 10 steps on one batch,
+   then ``make_eval_step``; checks one fake-quant launch per step (and one
+   for the eval step), finite loss and gradient norm, a falling loss, and
+   one step at B=8 on the card against the port's CPU plain path from the
+   same weights; then times the 4-bit and the FP32 step;
+8. train profile: device time by kernel over one 4-bit step and the
+   fake-quant kernel's share of it.
 
 Then the kernel table as one JSON object, then the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -30,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,8 +53,13 @@ import time
 
 import torch
 
-from quantized_distillation_tpu_torch.config import BeamConfig
-from quantized_distillation_tpu_torch.convert import params_to_numpy
+from quantized_distillation_tpu_torch.config import (
+    BeamConfig,
+    DistillSpec,
+    QuantSpec,
+    TrainConfig,
+)
+from quantized_distillation_tpu_torch.convert import flax_leaves, params_to_numpy
 from quantized_distillation_tpu_torch.kernels import (
     _build,
     beam_combine_topk,
@@ -48,20 +69,53 @@ from quantized_distillation_tpu_torch.kernels import (
     dequant_matmul_topk,
     dequant_matmul_topk_reference,
     dequantize_linear,
+    fake_quant_buckets,
+    fake_quant_buckets_reference,
     pack_linear,
     pick_generator_group,
 )
 from quantized_distillation_tpu_torch.models import make_seq2seq
+from quantized_distillation_tpu_torch.ops.bucketing import to_buckets
 from quantized_distillation_tpu_torch.serve import beam_search, beam_search_packed, pack_decoder
+from quantized_distillation_tpu_torch.train import (
+    build_optimizer,
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+    nmt_task,
+)
+from quantized_distillation_tpu_torch.train.quantize_tree import is_quantizable
+from quantized_distillation_tpu_torch.train.optim import apply_updates, global_norm
+from quantized_distillation_tpu_torch.train.trainer import (
+    as_batch,
+    loss_and_grads,
+    quantized_params,
+)
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
+PEAK_F32 = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sheet)
 HBM = 3.35e12  # H100 SXM device memory, bytes/s
 F32_TOL = 1e-4  # rtol = atol, as tests/test_kernels.py states for f32 compute
+# train-step parity, as tests/test_torch_train.py states it for f32: loss and
+# metrics rtol 1e-5; gradients within 1e-4 of the tensor's largest |gradient|;
+# updated weights rtol 1e-5, atol 1e-6
+LOSS_RTOL, GRAD_TOL, W_RTOL, W_ATOL = 1e-5, 1e-4, 1e-5, 1e-6
 BF16_REL = 2e-2  # bf16 values: relative to the row's largest |value|
 BF16_TIE = 4 * 2.0 ** -8  # bf16 tie band (TestCrossKernelNumerics), times max(|logit|, 1)
 
 SRC = "quantized_distillation_tpu_torch/csrc/"
 JAXK = "quantized_distillation_tpu/kernels/"
+COUNTERS = (dequant_matmul, dequant_matmul_topk, beam_combine_topk, fake_quant_buckets)
+
+
+def zero_counts() -> None:
+    for c in COUNTERS:
+        c.launches = 0
+
+
+def read_counts() -> dict:
+    torch.cuda.synchronize()
+    return {c.__name__: c.launches for c in COUNTERS}
 
 
 def emit(obj) -> None:
@@ -95,10 +149,11 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
     """(least ms the card could take, what bounds it): the larger of the
-    operations at the bf16 tensor-core peak and the bytes at the memory rate."""
-    t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM
+    operations at ``peak`` (the bf16 tensor-core rate unless given) and the
+    bytes at the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -304,14 +359,12 @@ def phase_main_path(checks, args, model, params, smi):
     dec = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.bfloat16,
                        generator_group=group, device=dev)
 
-    counters = (dequant_matmul, dequant_matmul_topk, beam_combine_topk)
-    for c in counters:
-        c.launches = 0
+    zero_counts()
     toks, scores = beam_search_packed(model, dec, src, src_len, cfg, device=dev)
-    torch.cuda.synchronize()
-    launches = {c.__name__: c.launches for c in counters}
+    launches = read_counts()
     steps = cfg.max_len
-    want = {"dequant_matmul": 3 * steps, "dequant_matmul_topk": steps, "beam_combine_topk": steps}
+    want = {"dequant_matmul": 3 * steps, "dequant_matmul_topk": steps, "beam_combine_topk": steps,
+            "fake_quant_buckets": 0}
     checks.require(launches == want, f"main path launches {launches}, expected {want}")
     checks.require(tuple(toks.shape) == (args.batch, steps), f"tokens shape {tuple(toks.shape)}")
     checks.require(bool(torch.isfinite(scores).all()), "main path scores not finite")
@@ -350,11 +403,12 @@ def phase_main_path(checks, args, model, params, smi):
     return launches
 
 
-def phase_profile(run, median_s: float) -> None:
-    """Device time by kernel over one packed beam search under
-    torch.profiler, and the device's busy share: of that run's host time
-    (inflated by the profiler's own host overhead) and of the median
-    unprofiled run."""
+def phase_profile(run, median_s: float, phase: str = "profile", focus: str = None) -> None:
+    """Device time by kernel over one run (a packed beam search, a train
+    step) under torch.profiler, and the device's busy share: of that run's
+    host time (inflated by the profiler's own host overhead) and of the
+    median unprofiled run. ``focus``: a kernel-name substring whose share of
+    the device time is reported too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -371,12 +425,220 @@ def phase_profile(run, median_s: float) -> None:
         key=lambda r: -r[1],
     )
     device_ms = sum(ms for _, ms, _ in kernels)
-    emit({
-        "phase": "profile", "wall_ms": wall * 1e3, "device_ms": device_ms,
+    out = {
+        "phase": phase, "wall_ms": wall * 1e3, "device_ms": device_ms,
         "device_busy_share": device_ms / (wall * 1e3),
         "device_busy_share_of_median_run": device_ms / (median_s * 1e3),
         "top": [{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels[:12]],
+    }
+    if focus:
+        focus_ms = sum(ms for k, ms, _ in kernels if focus in k)
+        out.update(focus=focus, focus_ms=focus_ms, focus_share=focus_ms / max(device_ms, 1e-9))
+    emit(out)
+
+
+def quantizable_buckets(params, spec: QuantSpec) -> torch.Tensor:
+    """Every quantizable flax leaf bucketed on its own and concatenated, as
+    the train step hands them to the fake-quant kernel."""
+    return torch.cat([
+        to_buckets(leaf.detach().contiguous(), spec.bucket_size)[0]
+        for path, leaf in flax_leaves(params) if is_quantizable(path, leaf, spec)
+    ])
+
+
+def phase_train_kernel(checks, student, gen) -> dict:
+    """The fake-quant kernel at the train step's shape against its plain
+    version: bit-exact, so the tolerance is 0."""
+    buckets = quantizable_buckets(dict(student.named_parameters()), QuantSpec(bits=4))
+    exact = {}
+    for bits in (2, 4, 8):
+        for scaling in ("linear", "absmax"):
+            got = fake_quant_buckets(buckets, bits, scaling=scaling)
+            want = fake_quant_buckets_reference(buckets, bits, scaling=scaling)
+            exact[f"{bits}/{scaling}"] = ok = torch.equal(got, want)
+            checks.require(ok, f"fake_quant {bits}-bit {scaling}: not bit-exact")
+    flat = torch.cat([torch.full((64, 256), 3.25), torch.zeros(64, 256),
+                      torch.randn(64, 256, generator=gen)]).cuda()
+    for scaling in ("linear", "absmax"):
+        got = fake_quant_buckets(flat, 4, scaling=scaling)
+        ok = torch.equal(got, fake_quant_buckets_reference(flat, 4, scaling=scaling))
+        exact[f"degenerate/{scaling}"] = ok
+        checks.require(ok, f"fake_quant degenerate buckets {scaling}: not bit-exact")
+    checks.require(torch.equal(fake_quant_buckets(flat[:128], 4), flat[:128]),
+                   "fake_quant: constant or zero buckets changed")
+    ms = cuda_ms(lambda: fake_quant_buckets(buckets, 4))
+    plain = cuda_ms(lambda: fake_quant_buckets_reference(buckets, 4))
+    n = buckets.numel()
+    flops, byt = 8.0 * n, 2 * nbytes(buckets)
+    bms, by = bound(flops, byt, PEAK_F32)
+    emit({"phase": "kernel", "name": "fake_quant_buckets", "n_buckets": buckets.shape[0],
+          "bucket_size": buckets.shape[1], "bit_exact": exact, "flops": flops, "bytes": byt,
+          "achieved_bytes_per_s": byt / (ms * 1e-3)})
+    return {
+        "name": "fake_quant_buckets", "route": "cuda", "source": SRC + "fake_quant.cu",
+        "replaces": JAXK + "fake_quant.py:39", "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "library": "no single PyTorch call computes bucketed min/max fake-quant",
+    }
+
+
+def kd_setup(args, device, batch_size, seed):
+    """Student, its KD task from a fresh teacher, and a bench.py-shaped
+    synthetic batch."""
+    v, L = args.vocab, args.src_len
+    teacher = make_seq2seq("teacher", v, v, dropout=0.0, device=device, seed=seed)
+    student = make_seq2seq(args.preset, v, v, dropout=0.0, device=device, seed=seed + 1)
+    g = torch.Generator().manual_seed(seed + 2)
+    batch = {
+        "src": torch.randint(4, v, (batch_size, L), generator=g),
+        "src_len": torch.full((batch_size,), L),
+        "tgt_in": torch.randint(4, v, (batch_size, L), generator=g),
+        "tgt_out": torch.randint(4, v, (batch_size, L), generator=g),
+        "tgt_mask": torch.ones(batch_size, L),
+    }
+    return student, nmt_task(student, teacher, device=device), batch
+
+
+def train_parity(checks, args, quant, distill, cfg) -> dict:
+    """One full-width step at B = 8 on the card and on the CPU (plain
+    versions) from the same weights, with the body of ``make_train_step``
+    written out so its gradients can be compared: loss, metrics, grad_norm
+    and every gradient card against CPU; then the card's updated weights
+    against the CPU optimizer applied to the card's gradients. (Adam's first
+    step is lr * g / (|g| + eps), which turns gradient differences at the
+    level of rounding into whole steps where |g| is near 0, so the two
+    devices' own updated weights are compared and reported, not held.)"""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        student, task, batch = kd_setup(args, dev, args.parity_batch, args.seed + 20)
+        tx = build_optimizer(cfg)
+        state = create_train_state(dict(student.named_parameters()), tx, quant=quant,
+                                   device=dev)
+        before = {n: p.detach().clone() for n, p in state.params.items()}
+        loss, metrics, grads = loss_and_grads(
+            task, state.params, as_batch(batch, torch.device(dev)), quant=quant, distill=distill)
+        updates, _ = tx.update(grads, state.opt_state, state.params)
+        apply_updates(state.params, updates)
+        metrics = dict(metrics, loss=loss, grad_norm=global_norm(grads))
+        runs[dev] = (metrics, grads, before, state, tx)
+    (gm, gg, _, gstate, _), (cm, cg, cbefore, cstate, ctx) = runs["cuda"], runs["cpu"]
+    out = {"batch": args.parity_batch}
+    for k, v in cm.items():
+        err = abs(float(gm[k]) - float(v))
+        out[f"{k}_abs_diff"] = err
+        checks.require(err <= LOSS_RTOL * abs(float(v)),
+                       f"train parity {k}: card {float(gm[k])} vs cpu {float(v)}")
+    g_card = {n: g.detach().cpu() for n, g in gg.items()}
+    updates, _ = ctx.update(g_card, ctx.init(cbefore), cbefore)  # the CPU optimizer's step
+    grad_rel = opt_err = own_err = 0.0
+    own_over = 0
+    for n, g_c in cg.items():
+        scale = max(float(g_c.abs().max()), 1e-30)
+        e = float((g_card[n] - g_c).abs().max())
+        grad_rel = max(grad_rel, e / scale)
+        checks.require(e <= GRAD_TOL * scale, f"train parity grad {n}: max abs diff {e}")
+        w_card = gstate.params[n].detach().cpu()
+        tol = W_ATOL + W_RTOL * cbefore[n].abs()
+        d_opt = (w_card - (cbefore[n] + updates[n])).abs()
+        opt_err = max(opt_err, float(d_opt.max()))
+        checks.require(bool((d_opt <= tol).all()), f"train parity optimizer step {n}")
+        d_own = (w_card - cstate.params[n].detach()).abs()
+        own_err = max(own_err, float(d_own.max()))
+        own_over += int((d_own > tol).sum())
+    out.update(
+        grad_max_rel_diff=grad_rel, optimizer_step_max_abs_diff=opt_err,
+        weights_max_abs_diff=own_err, weights_over_tolerance=own_over,
+        weights=sum(t.numel() for t in cbefore.values()),
+    )
+    return out
+
+
+def step_breakdown(task, state, batch, quant, distill, tx, reps) -> dict:
+    """Median host seconds of each stage of a 4-bit train step, with a
+    synchronize after each (the body of ``make_train_step``, opened up)."""
+    times = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+
+    params = state.params
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        qp = stage("fake_quant_tree", lambda: quantized_params(params, quant))
+        logits, _ = stage("student_forward", lambda: task.student_forward(qp, batch, True, None))
+        t_logits = stage("teacher_forward", lambda: task.teacher_forward(batch))
+        loss, _ = stage("loss", lambda: task.loss_and_metrics(logits, t_logits, batch, distill))
+        grads = stage("backward", lambda: torch.autograd.grad(loss, list(params.values())))
+        grads = dict(zip(params, grads))
+        stage("optimizer", lambda: apply_updates(params, tx.update(grads, state.opt_state,
+                                                                   params)[0]))
+    return {k: statistics.median(v[1:]) for k, v in times.items()}  # the first warms up
+
+
+def phase_train(checks, args, smi) -> dict:
+    """The full-width 4-bit STE KD train path (see the module docstring)."""
+    dev = torch.device("cuda")
+    quant, distill = QuantSpec(bits=args.bits), DistillSpec()
+    cfg = TrainConfig(learning_rate=1e-3, clip_norm=5.0)
+    student, task, batch = kd_setup(args, dev, args.train_batch, args.seed + 10)
+    row = phase_train_kernel(checks, student, torch.Generator().manual_seed(args.seed + 3))
+
+    tx = build_optimizer(cfg)
+    state = create_train_state(dict(student.named_parameters()), tx, quant=quant, device=dev)
+    step = make_train_step(task, tx, quant=quant, distill=distill, device=dev)
+    eval_step = make_eval_step(task, quant=quant, device=dev)
+    zero_counts()
+    metrics = []
+    for _ in range(args.train_steps):
+        state, m = step(state, batch, args.seed)
+        metrics.append(m)
+    ev = eval_step(state, batch)
+    launches = read_counts()
+    loss = [float(m["loss"]) for m in metrics]
+    gnorm = [float(m["grad_norm"]) for m in metrics]
+    want = {"dequant_matmul": 0, "dequant_matmul_topk": 0, "beam_combine_topk": 0,
+            "fake_quant_buckets": args.train_steps + 1}
+    checks.require(launches == want, f"train path launches {launches}, expected {want}")
+    checks.require(all(map(math.isfinite, loss + gnorm)), "train loss or grad_norm not finite")
+    checks.require(loss[-1] < loss[0], f"train loss did not fall: {loss[0]} -> {loss[-1]}")
+    parity = train_parity(checks, args, quant, distill, cfg)
+
+    ntok = args.train_batch * args.src_len
+    fp_step = make_train_step(task, tx, quant=None, distill=distill, device=dev)
+    holder = {"state": state}
+
+    def run(fn):
+        holder["state"], m = fn(holder["state"], batch, args.seed)
+        float(m["loss"])
+
+    t_q, t_fp = [], []
+    for i in range(args.reps):  # in turns, so drift on the host hits both alike
+        for fn, out in ((step, t_q), (fp_step, t_fp))[:: 1 if i % 2 == 0 else -1]:
+            out += timed_runs(lambda: run(fn), 1)
+    med_q, med_fp = statistics.median(t_q), statistics.median(t_fp)
+    stages = step_breakdown(task, holder["state"], as_batch(batch, dev), quant, distill, tx,
+                            args.reps)
+    torch.cuda.reset_peak_memory_stats()
+    run(step)
+    peak = torch.cuda.max_memory_allocated()
+    emit({
+        "phase": "train", "preset": args.preset, "teacher": "teacher", "vocab": args.vocab,
+        "batch": args.train_batch, "len": args.src_len, "bits": args.bits, "steps": len(loss),
+        "launches": launches, "loss": loss, "grad_norm": gnorm,
+        "eval_nll_per_token": float(ev["nll_sum"]) / float(ev["n_tokens"]),
+        "parity_cuda_vs_cpu": parity,
+        "step_seconds_4bit": t_q, "step_seconds_fp32": t_fp,
+        "tokens_per_s_4bit": ntok / med_q, "tokens_per_s_fp32": ntok / med_fp,
+        "vs_baseline": med_fp / med_q, "peak_device_bytes": peak,
+        "stage_seconds_4bit": stages, "card": smi,
     })
+    phase_profile(lambda: run(step), med_q, phase="train_profile", focus="fake_quant_kernel")
+    row["launches"] = launches["fake_quant_buckets"]
+    return row
 
 
 def main(argv=None) -> int:
@@ -388,8 +650,11 @@ def main(argv=None) -> int:
     ap.add_argument("--src-len", type=int, default=24)
     ap.add_argument("--bits", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--cpu-sentences", type=int, default=16)
+    ap.add_argument("--train-batch", type=int, default=128)
+    ap.add_argument("--train-steps", type=int, default=10)
+    ap.add_argument("--parity-batch", type=int, default=8)
     args = ap.parse_args(argv)
 
     dev, smi = phase_device()
@@ -407,6 +672,8 @@ def main(argv=None) -> int:
     launches = phase_main_path(checks, args, model, params, smi)
     for row in table:
         row["launches"] = launches[row["name"]]
+    del model, dec
+    table.append(phase_train(checks, args, smi))
     if checks.failed:
         print(f"{len(checks.failed)} check(s) failed", file=sys.stderr)
         return 1

@@ -1,7 +1,8 @@
 """Configuration dataclasses of the PyTorch port.
 
-Own copies of the JAX package's ``config.py`` classes that the serving
-slice needs (that module imports jax through ``ops``, so nothing is shared).
+Own copies of the JAX package's ``config.py`` classes that the serving and
+training slices need (that module imports jax through ``ops``, so nothing
+is shared).
 Field names and defaults are the same, so a caller can build either
 package's config from the same keywords.
 """
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 from .ops.bucketing import DEFAULT_BUCKET_SIZE, LINEAR
 
@@ -33,6 +34,34 @@ class QuantSpec:
 
     def replace(self, **kw) -> "QuantSpec":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class DistillSpec:
+    """Knowledge-distillation loss: ``(1 - weight) * CE(student, labels) +
+    weight * T^2 * KL(softmax_T(teacher) || softmax_T(student))``."""
+
+    weight: float = 0.7
+    temperature: float = 5.0
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 128
+    epochs: int = 10
+    learning_rate: float = 1e-3
+    weight_decay: float = 0.0
+    clip_norm: Optional[float] = None  # global-norm clipping, as onmt/Optim.py
+    optimizer: str = "adam"  # 'adam' | 'sgd' | 'momentum'
+    lr_schedule: str = "constant"  # 'constant' | 'cosine' | 'step'
+    lr_decay_rate: float = 0.5
+    lr_decay_every: int = 0  # steps; 0 = once per epoch
+    warmup_steps: int = 0
+    seed: int = 0
+    quant: Optional[QuantSpec] = None
+    distill: Optional[DistillSpec] = None
+    log_every: int = 50
+    eval_every: int = 0  # steps; 0 = per epoch
 
 
 @dataclass(frozen=True)

@@ -5,7 +5,11 @@ turned into numpy arrays with ``jax.tree.map(np.asarray, ...)``) is the
 exchange format: :func:`params_from_numpy` turns it into the same nested
 layout with f32 torch tensors, which :meth:`Seq2Seq.load_params` and
 :func:`..serve.infer.pack_decoder` both read; :func:`params_to_numpy`
-exports a port model back into it. Layouts are kept as flax has them:
+exports a port model (or its gradients) back into it, and
+:func:`flax_leaves` / :func:`fuse_flax_leaves` view the port's fused
+parameters leaf by leaf under flax's path names (``decoder/lstm_0/ii/kernel``),
+which is how the training slice buckets them. Layouts are kept as flax has
+them:
 
 - ``Dense`` kernels are ``[in, out]`` (the port multiplies ``x @ kernel``);
 - an ``OptimizedLSTMCell`` holds input kernels ``ii, if, ig, io`` (no bias)
@@ -15,7 +19,8 @@ exports a port model back into it. Layouts are kept as flax has them:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import re
+from typing import Any, Dict, Iterable, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -44,32 +49,71 @@ def fuse_lstm_params(cell: Tree) -> Tuple[torch.Tensor, torch.Tensor, torch.Tens
     return wi, wh, bh
 
 
-def split_lstm_params(wi: torch.Tensor, wh: torch.Tensor, bh: torch.Tensor) -> Tree:
-    """Inverse of :func:`fuse_lstm_params` (numpy leaves)."""
-    out: Tree = {}
-    for g, ki, kh, b in zip(GATES, wi.chunk(4, 1), wh.chunk(4, 1), bh.chunk(4)):
-        out[f"i{g}"] = {"kernel": _np(ki)}
-        out[f"h{g}"] = {"kernel": _np(kh), "bias": _np(b)}
+_NAMED = {
+    "encoder.embedding": "encoder/embed/embedding",
+    "decoder.attn.linear_in": "decoder/attn/linear_in/kernel",
+    "decoder.attn.linear_out": "decoder/attn/linear_out/kernel",
+    "tgt_embed": "tgt_embed/embedding",
+    "generator_kernel": "generator/kernel",
+    "generator_bias": "generator/bias",
+}
+_CELL = re.compile(r"(encoder|decoder)\.cells\.(\d+)\.(wi|wh|bh)$")
+_CELL_LEAF = {"wi": ("i", "kernel"), "wh": ("h", "kernel"), "bh": ("h", "bias")}
+
+
+def flax_paths(name: str) -> List[str]:
+    """The flax leaf paths that make up the port parameter ``name`` (a
+    ``Seq2Seq.named_parameters()`` name), in the order they sit side by side
+    along its last dim: one path, or the four gate blocks i, f, g, o of a
+    fused LSTM tensor."""
+    if name in _NAMED:
+        return [_NAMED[name]]
+    m = _CELL.match(name)
+    if m is None:
+        raise KeyError(f"no flax leaf for port parameter {name!r}")
+    side, i, kind = m.groups()
+    cell = f"encoder/OptimizedLSTMCell_{i}" if side == "encoder" else f"decoder/lstm_{i}"
+    pre, leaf = _CELL_LEAF[kind]
+    return [f"{cell}/{pre}{g}/{leaf}" for g in GATES]
+
+
+def flax_leaves(params: Mapping[str, torch.Tensor]) -> List[Tuple[str, torch.Tensor]]:
+    """``(flax path, tensor)`` for every flax leaf of the port parameters
+    ``params`` (name → tensor, as ``named_parameters()`` gives them), in the
+    flax tree's leaf order. A gate leaf is a column-block view of its fused
+    tensor, so it is not contiguous."""
+    out = []
+    for name, t in params.items():
+        paths = flax_paths(name)
+        out.extend(zip(paths, t.chunk(len(paths), dim=-1)))
+    return sorted(out, key=lambda kv: kv[0].split("/"))
+
+
+def fuse_flax_leaves(
+    leaves: Mapping[str, torch.Tensor], names: Iterable[str]
+) -> Dict[str, torch.Tensor]:
+    """Port parameters ``names`` assembled from flax leaves (path → tensor):
+    the inverse of :func:`flax_leaves`."""
+    out = {}
+    for name in names:
+        parts = [leaves[p] for p in flax_paths(name)]
+        out[name] = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     return out
 
 
-def params_to_numpy(model) -> Tree:
-    """A port :class:`..models.seq2seq.Seq2Seq` → the flax parameter tree."""
-    enc, dec = model.encoder, model.decoder
-    encoder: Tree = {"embed": {"embedding": _np(enc.embedding)}}
-    for i, cell in enumerate(enc.cells):
-        encoder[f"OptimizedLSTMCell_{i}"] = split_lstm_params(cell.wi, cell.wh, cell.bh)
-    decoder: Tree = {"attn": {"linear_out": {"kernel": _np(dec.attn.linear_out)}}}
-    if dec.attn.linear_in is not None:
-        decoder["attn"]["linear_in"] = {"kernel": _np(dec.attn.linear_in)}
-    for i, cell in enumerate(dec.cells):
-        decoder[f"lstm_{i}"] = split_lstm_params(cell.wi, cell.wh, cell.bh)
-    return {
-        "encoder": encoder,
-        "decoder": decoder,
-        "tgt_embed": {"embedding": _np(model.tgt_embed)},
-        "generator": {"kernel": _np(model.generator_kernel), "bias": _np(model.generator_bias)},
-    }
+def params_to_numpy(params) -> Tree:
+    """A port :class:`..models.seq2seq.Seq2Seq`, or a mapping of its
+    parameter names to tensors (its gradients, say) → the flax tree."""
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    tree: Tree = {}
+    for path, t in flax_leaves(params):
+        *parents, leaf = path.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = _np(t)
+    return tree
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Packed weight format and the three hand-written serving kernels.
+"""Packed weight format, the three hand-written serving kernels and the
+fake-quant kernel of the train step.
 
 Each kernel wrapper dispatches on its input's device: a CPU tensor runs the
 plain PyTorch version beside it, a CUDA tensor launches the CUDA kernel
@@ -7,6 +8,7 @@ built from ``csrc/`` (see :mod:`._build`) or raises.
 
 from .beam_combine import beam_combine_topk, beam_combine_topk_reference
 from .dequant_matmul import dequant_matmul, dequant_matmul_reference
+from .fake_quant import fake_quant_buckets, fake_quant_buckets_reference
 from .packed import (
     BUCKET,
     PackedLinear,
@@ -34,6 +36,8 @@ __all__ = [
     "dequant_matmul_topk",
     "dequant_matmul_topk_reference",
     "dequantize_linear",
+    "fake_quant_buckets",
+    "fake_quant_buckets_reference",
     "pack_linear",
     "pick_generator_group",
     "plane_unpack",

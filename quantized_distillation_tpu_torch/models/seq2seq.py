@@ -7,18 +7,25 @@ feeding, and a linear generator. Parameters keep the flax layouts
 ``OptimizedLSTMCell``) so :meth:`Seq2Seq.load_params` reads a flax tree as
 it is (see :mod:`..convert`).
 
-The port serves and does not train: dropout is the identity (eval mode), and
-time loops are explicit Python loops. The bidirectional encoder is not
-ported yet.
+Serving and training share the module. Parameters are built with
+``requires_grad`` off, so serving records no graph; the trainer
+(``train/trainer.py::create_train_state``) turns gradients on and runs the
+model on substituted, fake-quantized weights through :meth:`Seq2Seq.forward_with`
+(``torch.func.functional_call``). Dropout sits where flax puts it (between
+encoder layers, after each decoder LSTM layer, after the attention output):
+inverted dropout drawn from an explicit ``torch.Generator`` when
+``train=True``, the identity otherwise. Time loops are explicit Python
+loops. The bidirectional encoder is not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from .._device import resolve_device
 from ..convert import fuse_lstm_params
@@ -100,14 +107,17 @@ class Encoder(nn.Module):
             for i in range(cfg.num_layers)
         )
         self.hidden = cfg.hidden
+        self.dropout = cfg.dropout
 
-    def forward(self, src: torch.Tensor, src_len: torch.Tensor):
+    def forward(self, src: torch.Tensor, src_len: torch.Tensor, *, train=False, generator=None):
         b, t = src.shape
         x = self.embedding[src]
         last = (src_len.long() - 1) % t  # flax indexes seq_len - 1 the same way
         rows = torch.arange(b, device=src.device)
         finals = []
-        for cell in self.cells:
+        for i, cell in enumerate(self.cells):
+            if i > 0:  # flax drops out between layers, not after the last
+                x = dropout(x, self.dropout, train, generator)
             c = h = x.new_zeros((b, self.hidden))
             cs, hs = [], []
             for step in range(t):
@@ -154,15 +164,19 @@ class DecoderStep(nn.Module):
             for i in range(cfg.num_layers)
         )
         self.attn = LuongAttention(cfg)
+        self.dropout = cfg.dropout
 
-    def forward(self, carry: DecoderState, y_emb, enc_out, enc_mask):
+    def forward(self, carry: DecoderState, y_emb, enc_out, enc_mask, *, train=False,
+                generator=None):
         states, input_feed = carry
         x = torch.cat([y_emb, input_feed], dim=-1)
         new_states = []
         for cell, s in zip(self.cells, states):
-            c, x = cell(s, x)
-            new_states.append((c, x))
+            c, h = cell(s, x)
+            new_states.append((c, h))
+            x = dropout(h, self.dropout, train, generator)  # flax drop_{i}
         attn_h, align = self.attn(x, enc_out, enc_mask)
+        attn_h = dropout(attn_h, self.dropout, train, generator)  # flax drop_out
         return (tuple(new_states), attn_h), (attn_h, align)
 
 
@@ -221,20 +235,23 @@ class Seq2Seq(nn.Module):
     def generator(self, attn_h: torch.Tensor) -> torch.Tensor:
         return attn_h @ self.generator_kernel + self.generator_bias
 
-    def encode(self, src, src_len):
+    def encode(self, src, src_len, *, train=False, generator=None):
         """→ (enc_out [B,T,H], enc_mask [B,T], initial DecoderState)."""
-        enc_out, finals = self.encoder(src, src_len)
+        enc_out, finals = self.encoder(src, src_len, train=train, generator=generator)
         t = torch.arange(src.shape[1], device=src.device)[None, :]
         enc_mask = t < src_len[:, None]
         input_feed = enc_out.new_zeros((src.shape[0], self.cfg.hidden))
         return enc_out, enc_mask, (finals, input_feed)
 
-    def decode(self, state: DecoderState, tgt_in, enc_out, enc_mask):
+    def decode(self, state: DecoderState, tgt_in, enc_out, enc_mask, *, train=False,
+               generator=None):
         """Teacher-forced decode → (final state, logits [B, T_tgt, V])."""
         y_emb = self.tgt_embed[tgt_in]
         outs = []
         for step in range(tgt_in.shape[1]):
-            state, (attn_h, _) = self.decoder(state, y_emb[:, step], enc_out, enc_mask)
+            state, (attn_h, _) = self.decoder(
+                state, y_emb[:, step], enc_out, enc_mask, train=train, generator=generator
+            )
             outs.append(attn_h)
         return state, self.generator(torch.stack(outs, dim=1))
 
@@ -243,10 +260,34 @@ class Seq2Seq(nn.Module):
         state, (attn_h, _) = self.decoder(state, self.tgt_embed[token], enc_out, enc_mask)
         return state, self.generator(attn_h)
 
-    def forward(self, src, src_len, tgt_in):
-        """Full forward: logits [B, T_tgt, V]."""
-        enc_out, enc_mask, state = self.encode(src, src_len)
-        return self.decode(state, tgt_in, enc_out, enc_mask)[1]
+    def forward(self, src, src_len, tgt_in, *, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Full forward: logits [B, T_tgt, V]. ``train=True`` applies dropout
+        (``cfg.dropout`` > 0) drawn from ``generator``."""
+        enc_out, enc_mask, state = self.encode(src, src_len, train=train, generator=generator)
+        return self.decode(state, tgt_in, enc_out, enc_mask, train=train, generator=generator)[1]
+
+    def forward_with(self, params: Mapping[str, torch.Tensor], src, src_len, tgt_in, *,
+                     train: bool = False, generator: Optional[torch.Generator] = None):
+        """:meth:`forward` on the weights ``params`` (``named_parameters()``
+        names → tensors, e.g. fake-quantized ones) in place of the module's
+        own; gradients flow to whatever ``params`` holds."""
+        return functional_call(
+            self, dict(params), (src, src_len, tgt_in), {"train": train, "generator": generator}
+        )
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool, generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: in training, keep each element with probability
+    ``1 - rate`` (a uniform draw from ``generator`` below it) and scale the
+    kept ones by ``1 / (1 - rate)``; the identity otherwise."""
+    if not train or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training mode requires a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def _copy(param: torch.Tensor, value) -> None:

@@ -59,3 +59,26 @@ def compute_scale(buckets: torch.Tensor, kind: str = LINEAR) -> ScaleParams:
     amax = buckets.abs().amax(dim=1, keepdim=True)
     scale = torch.where(amax > 0, 2.0 * amax, torch.ones_like(amax))
     return ScaleParams(offset=-amax, scale=scale, kind=kind)
+
+
+def from_buckets(buckets: torch.Tensor, n: int, shape: Tuple[int, ...]) -> torch.Tensor:
+    """Inverse of :func:`to_buckets`: strip the padding, restore ``shape``."""
+    return buckets.reshape(-1)[:n].reshape(shape)
+
+
+def apply_scale(buckets: torch.Tensor, sp: ScaleParams) -> torch.Tensor:
+    """``[n_buckets, B]`` → scaled values in [0, 1]."""
+    return (buckets - sp.offset) / sp.scale
+
+
+def invert_scale(scaled01: torch.Tensor, sp: ScaleParams) -> torch.Tensor:
+    """Inverse of :func:`apply_scale`."""
+    return scaled01 * sp.scale + sp.offset
+
+
+def floats_per_bucket(kind: str) -> int:
+    """Scaling constants stored per bucket: min and max (linear) or the
+    abs-max alone."""
+    if kind not in _SCALINGS:
+        raise ValueError(f"unknown scaling kind {kind!r}")
+    return 2 if kind == LINEAR else 1

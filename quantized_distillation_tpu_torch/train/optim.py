@@ -1,0 +1,134 @@
+"""The optimizer chain the JAX package builds from optax, written out in
+PyTorch so that it takes the same steps.
+
+:class:`Optimizer` is ``optax.chain(clip_by_global_norm(clip_norm),
+add_decayed_weights(weight_decay), adam | sgd | sgd(momentum=0.9,
+nesterov=True))`` with a learning-rate schedule, in that order, and the
+same arithmetic: optax's clip scales by ``max_norm / g_norm`` only when
+``g_norm >= max_norm`` (``torch.nn.utils.clip_grad_norm_`` divides by
+``norm + 1e-6`` instead); the schedule is read at the update count *before*
+the update; Adam's bias corrections are computed in f32 as optax computes
+them. Parameters, gradients and moments are dicts of parameter name →
+tensor; the state lives on the parameters' device and the count on the
+host, so an update needs no device-to-host copy.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+Tensors = Dict[str, torch.Tensor]
+Schedule = Callable[[int], float]
+
+OPTIMIZERS = ("adam", "sgd", "momentum")
+B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+MOMENTUM = 0.9  # the JAX trainer's sgd(momentum=0.9, nesterov=True)
+
+
+def constant_schedule(value: float) -> Schedule:
+    return lambda count: value
+
+
+def warmup_cosine_decay_schedule(
+    init_value: float, peak_value: float, warmup_steps: int, decay_steps: int
+) -> Schedule:
+    """optax's: linear warm-up from ``init_value`` to ``peak_value`` over
+    ``warmup_steps``, then cosine decay to 0 by ``decay_steps`` (which
+    counts the warm-up)."""
+    span = decay_steps - warmup_steps
+    if span <= 0:
+        raise ValueError(f"decay_steps {decay_steps} must exceed warmup_steps {warmup_steps}")
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = 1 - min(max(count, 0), warmup_steps) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        c = min(count - warmup_steps, span)
+        return peak_value * (0.5 * (1 + math.cos(math.pi * c / span)))
+
+    return schedule
+
+
+def exponential_decay_staircase(init_value: float, every: int, rate: float) -> Schedule:
+    """optax's ``exponential_decay(init_value, every, rate, staircase=True)``."""
+    if every <= 0 or rate == 0:
+        return constant_schedule(init_value)
+    return lambda count: init_value if count <= 0 else init_value * rate ** math.floor(count / every)
+
+
+def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor (``optax.global_norm``)."""
+    return torch.sqrt(sum(torch.sum(t * t) for t in tensors.values()))
+
+
+def _bias_correction(decay: float, count: int) -> float:
+    """``1 - decay**count`` in f32, as optax computes it."""
+    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+
+
+class OptState(NamedTuple):
+    count: int  # updates applied so far
+    mu: Optional[Tensors]  # Adam's first moment, or the momentum trace
+    nu: Optional[Tensors]  # Adam's second moment
+
+
+@dataclass(frozen=True)
+class Optimizer:
+    """See the module docstring. ``init(params)`` → state;
+    ``update(grads, state, params)`` → (updates to add, new state)."""
+
+    kind: str
+    schedule: Schedule
+    clip_norm: Optional[float] = None
+    weight_decay: float = 0.0
+
+    def __post_init__(self):
+        if self.kind not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {self.kind!r}; expected one of {OPTIMIZERS}")
+
+    def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
+        def zeros():
+            return {n: torch.zeros_like(p, memory_format=torch.contiguous_format).detach()
+                    for n, p in params.items()}
+
+        return OptState(
+            count=0,
+            mu=zeros() if self.kind in ("adam", "momentum") else None,
+            nu=zeros() if self.kind == "adam" else None,
+        )
+
+    def update(
+        self, grads: Mapping[str, torch.Tensor], state: OptState,
+        params: Mapping[str, torch.Tensor],
+    ) -> Tuple[Tensors, OptState]:
+        g = {n: t.detach() for n, t in grads.items()}
+        if self.clip_norm:
+            norm = global_norm(g)
+            g = {n: torch.where(norm < self.clip_norm, t, (t / norm) * self.clip_norm)
+                 for n, t in g.items()}
+        if self.weight_decay:
+            g = {n: t + self.weight_decay * params[n].detach() for n, t in g.items()}
+        mu = nu = None
+        if self.kind == "adam":
+            mu = {n: (1 - B1) * t + B1 * state.mu[n] for n, t in g.items()}
+            nu = {n: (1 - B2) * (t * t) + B2 * state.nu[n] for n, t in g.items()}
+            bc1 = _bias_correction(B1, state.count + 1)
+            bc2 = _bias_correction(B2, state.count + 1)
+            g = {n: (mu[n] / bc1) / (torch.sqrt(nu[n] / bc2) + EPS) for n in g}
+        elif self.kind == "momentum":
+            mu = {n: t + MOMENTUM * state.mu[n] for n, t in g.items()}
+            g = {n: t + MOMENTUM * mu[n] for n, t in g.items()}  # nesterov
+        step = -self.schedule(state.count)
+        return {n: step * t for n, t in g.items()}, OptState(state.count + 1, mu, nu)
+
+
+def apply_updates(params: Mapping[str, torch.Tensor], updates: Mapping[str, torch.Tensor]) -> None:
+    """``p += u`` for every parameter, in place and outside autograd."""
+    with torch.no_grad():
+        for n, p in params.items():
+            p.add_(updates[n])

@@ -1,0 +1,234 @@
+"""Knowledge-distillation trainer with fake-quant STE weights (PyTorch port
+of the JAX package's ``train/trainer.py``, mode ``weights``).
+
+One train step does what the JAX package compiles into one ``jit``:
+fake-quantize the student's quantizable weights with a straight-through
+gradient (one fake-quant kernel launch per bits-group on the card), run the
+student on them, run the teacher without gradients, take the KD loss and
+its gradients on the full-precision master weights, and step the optimizer
+on those. PyTorch runs it eagerly, so the step is a Python function; the
+master weights are updated in place (the JAX step donates its state, so
+neither keeps the old weights).
+
+Random numbers: the JAX step folds the step count into its key and splits
+it in two (weight quantization, dropout); here two ``torch.Generator``s on
+the step's device are seeded from ``(rng, step, 0)`` and ``(rng, step,
+1)``. They cannot give JAX's bits.
+
+Not ported yet: modes ``codebooks``/``joint`` (differentiable quantization,
+slice 3), and ``mesh``/``grad_reduce_dtype`` (multi-GPU, last).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..config import DistillSpec, QuantSpec, TrainConfig
+from . import quantize_tree as qt
+from .optim import (
+    OptState,
+    Optimizer,
+    apply_updates,
+    constant_schedule,
+    exponential_decay_staircase,
+    global_norm,
+    warmup_cosine_decay_schedule,
+)
+
+Params = Dict[str, torch.Tensor]
+Batch = Dict[str, Any]
+
+_SLICE3 = "differentiable quantization (modes 'codebooks'/'joint') comes with slice 3 of the port"
+_MULTI_GPU = "multi-GPU training (mesh, grad_reduce_dtype) comes last in the port"
+
+
+@dataclass
+class TrainState:
+    step: int
+    params: Params  # parameter name → full-precision master tensor
+    opt_state: OptState
+
+    def replace(self, **kw) -> "TrainState":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class Task:
+    """What the trainer needs to know about a workload.
+
+    ``student_forward(params, batch, train, generator) -> (logits, updates)``
+    runs the student on ``params`` (``updates`` is ``{}`` for seq2seq);
+    ``teacher_forward(batch) -> logits`` runs the teacher without gradients;
+    ``loss_and_metrics(student_logits, teacher_logits, batch, distill)``
+    returns ``(scalar loss, metrics dict)``."""
+
+    student_forward: Callable[..., Tuple[torch.Tensor, Dict]]
+    loss_and_metrics: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+    teacher_forward: Optional[Callable[[Batch], torch.Tensor]] = None
+
+
+def build_optimizer(cfg: TrainConfig, steps_per_epoch: int = 1) -> Optimizer:
+    """Optimizer + learning-rate schedule, as the JAX package builds them
+    from optax (see :mod:`.optim`). It makes no tensor: ``init(params)``
+    puts its state on the parameters' device."""
+    total_steps = max(cfg.epochs * steps_per_epoch, 1)
+    if cfg.lr_schedule == "cosine":
+        sched = warmup_cosine_decay_schedule(
+            0.0, cfg.learning_rate, max(cfg.warmup_steps, 1), total_steps
+        )
+    elif cfg.lr_schedule == "step":
+        every = cfg.lr_decay_every or steps_per_epoch
+        sched = exponential_decay_staircase(cfg.learning_rate, every, cfg.lr_decay_rate)
+    else:
+        sched = constant_schedule(cfg.learning_rate)
+    return Optimizer(cfg.optimizer, sched, cfg.clip_norm, cfg.weight_decay)
+
+
+def create_train_state(
+    params: Mapping[str, torch.Tensor],
+    tx: Optimizer,
+    *,
+    quant: Optional[QuantSpec] = None,
+    mode: str = "weights",
+    device="cuda",
+) -> TrainState:
+    """Train state over ``params`` (``dict(model.named_parameters())``):
+    turns their gradients on and trains them in place, so the model that
+    owns them is the one trained. Every tensor must be on ``device``."""
+    dev = resolve_device(device)
+    if mode != "weights":
+        raise NotImplementedError(_SLICE3)
+    if quant is not None and quant.method == "codebook":
+        raise NotImplementedError(_SLICE3)
+    params = dict(params)
+    for name, p in params.items():
+        if p.device != dev:
+            raise ValueError(f"parameter {name} is on {p.device}, not {dev}")
+        p.requires_grad_(True)
+    return TrainState(step=0, params=params, opt_state=tx.init(params))
+
+
+def quantized_params(
+    params: Params,
+    quant: Optional[QuantSpec],
+    codebooks=None,
+    generator: Optional[torch.Generator] = None,
+    bits_map: Optional[Dict[str, int]] = None,
+) -> Params:
+    """STE fake-quant view of the parameters (identity when quant is None)."""
+    if quant is None:
+        return params
+    if quant.method == "codebook" or codebooks is not None:
+        raise NotImplementedError(_SLICE3)
+    return qt.ste_quantize_tree(params, quant, generator, bits_map)
+
+
+def as_batch(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """numpy arrays or tensors → tensors on ``device``: integers as int64
+    (they index embeddings and gather labels), floats as f32."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        t = t.to(torch.float32) if t.is_floating_point() else t.to(torch.int64)
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def step_generators(device: torch.device, rng: int, step: int):
+    """(weight quantization, dropout) generators of train step ``step``."""
+    seeds = np.random.SeedSequence([rng, step]).generate_state(2, np.uint64)
+    return tuple(torch.Generator(device=device).manual_seed(int(s)) for s in seeds)
+
+
+def loss_and_grads(
+    task: Task,
+    params: Params,
+    batch: Dict[str, torch.Tensor],
+    *,
+    quant: Optional[QuantSpec] = None,
+    distill: Optional[DistillSpec] = None,
+    bits_map: Optional[Dict[str, int]] = None,
+    quant_generator: Optional[torch.Generator] = None,
+    dropout_generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Params]:
+    """The JAX step's ``value_and_grad`` of its loss: ``(loss, metrics,
+    grads)`` with ``grads`` keyed like ``params`` (zeros where the loss does
+    not reach a parameter, as ``jax.grad`` gives)."""
+    q_params = quantized_params(params, quant, None, quant_generator, bits_map)
+    logits, _ = task.student_forward(q_params, batch, True, dropout_generator)
+    teacher_logits = task.teacher_forward(batch) if task.teacher_forward else None
+    loss, metrics = task.loss_and_metrics(logits, teacher_logits, batch, distill)
+    names = list(params)
+    grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
+    grads = {n: torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, grads)}
+    return loss.detach(), metrics, grads
+
+
+def make_train_step(
+    task: Task,
+    tx: Optimizer,
+    *,
+    quant: Optional[QuantSpec] = None,
+    distill: Optional[DistillSpec] = None,
+    mode: str = "weights",
+    bits_map: Optional[Dict[str, int]] = None,
+    mesh=None,
+    grad_reduce_dtype=None,
+    device="cuda",
+):
+    """The train step ``(state, batch, rng: int) -> (state, metrics)``.
+
+    ``metrics`` holds the task's metrics, ``loss`` and ``grad_norm`` (the
+    global norm of the gradients before clipping), as 0-dim tensors on the
+    device. The state's master weights are updated in place."""
+    dev = resolve_device(device)
+    if mode != "weights":
+        raise NotImplementedError(_SLICE3)
+    if mesh is not None or grad_reduce_dtype is not None:
+        raise NotImplementedError(_MULTI_GPU)
+
+    def step_fn(state: TrainState, batch: Batch, rng: int = 0):
+        batch = as_batch(batch, dev)
+        q_gen, drop_gen = step_generators(dev, rng, state.step)
+        loss, metrics, grads = loss_and_grads(
+            task, state.params, batch, quant=quant, distill=distill, bits_map=bits_map,
+            quant_generator=q_gen, dropout_generator=drop_gen,
+        )
+        updates, opt_state = tx.update(grads, state.opt_state, state.params)
+        apply_updates(state.params, updates)
+        metrics = dict(metrics, loss=loss, grad_norm=global_norm(grads))
+        return state.replace(step=state.step + 1, opt_state=opt_state), metrics
+
+    return step_fn
+
+
+def make_eval_step(
+    task: Task,
+    *,
+    quant: Optional[QuantSpec] = None,
+    quantized_eval: bool = True,
+    bits_map: Optional[Dict[str, int]] = None,
+    device="cuda",
+):
+    """Eval step ``(state, batch) -> metrics`` on the deployment
+    (hard-quantized) weights, as the reference evaluates the quantized
+    model, not the full-precision master copy."""
+    dev = resolve_device(device)
+
+    def eval_fn(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        batch = as_batch(batch, dev)
+        with torch.no_grad():
+            params = state.params
+            if quant is not None and quantized_eval:
+                params = qt.quantize_tree_hard(params, quant, None, bits_map)
+            logits, _ = task.student_forward(params, batch, False, None)
+            _, metrics = task.loss_and_metrics(logits, None, batch, None)
+        return metrics
+
+    return eval_fn

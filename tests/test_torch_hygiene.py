@@ -37,6 +37,8 @@ def test_port_and_chip_smoke_load_no_jax():
         timeout=300, check=True,
     ).stdout.split()
     assert "quantized_distillation_tpu_torch.serve.infer" in out
+    assert "quantized_distillation_tpu_torch.train.trainer" in out
+    assert "quantized_distillation_tpu_torch.utils.metrics" in out
     assert "chip_smoke" in out
     assert [m for m in out if _forbidden(m)] == []
 
@@ -75,3 +77,38 @@ def test_entry_points_default_to_the_card():
         beam_search_packed(m, dec, src, sl, BeamConfig(beam_size=2, max_len=3))
     toks, scores = beam_search_packed(m, dec, src, sl, BeamConfig(beam_size=2, max_len=3), device="cpu")
     assert toks.shape == (2, 3) and torch.isfinite(scores).all()
+
+
+def test_train_entry_points_default_to_the_card():
+    from quantized_distillation_tpu_torch.config import QuantSpec, TrainConfig
+    from quantized_distillation_tpu_torch.models import make_seq2seq
+    from quantized_distillation_tpu_torch.train import (
+        build_optimizer,
+        create_train_state,
+        fit,
+        make_eval_step,
+        make_train_step,
+        nmt_task,
+    )
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present, so the default device works")
+    m = make_seq2seq("student_small", 20, 30, hidden=16, embed_dim=8, device="cpu")
+    cfg = TrainConfig(epochs=1, quant=QuantSpec(bits=4))
+    tx = build_optimizer(cfg)  # makes no tensor: its state follows the parameters
+    params = dict(m.named_parameters())
+    with pytest.raises(RuntimeError, match="cuda"):
+        nmt_task(m)
+    task = nmt_task(m, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        create_train_state(params, tx)
+    state = create_train_state(params, tx, device="cpu")
+    for call in (
+        lambda: make_train_step(task, tx),
+        lambda: make_eval_step(task),
+        lambda: fit(task, state, cfg, lambda epoch: []),
+    ):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    make_train_step(task, tx, device="cpu")
+    make_eval_step(task, device="cpu")
