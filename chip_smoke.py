@@ -7,8 +7,9 @@ Phases, each printing one JSON line:
 
 1. device: the card's name, count and ``nvidia-smi`` power limit; exits
    non-zero without a result when PyTorch sees no card;
-2. build: compiles the four CUDA kernels from ``csrc/`` (one ``nvcc`` each,
-   in parallel) and reports the seconds and ``ptxas`` resource lines;
+2. build: compiles the four CUDA sources of ``csrc/`` (one ``nvcc`` each,
+   in parallel; the LUT variants are template instances in two of them) and
+   reports the seconds and ``ptxas`` resource lines;
 3. kernels: calls each serving kernel's wrapper at the shapes the serving
    main path gives it (student_medium, V=32000, B=256 x beam 5 = 1280 rows,
    4-bit), holds it against its plain PyTorch version on the same inputs,
@@ -34,7 +35,28 @@ Phases, each printing one JSON line:
    one step at B=8 on the card against the port's CPU plain path from the
    same weights; then times the 4-bit and the FP32 step;
 8. train profile: device time by kernel over one 4-bit step and the
-   fake-quant kernel's share of it.
+   fake-quant kernel's share of it;
+9. codebook train: differentiable quantization at the same shape, 4-bit
+   learned codebooks (``QuantSpec(method="codebook")``), mode ``joint``:
+   10 steps and the eval step with the trained codebooks; checks that no
+   kernel launches (the JAX package runs none here either), finite loss and
+   gradient norm, a falling loss, that weights and codebooks both move, and
+   one joint step at B=8 on the card against the CPU plain path; times the
+   codebook and the FP32 step in turns, breaks the step into stages (the
+   ``codebook_tree`` among them), times the codebook gather's backward both
+   ways, profiles one step, then runs 2 steps in mode ``codebooks`` that
+   must leave every weight bit-identical and move the codebooks;
+10. LUT kernels: the LUT variants of dequant-matmul (the three decode-step
+   shapes, 2/4/8 bits, f32 and bf16 compute) and of the fused generator
+   ([1280, 256] x [256, 32000] padded to 32768 without a -1e9 bias, 4-bit,
+   k=5) against their plain versions, timed like phase 3;
+11. codebook path: ``pack_decoder(points=<the trained generator/kernel
+   codebook>, lut_mode="exact")`` → ``beam_search_packed`` at full width:
+   launch counts (3 LUT dequant-matmul, 1 LUT fused top-k, 1 combine per
+   decode step), finite scores, f32 tokens equal to the CPU plain path on 16
+   sentences; a ``lut_mode="requant8"`` deploy that must launch only the
+   uniform kernels; tokens/s of the exact, requant8 and uniform deploys in
+   turns; and a profile of the exact deploy.
 
 Then the kernel table as one JSON object, then the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -90,6 +112,7 @@ from quantized_distillation_tpu_torch.train.trainer import (
     as_batch,
     loss_and_grads,
     quantized_params,
+    trainable,
 )
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
@@ -105,17 +128,30 @@ BF16_TIE = 4 * 2.0 ** -8  # bf16 tie band (TestCrossKernelNumerics), times max(|
 
 SRC = "quantized_distillation_tpu_torch/csrc/"
 JAXK = "quantized_distillation_tpu/kernels/"
-COUNTERS = (dequant_matmul, dequant_matmul_topk, beam_combine_topk, fake_quant_buckets)
+# launch counter name → (wrapper, attribute it counts in)
+COUNTERS = {
+    "dequant_matmul": (dequant_matmul, "launches"),
+    "dequant_matmul_lut": (dequant_matmul, "launches_lut"),
+    "dequant_matmul_topk": (dequant_matmul_topk, "launches"),
+    "dequant_matmul_topk_lut": (dequant_matmul_topk, "launches_lut"),
+    "beam_combine_topk": (beam_combine_topk, "launches"),
+    "fake_quant_buckets": (fake_quant_buckets, "launches"),
+}
 
 
 def zero_counts() -> None:
-    for c in COUNTERS:
-        c.launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts() -> dict:
     torch.cuda.synchronize()
-    return {c.__name__: c.launches for c in COUNTERS}
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+
+
+def expected(**counts) -> dict:
+    """Every counter at 0 except those given."""
+    return {name: counts.get(name, 0) for name in COUNTERS}
 
 
 def emit(obj) -> None:
@@ -162,7 +198,7 @@ def nbytes(*tensors) -> int:
 
 
 def packed_bytes(p) -> int:
-    return nbytes(p.packed, p.scale, p.offset, p.bias)
+    return nbytes(p.packed, p.scale, p.offset, p.points, p.bias)
 
 
 def phase_device():
@@ -222,28 +258,44 @@ def check_topk_indices(checks, name, v, i, rv, ri, cd):
     return int(rows_equal.sum()), int(in_band.sum())
 
 
-def phase_kernels(checks, dec, rows, gen):
-    """Each kernel at the main path's shapes against its plain version."""
+def decode_matrices(dec):
+    """The three dequant-matmul weights of a decode step and the dtype of
+    the activation each gets."""
+    bf16 = torch.bfloat16
+    return (("lstm_0", dec.cells[0].w, bf16),  # [x_emb; feed; h] arrives in bf16
+            ("lstm_1", dec.cells[1].w, bf16),
+            ("attn_out", dec.attn_out, torch.float32))  # [context f32; h]
+
+
+def lut_points(bits: int, gen) -> torch.Tensor:
+    """A trained-looking codebook: out of order, partly outside [0, 1]."""
+    return torch.rand(1 << bits, generator=gen) * 1.2 - 0.1
+
+
+def kernel_dequant_matmul(checks, name, replaces, dec, rows, gen, lut_bits=()):
+    """The dequant-matmul kernel at the three decode-step shapes of ``dec``
+    against its plain version (f32 and bf16 compute; with ``lut_bits``, also
+    each matrix repacked with a random codebook of those bits), timed at bf16
+    against the plain version and bf16 ``torch.matmul`` on the dequantized
+    weight. Returns the kernel-table row, summed over one decode step."""
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
-    table = []
-
-    # --- dequant_matmul: the two fused LSTM-gate matrices and attn_out
     dm = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0, flops=0.0, bytes=0.0)
-    shapes = []
-    for name, p, xdt in (
-        ("lstm_0", dec.cells[0].w, bf16),  # [x_emb; feed; h] arrives in bf16
-        ("lstm_1", dec.cells[1].w, bf16),
-        ("attn_out", dec.attn_out, torch.float32),  # [context f32; h]
-    ):
+    shapes, errs = [], {}
+    for mat, p, xdt in decode_matrices(dec):
         k, n = p.shape
         x = torch.randn(rows, k, generator=gen).to(dev, xdt)
-        for cd in (torch.float32, bf16):
-            got = dequant_matmul(x, p, compute_dtype=cd)
-            want = dequant_matmul_reference(x, p, compute_dtype=cd)
-            err = check_values(checks, f"dequant_matmul/{name}/{cd}", got, want, cd)
-            if cd == bf16:
-                dm["err"] = max(dm["err"], err)
+        variants = [(p.bits, p)] + [
+            (b, pack_linear(dequantize_linear(p), b, points=lut_points(b, gen).to(dev)))
+            for b in lut_bits if b != p.bits]
+        for bits, q in variants:
+            for cd in (torch.float32, bf16):
+                got = dequant_matmul(x, q, compute_dtype=cd)
+                want = dequant_matmul_reference(x, q, compute_dtype=cd)
+                err = check_values(checks, f"{name}/{mat}/{bits}/{cd}", got, want, cd)
+                errs[f"{mat}/{bits}/{cd}"] = err
+                if cd == bf16 and q is p:
+                    dm["err"] = max(dm["err"], err)
         w16 = dequantize_linear(p, bf16)
         ms = cuda_ms(lambda: dequant_matmul(x, p, compute_dtype=bf16))
         plain = cuda_ms(lambda: dequant_matmul_reference(x, p, compute_dtype=bf16))
@@ -251,42 +303,44 @@ def phase_kernels(checks, dec, rows, gen):
         flops = 2.0 * rows * k * n
         byt = nbytes(x) + packed_bytes(p) + rows * n * 4
         bms, _ = bound(flops, byt)
-        shapes.append({"name": name, "M": rows, "K": k, "N": n, "x": str(xdt), "ms": ms,
+        shapes.append({"name": mat, "M": rows, "K": k, "N": n, "x": str(xdt), "ms": ms,
                        "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
                        "flops": flops, "bytes": byt})
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bound_ms", bms), ("flops", flops), ("bytes", byt)):
             dm[key] += val
     _, by = bound(dm["flops"], dm["bytes"])
-    emit({"phase": "kernel", "name": "dequant_matmul", "per_shape": shapes,
+    emit({"phase": "kernel", "name": name, "per_shape": shapes, "max_abs_err": errs,
           "per_step": {"flops": dm["flops"], "bytes": dm["bytes"]}})
-    table.append({
-        "name": "dequant_matmul", "route": "cuda", "source": SRC + "dequant_matmul.cu",
-        "replaces": JAXK + "dequant_matmul.py:68", "max_abs_err": dm["err"],
+    return {
+        "name": name, "route": "cuda", "source": SRC + "dequant_matmul.cu",
+        "replaces": replaces, "max_abs_err": dm["err"],
         "ms": dm["ms"], "plain_ms": dm["plain_ms"], "bound_ms": dm["bound_ms"],
         "bound_by": by, "library_ms": dm["library_ms"],
         "per": "one decode step: lstm_0 + lstm_1 + attn_out",
-    })
+    }
 
-    # --- fused generator top-k
-    g = dec.generator
+
+def kernel_topk(checks, name, replaces, g, rows, gen, extra: dict) -> dict:
+    """The fused generator kernel on the generator ``g`` against its plain
+    version (f32 and bf16 compute: values, lse, indices up to the tie band;
+    no index at or past the logical width), timed at bf16 against the plain
+    version and one PyTorch call (bf16 matmul + bias, ``torch.topk``,
+    ``torch.logsumexp``). ``extra`` joins the printed line. Returns the
+    kernel-table row."""
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
     k_top = 5
     x = torch.randn(rows, g.shape[0], generator=gen).to(dev)
     stats = {}
     for cd in (torch.float32, bf16):
         v, i, lse = dequant_matmul_topk(x, g, k_top, compute_dtype=cd)
         rv, ri, rlse = dequant_matmul_topk_reference(x, g, k_top, compute_dtype=cd)
-        err = max(check_values(checks, f"topk/{cd}/values", v, rv, cd),
-                  check_values(checks, f"topk/{cd}/lse", lse, rlse, cd))
-        eq, band = check_topk_indices(checks, f"topk/{cd}", v, i, rv, ri, cd)
+        err = max(check_values(checks, f"{name}/{cd}/values", v, rv, cd),
+                  check_values(checks, f"{name}/{cd}/lse", lse, rlse, cd))
+        eq, band = check_topk_indices(checks, f"{name}/{cd}", v, i, rv, ri, cd)
+        checks.require(int(i.max()) < g.shape[1], f"{name}: a column past N was chosen")
         stats[str(cd)] = {"max_abs_err": err, "rows_equal": eq, "rows_in_tie_band": band}
-    # tie-heavy: zero weights make the logits the bias exactly, full of ties
-    tie_bias = torch.randint(0, 4, (g.shape[1],), generator=gen).float()
-    gt = pack_linear(torch.zeros(g.shape), 4, bias=tie_bias, max_group=g.group).to(dev)
-    v, i, _ = dequant_matmul_topk(x, gt, k_top, compute_dtype=bf16)
-    rv, ri, _ = dequant_matmul_topk_reference(x, gt, k_top, compute_dtype=bf16)
-    checks.require(torch.equal(i, ri) and torch.equal(v, rv), "topk/ties: not exact")
-    stats["ties"] = {"rows_equal": int((i == ri).all(dim=1).sum())}
     g16 = dequantize_linear(g, bf16)
     bias = g.bias
 
@@ -300,15 +354,36 @@ def phase_kernels(checks, dec, rows, gen):
     flops = 2.0 * rows * g.shape[0] * g.shape[1]
     byt = nbytes(x) + packed_bytes(g) + rows * (k_top * 8 + 4)
     bms, by = bound(flops, byt)
-    emit({"phase": "kernel", "name": "dequant_matmul_topk", "M": rows, "K": g.shape[0],
-          "N": g.shape[1], "k": k_top, "checks": stats, "flops": flops, "bytes": byt})
-    table.append({
-        "name": "dequant_matmul_topk", "route": "cuda", "source": SRC + "topk_fused.cu",
-        "replaces": JAXK + "topk_fused.py:78", "max_abs_err": stats[str(bf16)]["max_abs_err"],
+    emit({"phase": "kernel", "name": name, "M": rows, "K": g.shape[0], "N": g.shape[1],
+          "N_padded": g.n_padded, "k": k_top, "checks": stats, "flops": flops, "bytes": byt,
+          **extra})
+    return {
+        "name": name, "route": "cuda", "source": SRC + "topk_fused.cu", "replaces": replaces,
+        "max_abs_err": stats[str(bf16)]["max_abs_err"],
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib,
-    })
+    }
+
+
+def phase_kernels(checks, dec, rows, gen):
+    """Each serving kernel at the main path's shapes against its plain version."""
+    dev = torch.device("cuda")
+    table = [kernel_dequant_matmul(checks, "dequant_matmul", JAXK + "dequant_matmul.py:68",
+                                   dec, rows, gen)]
+
+    # tie-heavy: zero weights make the logits the bias exactly, full of ties
+    g = dec.generator
+    tie_bias = torch.randint(0, 4, (g.shape[1],), generator=gen).float()
+    gt = pack_linear(torch.zeros(g.shape), 4, bias=tie_bias, max_group=g.group).to(dev)
+    x = torch.randn(rows, g.shape[0], generator=gen).to(dev)
+    v, i, _ = dequant_matmul_topk(x, gt, 5, compute_dtype=torch.bfloat16)
+    rv, ri, _ = dequant_matmul_topk_reference(x, gt, 5, compute_dtype=torch.bfloat16)
+    checks.require(torch.equal(i, ri) and torch.equal(v, rv), "topk/ties: not exact")
+    ties = {"rows_equal": int((i == ri).all(dim=1).sum())}
+    table.append(kernel_topk(checks, "dequant_matmul_topk", JAXK + "topk_fused.py:78", g,
+                             rows, gen, {"ties": ties}))
 
     # --- beam combine: [B, beam * kc] candidates as the beam core builds them
+    k_top = 5
     b = rows // k_top
     n = k_top * k_top
     cand = torch.randn(b, n, generator=gen) * 10
@@ -363,8 +438,7 @@ def phase_main_path(checks, args, model, params, smi):
     toks, scores = beam_search_packed(model, dec, src, src_len, cfg, device=dev)
     launches = read_counts()
     steps = cfg.max_len
-    want = {"dequant_matmul": 3 * steps, "dequant_matmul_topk": steps, "beam_combine_topk": steps,
-            "fake_quant_buckets": 0}
+    want = expected(dequant_matmul=3 * steps, dequant_matmul_topk=steps, beam_combine_topk=steps)
     checks.require(launches == want, f"main path launches {launches}, expected {want}")
     checks.require(tuple(toks.shape) == (args.batch, steps), f"tokens shape {tuple(toks.shape)}")
     checks.require(bool(torch.isfinite(scores).all()), "main path scores not finite")
@@ -400,7 +474,8 @@ def phase_main_path(checks, args, model, params, smi):
         "card": smi,
     })
     phase_profile(lambda: beam_search_packed(model, dec, src, src_len, cfg, device=dev), med_p)
-    return launches
+    return launches, {"packed_bf16_tokens_per_s": ntok / med_p,
+                      "dense_fp32_tokens_per_s": ntok / med_d}
 
 
 def phase_profile(run, median_s: float, phase: str = "profile", focus: str = None) -> None:
@@ -499,35 +574,38 @@ def kd_setup(args, device, batch_size, seed):
     return student, nmt_task(student, teacher, device=device), batch
 
 
-def train_parity(checks, args, quant, distill, cfg) -> dict:
+def train_parity(checks, args, quant, distill, cfg, mode: str = "weights") -> dict:
     """One full-width step at B = 8 on the card and on the CPU (plain
-    versions) from the same weights, with the body of ``make_train_step``
-    written out so its gradients can be compared: loss, metrics, grad_norm
-    and every gradient card against CPU; then the card's updated weights
-    against the CPU optimizer applied to the card's gradients. (Adam's first
-    step is lr * g / (|g| + eps), which turns gradient differences at the
-    level of rounding into whole steps where |g| is near 0, so the two
-    devices' own updated weights are compared and reported, not held.)"""
+    versions) from the same weights (and codebooks), with the body of
+    ``make_train_step`` written out so its gradients can be compared: loss,
+    metrics, grad_norm and every gradient card against CPU; then the card's
+    updated tensors against the CPU optimizer applied to the card's
+    gradients. (Adam's first step is lr * g / (|g| + eps), which turns
+    gradient differences at the level of rounding into whole steps where |g|
+    is near 0, so the two devices' own updated tensors are compared and
+    reported, not held.)"""
     runs = {}
     for dev in ("cuda", "cpu"):
         student, task, batch = kd_setup(args, dev, args.parity_batch, args.seed + 20)
         tx = build_optimizer(cfg)
         state = create_train_state(dict(student.named_parameters()), tx, quant=quant,
-                                   device=dev)
-        before = {n: p.detach().clone() for n, p in state.params.items()}
+                                   mode=mode, device=dev)
+        wrt = trainable(state.params, state.codebooks, mode)
+        before = {n: p.detach().clone() for n, p in wrt.items()}
         loss, metrics, grads = loss_and_grads(
-            task, state.params, as_batch(batch, torch.device(dev)), quant=quant, distill=distill)
-        updates, _ = tx.update(grads, state.opt_state, state.params)
-        apply_updates(state.params, updates)
+            task, state.params, as_batch(batch, torch.device(dev)), quant=quant,
+            distill=distill, codebooks=state.codebooks, mode=mode)
+        updates, _ = tx.update(grads, state.opt_state, wrt)
+        apply_updates(wrt, updates)
         metrics = dict(metrics, loss=loss, grad_norm=global_norm(grads))
-        runs[dev] = (metrics, grads, before, state, tx)
-    (gm, gg, _, gstate, _), (cm, cg, cbefore, cstate, ctx) = runs["cuda"], runs["cpu"]
-    out = {"batch": args.parity_batch}
+        runs[dev] = (metrics, grads, before, wrt, tx)
+    (gm, gg, _, gwrt, _), (cm, cg, cbefore, cwrt, ctx) = runs["cuda"], runs["cpu"]
+    out = {"batch": args.parity_batch, "mode": mode}
     for k, v in cm.items():
         err = abs(float(gm[k]) - float(v))
         out[f"{k}_abs_diff"] = err
         checks.require(err <= LOSS_RTOL * abs(float(v)),
-                       f"train parity {k}: card {float(gm[k])} vs cpu {float(v)}")
+                       f"train parity ({mode}) {k}: card {float(gm[k])} vs cpu {float(v)}")
     g_card = {n: g.detach().cpu() for n, g in gg.items()}
     updates, _ = ctx.update(g_card, ctx.init(cbefore), cbefore)  # the CPU optimizer's step
     grad_rel = opt_err = own_err = 0.0
@@ -536,13 +614,13 @@ def train_parity(checks, args, quant, distill, cfg) -> dict:
         scale = max(float(g_c.abs().max()), 1e-30)
         e = float((g_card[n] - g_c).abs().max())
         grad_rel = max(grad_rel, e / scale)
-        checks.require(e <= GRAD_TOL * scale, f"train parity grad {n}: max abs diff {e}")
-        w_card = gstate.params[n].detach().cpu()
+        checks.require(e <= GRAD_TOL * scale, f"train parity ({mode}) grad {n}: max abs diff {e}")
+        w_card = gwrt[n].detach().cpu()
         tol = W_ATOL + W_RTOL * cbefore[n].abs()
         d_opt = (w_card - (cbefore[n] + updates[n])).abs()
         opt_err = max(opt_err, float(d_opt.max()))
-        checks.require(bool((d_opt <= tol).all()), f"train parity optimizer step {n}")
-        d_own = (w_card - cstate.params[n].detach()).abs()
+        checks.require(bool((d_opt <= tol).all()), f"train parity ({mode}) optimizer step {n}")
+        d_own = (w_card - cwrt[n].detach()).abs()
         own_err = max(own_err, float(d_own.max()))
         own_over += int((d_own > tol).sum())
     out.update(
@@ -553,9 +631,10 @@ def train_parity(checks, args, quant, distill, cfg) -> dict:
     return out
 
 
-def step_breakdown(task, state, batch, quant, distill, tx, reps) -> dict:
-    """Median host seconds of each stage of a 4-bit train step, with a
-    synchronize after each (the body of ``make_train_step``, opened up)."""
+def step_breakdown(task, state, batch, quant, distill, tx, reps, mode: str = "weights") -> dict:
+    """Median host seconds of each stage of a quantized train step, with a
+    synchronize after each (the body of ``make_train_step``, opened up).
+    The quantize stage is ``fake_quant_tree`` (uniform) or ``codebook_tree``."""
     times = {}
 
     def stage(name, fn):
@@ -565,17 +644,17 @@ def step_breakdown(task, state, batch, quant, distill, tx, reps) -> dict:
         times.setdefault(name, []).append(time.perf_counter() - t0)
         return out
 
-    params = state.params
+    tree = "codebook_tree" if quant.method == "codebook" else "fake_quant_tree"
+    wrt = trainable(state.params, state.codebooks, mode)
     for _ in range(reps + 1):
         torch.cuda.synchronize()
-        qp = stage("fake_quant_tree", lambda: quantized_params(params, quant))
+        qp = stage(tree, lambda: quantized_params(state.params, quant, state.codebooks))
         logits, _ = stage("student_forward", lambda: task.student_forward(qp, batch, True, None))
         t_logits = stage("teacher_forward", lambda: task.teacher_forward(batch))
         loss, _ = stage("loss", lambda: task.loss_and_metrics(logits, t_logits, batch, distill))
-        grads = stage("backward", lambda: torch.autograd.grad(loss, list(params.values())))
-        grads = dict(zip(params, grads))
-        stage("optimizer", lambda: apply_updates(params, tx.update(grads, state.opt_state,
-                                                                   params)[0]))
+        grads = stage("backward", lambda: torch.autograd.grad(loss, list(wrt.values())))
+        grads = dict(zip(wrt, grads))
+        stage("optimizer", lambda: apply_updates(wrt, tx.update(grads, state.opt_state, wrt)[0]))
     return {k: statistics.median(v[1:]) for k, v in times.items()}  # the first warms up
 
 
@@ -600,8 +679,7 @@ def phase_train(checks, args, smi) -> dict:
     launches = read_counts()
     loss = [float(m["loss"]) for m in metrics]
     gnorm = [float(m["grad_norm"]) for m in metrics]
-    want = {"dequant_matmul": 0, "dequant_matmul_topk": 0, "beam_combine_topk": 0,
-            "fake_quant_buckets": args.train_steps + 1}
+    want = expected(fake_quant_buckets=args.train_steps + 1)
     checks.require(launches == want, f"train path launches {launches}, expected {want}")
     checks.require(all(map(math.isfinite, loss + gnorm)), "train loss or grad_norm not finite")
     checks.require(loss[-1] < loss[0], f"train loss did not fall: {loss[0]} -> {loss[-1]}")
@@ -641,6 +719,215 @@ def phase_train(checks, args, smi) -> dict:
     return row
 
 
+def gather_backward_ms(points, w) -> dict:
+    """Device ms of the codebook gather ``points[idx]`` forward and backward
+    at one leaf's size: through ``ops.codebook.PointGather`` (a weighted
+    histogram) and through autograd's own backward of the index (an
+    index-put with accumulation)."""
+    from quantized_distillation_tpu_torch.ops.codebook import PointGather, quantize
+
+    idx = quantize(w.detach(), points).idx
+    cot = torch.randn(idx.shape, device=idx.device, generator=torch.Generator(
+        device=idx.device).manual_seed(0))
+    p = points.detach().clone().requires_grad_(True)
+    out = {}
+    for name, fn in (("histogram", lambda: PointGather.apply(p, idx)),
+                     ("autograd_index", lambda: p[idx])):
+        out[name] = cuda_ms(lambda: torch.autograd.grad((fn() * cot).sum(), p), iters=5)
+    return out
+
+
+def phase_codebook_train(checks, args, smi) -> dict:
+    """Differentiable quantization at full width: a joint codebook KD run,
+    its eval, card-vs-CPU parity at B = 8, timing in turns with the FP32
+    step, a stage breakdown, a profile, and a 2-step ``codebooks`` run.
+    Returns the trained codebooks. The JAX package runs no Pallas kernel on
+    this path (its codebook fake-quant is plain XLA), and neither does the
+    port: every launch counter must stay at 0."""
+    dev = torch.device("cuda")
+    quant, distill = QuantSpec(bits=args.bits, method="codebook"), DistillSpec()
+    cfg = TrainConfig(learning_rate=1e-3, clip_norm=5.0)
+    student, task, batch = kd_setup(args, dev, args.train_batch, args.seed + 30)
+    tx = build_optimizer(cfg)
+    state = create_train_state(dict(student.named_parameters()), tx, quant=quant, mode="joint",
+                               codebook_init="uniform", device=dev)
+    w0 = {n: p.detach().clone() for n, p in state.params.items()}
+    b0 = {n: b.detach().clone() for n, b in state.codebooks.items()}
+    step = make_train_step(task, tx, quant=quant, distill=distill, mode="joint", device=dev)
+    eval_step = make_eval_step(task, quant=quant, device=dev)
+    zero_counts()
+    metrics = []
+    for _ in range(args.train_steps):
+        state, m = step(state, batch, args.seed)
+        metrics.append(m)
+    ev = eval_step(state, batch)
+    launches = read_counts()
+    loss = [float(m["loss"]) for m in metrics]
+    gnorm = [float(m["grad_norm"]) for m in metrics]
+    checks.require(launches == expected(), f"codebook train launches {launches}, expected none")
+    checks.require(all(map(math.isfinite, loss + gnorm)), "codebook loss or grad_norm not finite")
+    checks.require(loss[-1] < loss[0], f"codebook loss did not fall: {loss[0]} -> {loss[-1]}")
+    moved_w = sum(not torch.equal(state.params[n], w0[n]) for n in w0)
+    moved_b = sum(not torch.equal(state.codebooks[n], b0[n]) for n in b0)
+    checks.require(moved_w > 0 and moved_b > 0,
+                   f"joint: {moved_w} weight tensors and {moved_b} codebooks moved")
+    eval_nll = float(ev["nll_sum"]) / float(ev["n_tokens"])
+    checks.require(math.isfinite(eval_nll), "codebook eval nll not finite")
+    parity = train_parity(checks, args, quant, distill, cfg, mode="joint")
+
+    ntok = args.train_batch * args.src_len
+    fp_state = create_train_state(state.params, build_optimizer(cfg), device=dev)
+    fp_step = make_train_step(task, build_optimizer(cfg), quant=None, distill=distill, device=dev)
+    holder = {"joint": state, "fp32": fp_state}
+
+    def run(key, fn):
+        holder[key], m = fn(holder[key], batch, args.seed)
+        float(m["loss"])
+
+    t_cb, t_fp = [], []
+    for i in range(args.reps):  # in turns, so drift on the host hits both alike
+        legs = ((("joint", step), t_cb), (("fp32", fp_step), t_fp))
+        for (key, fn), out in legs[:: 1 if i % 2 == 0 else -1]:
+            out += timed_runs(lambda: run(key, fn), 1)
+    med_cb, med_fp = statistics.median(t_cb), statistics.median(t_fp)
+    state = holder["joint"]
+    stages = step_breakdown(task, state, as_batch(batch, dev), quant, distill, tx, args.reps,
+                            mode="joint")
+    torch.cuda.reset_peak_memory_stats()
+    run("joint", step)
+    peak = torch.cuda.max_memory_allocated()
+    phase_profile(lambda: run("joint", step), med_cb, phase="codebook_train_profile")
+    books = {n: b.detach().clone() for n, b in holder["joint"].codebooks.items()}
+    gather = gather_backward_ms(books["generator/kernel"], state.params["generator_kernel"])
+
+    # differentiable quantization proper: weights frozen, codebooks trained
+    cb_tx = build_optimizer(cfg)
+    cb_state = create_train_state(state.params, cb_tx, quant=quant, mode="codebooks", device=dev)
+    w1 = {n: p.detach().clone() for n, p in cb_state.params.items()}
+    b1 = {n: b.detach().clone() for n, b in cb_state.codebooks.items()}
+    cb_step = make_train_step(task, cb_tx, quant=quant, distill=distill, mode="codebooks",
+                              device=dev)
+    cb_loss = []
+    for _ in range(2):
+        cb_state, m = cb_step(cb_state, batch, args.seed)
+        cb_loss.append(float(m["loss"]))
+    frozen = all(torch.equal(cb_state.params[n], w1[n]) for n in w1)
+    cb_moved = sum(not torch.equal(cb_state.codebooks[n], b1[n]) for n in b1)
+    checks.require(frozen, "codebooks mode changed a weight")
+    checks.require(cb_moved > 0, "codebooks mode moved no codebook")
+    emit({
+        "phase": "codebook_train", "preset": args.preset, "teacher": "teacher",
+        "vocab": args.vocab, "batch": args.train_batch, "len": args.src_len, "bits": args.bits,
+        "mode": "joint", "codebook_init": "uniform", "steps": len(loss), "launches": launches,
+        "loss": loss, "grad_norm": gnorm, "weight_tensors_moved": moved_w,
+        "codebooks_moved": moved_b, "codebooks": len(b0), "eval_nll_per_token": eval_nll,
+        "parity_cuda_vs_cpu": parity,
+        "step_seconds_codebook": t_cb, "step_seconds_fp32": t_fp,
+        "tokens_per_s_codebook": ntok / med_cb, "tokens_per_s_fp32": ntok / med_fp,
+        "vs_baseline": med_fp / med_cb, "peak_device_bytes": peak,
+        "stage_seconds_codebook": stages, "generator_gather_fwd_bwd_ms": gather,
+        "codebooks_mode": {"steps": 2, "loss": cb_loss, "weights_bit_identical": frozen,
+                           "codebooks_moved": cb_moved},
+        "card": smi,
+    })
+    return books
+
+
+def phase_lut_kernels(checks, dec, rows, gen):
+    """The LUT variants at the exact codebook deploy's shapes against their
+    plain versions: dequant-matmul at the three decode-step shapes for 2/4/8
+    bits and f32/bf16 compute, the fused generator at [rows, 256] x [256,
+    32000] (padded to 32768 with edge weights, no -1e9 bias), 4-bit, k = 5,
+    with exact indices at f32 and the uniform kernel timed at the same
+    masked width."""
+    row = kernel_dequant_matmul(checks, "dequant_matmul_lut", JAXK + "dequant_matmul.py:113",
+                                dec, rows, gen, lut_bits=(2, 4, 8))
+    g = dec.generator
+    x = torch.randn(rows, g.shape[0], generator=gen).to("cuda")
+    i = dequant_matmul_topk(x, g, 5, compute_dtype=torch.float32)[1]
+    ri = dequant_matmul_topk_reference(x, g, 5, compute_dtype=torch.float32)[1]
+    checks.require(torch.equal(i, ri), "dequant_matmul_topk_lut/f32: indices not exact")
+    gu = pack_linear(dequantize_linear(g), g.bits, bias=g.bias, max_group=g.group)
+    uniform_ms = cuda_ms(lambda: dequant_matmul_topk(x, gu, 5, compute_dtype=torch.bfloat16))
+    return [row, kernel_topk(checks, "dequant_matmul_topk_lut", JAXK + "topk_fused.py:197", g,
+                             rows, gen, {"uniform_kernel_ms_same_shape": uniform_ms})]
+
+
+def phase_codebook_path(checks, args, model, params, points, smi, uniform) -> dict:
+    """The exact-LUT codebook deploy at full width: launch counts, finite
+    scores, f32 tokens equal to the CPU plain path; then a requant8 deploy
+    (uniform 8-bit kernels only); tokens/s of both and of the uniform packed
+    deploy, in turns; a profile of the exact deploy."""
+    dev = torch.device("cuda")
+    cfg = BeamConfig(beam_size=args.beam, max_len=args.src_len)
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    src = torch.randint(4, args.vocab, (args.batch, args.src_len), generator=gen)
+    src_len = torch.full((args.batch,), args.src_len, dtype=torch.int64)
+    group = pick_generator_group(args.batch * args.beam)
+    steps = cfg.max_len
+
+    def deploy(lut_mode, cd=torch.bfloat16, device=dev):
+        return pack_decoder(params, model.cfg, args.bits, points=points, lut_mode=lut_mode,
+                            compute_dtype=cd, generator_group=group, device=device)
+
+    dec = deploy("exact")
+    zero_counts()
+    toks, scores = beam_search_packed(model, dec, src, src_len, cfg, device=dev)
+    launches = read_counts()
+    want = expected(dequant_matmul_lut=3 * steps, dequant_matmul_topk_lut=steps,
+                    beam_combine_topk=steps)
+    checks.require(launches == want, f"codebook path launches {launches}, expected {want}")
+    checks.require(tuple(toks.shape) == (args.batch, steps), f"tokens shape {tuple(toks.shape)}")
+    checks.require(bool(torch.isfinite(scores).all()), "codebook path scores not finite")
+    checks.require(bool(((toks >= 0) & (toks < args.vocab)).all()), "token ids out of range")
+
+    ns = args.cpu_sentences
+    g_toks, g_scores = beam_search_packed(model, deploy("exact", torch.float32), src[:ns],
+                                          src_len[:ns], cfg, device=dev)
+    cpu_model = make_seq2seq(args.preset, args.vocab, args.vocab, device="cpu", seed=args.seed)
+    c_toks, c_scores = beam_search_packed(cpu_model, deploy("exact", torch.float32, "cpu"),
+                                          src[:ns], src_len[:ns], cfg, device="cpu")
+    tok_equal = torch.equal(g_toks.cpu(), c_toks)
+    checks.require(tok_equal, "codebook f32 tokens on the card differ from the CPU plain path")
+    score_err = float((g_scores.cpu() - c_scores).abs().max())
+
+    rq = deploy("requant8")
+    zero_counts()
+    beam_search_packed(model, rq, src, src_len, cfg, device=dev)
+    rq_launches = read_counts()
+    rq_want = expected(dequant_matmul=3 * steps, dequant_matmul_topk=steps, beam_combine_topk=steps)
+    checks.require(rq_launches == rq_want, f"requant8 launches {rq_launches}, expected {rq_want}")
+    uni = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.bfloat16,
+                       generator_group=group, device=dev)
+
+    legs = {"exact": dec, "requant8": rq, "uniform": uni}
+    times = {k: [] for k in legs}
+    for i in range(args.reps):  # in turns, so drift on the host hits every leg alike
+        order = list(legs) if i % 2 == 0 else list(legs)[::-1]
+        for k in order:
+            times[k] += timed_runs(
+                lambda: beam_search_packed(model, legs[k], src, src_len, cfg, device=dev), 1)
+    ntok = args.batch * steps
+    med = {k: statistics.median(v) for k, v in times.items()}
+    emit({
+        "phase": "codebook_path", "preset": args.preset, "vocab": args.vocab,
+        "batch": args.batch, "beam": args.beam, "max_len": steps, "bits": args.bits,
+        "points": "generator/kernel codebook of the codebook_train phase",
+        "generator_group": group, "generator_padded": dec.generator.n_padded,
+        "launches": launches, "requant8_launches": rq_launches,
+        "f32_tokens_equal_cpu": tok_equal, "f32_sentences": ns,
+        "f32_score_max_abs_diff": score_err,
+        "exact_bf16_tokens_per_s": ntok / med["exact"],
+        "requant8_bf16_tokens_per_s": ntok / med["requant8"],
+        "uniform_bf16_tokens_per_s": ntok / med["uniform"],
+        "seconds": times,
+        "main_path_phase": uniform, "card": smi,
+    })
+    phase_profile(lambda: beam_search_packed(model, dec, src, src_len, cfg, device=dev),
+                  med["exact"], phase="codebook_profile")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", default="student_medium")
@@ -666,14 +953,26 @@ def main(argv=None) -> int:
     model = make_seq2seq(args.preset, args.vocab, args.vocab, device="cuda", seed=args.seed)
     params = params_to_numpy(model)
     rows = args.batch * args.beam
+    group = pick_generator_group(rows)
     dec = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.bfloat16,
-                       generator_group=pick_generator_group(rows), device="cuda")
+                       generator_group=group, device="cuda")
     table = phase_kernels(checks, dec, rows, torch.Generator().manual_seed(args.seed + 2))
-    launches = phase_main_path(checks, args, model, params, smi)
+    launches, uniform = phase_main_path(checks, args, model, params, smi)
     for row in table:
         row["launches"] = launches[row["name"]]
-    del model, dec
+    del dec
     table.append(phase_train(checks, args, smi))
+
+    books = phase_codebook_train(checks, args, smi)
+    points = books["generator/kernel"].cpu()
+    dec = pack_decoder(params, model.cfg, args.bits, points=points, lut_mode="exact",
+                       compute_dtype=torch.bfloat16, generator_group=group, device="cuda")
+    lut_rows = phase_lut_kernels(checks, dec, rows, torch.Generator().manual_seed(args.seed + 4))
+    del dec
+    launches = phase_codebook_path(checks, args, model, params, points, smi, uniform)
+    for row in lut_rows:
+        row["launches"] = launches[row["name"]]
+    table += lut_rows
     if checks.failed:
         print(f"{len(checks.failed)} check(s) failed", file=sys.stderr)
         return 1

@@ -8,8 +8,11 @@ layout with f32 torch tensors, which :meth:`Seq2Seq.load_params` and
 exports a port model (or its gradients) back into it, and
 :func:`flax_leaves` / :func:`fuse_flax_leaves` view the port's fused
 parameters leaf by leaf under flax's path names (``decoder/lstm_0/ii/kernel``),
-which is how the training slice buckets them. Layouts are kept as flax has
-them:
+which is how the training slice buckets them. A learned-codebook tree is a
+flat dict from flax path to its ``[2^bits]`` points, keyed as the JAX
+package's ``path_str`` keys it: :func:`codebooks_from_numpy` and
+:func:`codebooks_to_numpy` carry it between the packages unchanged. Layouts
+are kept as flax has them:
 
 - ``Dense`` kernels are ``[in, out]`` (the port multiplies ``x @ kernel``);
 - an ``OptimizedLSTMCell`` holds input kernels ``ii, if, ig, io`` (no bias)
@@ -114,6 +117,16 @@ def params_to_numpy(params) -> Tree:
             node = node.setdefault(k, {})
         node[leaf] = _np(t)
     return tree
+
+
+def codebooks_from_numpy(books: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Codebook tree (flax path → ``[2^bits]`` array) → f32 CPU tensors."""
+    return {path: params_from_numpy(v) for path, v in books.items()}
+
+
+def codebooks_to_numpy(books: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's codebook tree → flax path → f32 numpy array."""
+    return {path: _np(t) for path, t in books.items()}
 
 
 def _np(t: torch.Tensor) -> np.ndarray:

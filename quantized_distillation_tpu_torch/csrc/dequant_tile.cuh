@@ -6,10 +6,16 @@
 // byte i of a bucket is column i + t*256/f, f = 8/bits), and the per-bucket
 // affine is scale/offset [Npad/256, K] f32, so w[k,n] = lvl*s[j,k] + o[j,k]
 // with j = n/256. A 64-column tile never straddles a bucket, so each K-row
-// of a tile has one (scale, offset) pair.
+// of a tile has one (scale, offset) pair. A learned-codebook matrix (LUT
+// variant) stores each weight's point index as its level and the 2^bits f32
+// points beside it: w[k,n] = pts[lvl]*s[j,k] + o[j,k]. Its block first loads
+// the points (at most 256 floats) into shared memory with load_lut, and the
+// tile loop looks each level up there: a GPU gathers from shared memory in
+// one instruction, where the TPU kernel needs 2^bits select passes.
 //
 // Rounding follows the plain PyTorch version (dequant_matmul_reference):
-// the weight is dequantized in f32 (separate multiply and add, no fused
+// the weight (or its LUT value) is dequantized in f32 (separate multiply
+// and add, no fused
 // multiply-add, so it is the same float), both operands are rounded to the
 // compute type (bf16 or f32), and the products are summed in f32. A product
 // of two bf16 values is exact in f32, so only the order of the sum differs
@@ -27,6 +33,7 @@ constexpr int BM = 64;   // tile rows
 constexpr int BN = 64;   // tile columns (divides BUCKET)
 constexpr int BK = 16;   // K slab per shared-memory stage
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+constexpr int LUT_MAX = 256;  // points of an 8-bit codebook
 
 template <bool BF16>
 __device__ __forceinline__ float to_compute(float v) {
@@ -54,14 +61,23 @@ __device__ __forceinline__ int unpack_level(const uint8_t* packed,
   return (b >> ((c / plane) * bits)) & ((1 << bits) - 1);
 }
 
+// Copy the 2^bits codebook points into shared memory; every thread of the
+// block calls it, and it ends with a barrier.
+__device__ __forceinline__ void load_lut(const float* __restrict__ points,
+                                         int bits, float* lut) {
+  for (int i = threadIdx.x; i < (1 << bits); i += blockDim.x) lut[i] = points[i];
+  __syncthreads();
+}
+
 // acc[i][jj] += sum_k x[row0 + ty*4 + i, k] * w[k, col0 + tx*4 + jj], with
-// rows >= M and columns >= N read as 0. Every thread of the block calls it;
+// rows >= M and columns >= N read as 0; with LUT, a level indexes the points
+// in shared memory `lut` (see load_lut). Every thread of the block calls it;
 // it ends with a barrier, so the caller may reuse shared memory after it.
-template <typename XT, bool BF16>
+template <typename XT, bool BF16, bool LUT>
 __device__ __forceinline__ void tile_mma(
     const XT* __restrict__ x, int M, int K, const uint8_t* __restrict__ packed,
     const float* __restrict__ scale, const float* __restrict__ offset,
-    int bits, int64_t row_bytes, int N, int row0, int col0,
+    const float* lut, int bits, int64_t row_bytes, int N, int row0, int col0,
     float (&acc)[4][4], float (*As)[BM], float (*Bs)[BN]) {
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
@@ -82,7 +98,8 @@ __device__ __forceinline__ void tile_mma(
       const int gk = k0 + kk, gn = col0 + cn;
       float w = 0.f;
       if (gk < K && gn < N) {
-        const float lvl = (float)unpack_level(packed, row_bytes, gk, gn, bits);
+        const int level = unpack_level(packed, row_bytes, gk, gn, bits);
+        const float lvl = LUT ? lut[level] : (float)level;
         const int64_t so = (int64_t)j * K + gk;
         w = to_compute<BF16>(__fadd_rn(__fmul_rn(lvl, scale[so]), offset[so]));
       }

@@ -2,9 +2,12 @@
 // (k <= 8) logits with their vocab indices and the row logsumexp, without
 // writing the [M, N] logits to device memory.
 //
-// Replaces the uniform branch of the TPU kernel _topk_kernel of
+// Replaces the TPU kernel _topk_kernel of
 // quantized_distillation_tpu/kernels/topk_fused.py (launched by
-// dequant_matmul_topk there). That kernel walks the vocab in order on one
+// dequant_matmul_topk there), both its uniform branch and its codebook-LUT
+// branch (pts_ref): given a codebook, each level is first looked up in the
+// 2^bits points, which pass 1 keeps in shared memory (dequant_tile.cuh's LUT
+// variant). That kernel walks the vocab in order on one
 // core, carrying lane-class survivors in VMEM from one grid step to the
 // next. Blocks on a GPU run in no order and carry nothing between them, so
 // this is two passes:
@@ -23,8 +26,10 @@
 // values by ascending index: the order of jax.lax.top_k and of the plain
 // version's stable sort), so the result is exact for every input and the
 // TPU kernel's exactness certificate is always 1. Padded vocab columns take
-// part with whatever bias they carry (the serving generator gives them
-// -1e9), and columns at or past the logical width N never do.
+// part with whatever bias they carry (the uniform serving generator is
+// packed N-wide with -1e9 there), and columns at or past the logical width N
+// never do: a codebook generator is packed with edge-padded weights and an
+// N-long bias, so pass 1 masks every column n >= N itself.
 //
 // What bounds it on an H100: at the serving shape (M = 1280, K = 256,
 // N = 32768) it does 21.5 GFLOP against ~6 MB (the 4 MB of packed weights
@@ -79,12 +84,13 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2
   m = mx;
 }
 
-template <typename XT, bool BF16>
+template <typename XT, bool BF16, bool LUT>
 __global__ void __launch_bounds__(THREADS)
     topk_partial_kernel(const XT* __restrict__ x,
                         const uint8_t* __restrict__ packed,
                         const float* __restrict__ scale,
                         const float* __restrict__ offset,
+                        const float* __restrict__ points,
                         const float* __restrict__ bias, int M, int K, int N,
                         int bits, int64_t row_bytes, int tiles_per_split,
                         int splits, float* __restrict__ part_v,
@@ -93,6 +99,8 @@ __global__ void __launch_bounds__(THREADS)
   __shared__ float As[BK][BM];
   __shared__ float Bs[BK][BN];
   __shared__ float S[BM][BN + 1];
+  __shared__ float lut[LUT ? LUT_MAX : 1];
+  if constexpr (LUT) load_lut(points, bits, lut);
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int r = tid / SEL, q = tid % SEL;  // select role: row r, quarter q
@@ -114,8 +122,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int t = t0; t < t1; ++t) {
     const int col0 = t * BN;
     float acc[4][4] = {};
-    tile_mma<XT, BF16>(x, M, K, packed, scale, offset, bits, row_bytes, N,
-                       row0, col0, acc, As, Bs);
+    tile_mma<XT, BF16, LUT>(x, M, K, packed, scale, offset, lut, bits,
+                            row_bytes, N, row0, col0, acc, As, Bs);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -207,34 +215,49 @@ __global__ void topk_merge_kernel(const float* __restrict__ part_v,
   out_lse[row] = m + logf(s);
 }
 
-template <typename XT, bool BF16>
+template <typename XT, bool BF16, bool LUT>
 static void launch_partial(const void* x, const void* packed, const void* scale,
-                           const void* offset, const void* bias, int M, int K,
-                           int N, int bits, int64_t row_bytes,
-                           int tiles_per_split, int splits, void* part_v,
-                           void* part_i, void* part_m, void* part_s,
-                           cudaStream_t stream) {
+                           const void* offset, const void* points,
+                           const void* bias, int M, int K, int N, int bits,
+                           int64_t row_bytes, int tiles_per_split, int splits,
+                           void* part_v, void* part_i, void* part_m,
+                           void* part_s, cudaStream_t stream) {
   dim3 grid((M + BM - 1) / BM, splits);
-  topk_partial_kernel<XT, BF16><<<grid, THREADS, 0, stream>>>(
+  topk_partial_kernel<XT, BF16, LUT><<<grid, THREADS, 0, stream>>>(
       static_cast<const XT*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const float*>(scale), static_cast<const float*>(offset),
-      static_cast<const float*>(bias), M, K, N, bits, row_bytes,
-      tiles_per_split, splits, static_cast<float*>(part_v),
+      static_cast<const float*>(points), static_cast<const float*>(bias), M, K,
+      N, bits, row_bytes, tiles_per_split, splits, static_cast<float*>(part_v),
       static_cast<int*>(part_i), static_cast<float*>(part_m),
       static_cast<float*>(part_s));
 }
 
+template <typename XT, bool BF16>
+static void launch_partial_lut(const void* x, const void* packed,
+                               const void* scale, const void* offset,
+                               const void* points, const void* bias, int M,
+                               int K, int N, int bits, int64_t row_bytes,
+                               int tiles_per_split, int splits, void* part_v,
+                               void* part_i, void* part_m, void* part_s,
+                               cudaStream_t stream) {
+  if (points)
+    launch_partial<XT, BF16, true>(x, packed, scale, offset, points, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, stream);
+  else
+    launch_partial<XT, BF16, false>(x, packed, scale, offset, points, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, stream);
+}
+
 }  // namespace qdt
 
-// x: [M, K] f32 or bf16 (x_bf16); packed/scale/offset as in
+// x: [M, K] f32 or bf16 (x_bf16); packed/scale/offset/points as in
 // qdt_dequant_matmul; bias: f32 [N] (required); scratch part_v/part_i
 // [M, splits, 8] and part_m/part_s [M, splits]; outputs out_v f32 [M, k],
 // out_i int32 [M, k], out_lse f32 [M]. Vocab tile t (64 columns) belongs to
 // split t / tiles_per_split. Returns cudaGetLastError() after both launches.
 extern "C" int qdt_topk_fused(const void* x, int x_bf16, int compute_bf16,
                               const void* packed, const void* scale,
-                              const void* offset, const void* bias, int M,
-                              int K, int N, int npad, int bits, int k,
+                              const void* offset, const void* points,
+                              const void* bias, int M, int K, int N, int npad,
+                              int bits, int k,
                               int tiles_per_split, int splits, void* part_v,
                               void* part_i, void* part_m, void* part_s,
                               void* out_v, void* out_i, void* out_lse,
@@ -244,14 +267,14 @@ extern "C" int qdt_topk_fused(const void* x, int x_bf16, int compute_bf16,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_bf16) {
     if (compute_bf16)
-      launch_partial<__nv_bfloat16, true>(x, packed, scale, offset, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, s);
+      launch_partial_lut<__nv_bfloat16, true>(x, packed, scale, offset, points, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, s);
     else
-      launch_partial<__nv_bfloat16, false>(x, packed, scale, offset, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, s);
+      launch_partial_lut<__nv_bfloat16, false>(x, packed, scale, offset, points, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, s);
   } else {
     if (compute_bf16)
-      launch_partial<float, true>(x, packed, scale, offset, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, s);
+      launch_partial_lut<float, true>(x, packed, scale, offset, points, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, s);
     else
-      launch_partial<float, false>(x, packed, scale, offset, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, s);
+      launch_partial_lut<float, false>(x, packed, scale, offset, points, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, s);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,10 +1,13 @@
 """Dequantize + matmul of packed weights: ``x [M, K] @ dequant(p) [K, N]``.
 
-PyTorch port of the JAX package's ``kernels/dequant_matmul.py`` (uniform
-grid). :func:`dequant_matmul` dispatches on the device of ``x``: a CPU
-tensor runs the plain version :func:`dequant_matmul_reference`, a CUDA
-tensor launches the hand-written kernel ``csrc/dequant_matmul.cu`` (or
-raises). ``dequant_matmul.launches`` counts kernel launches.
+PyTorch port of the JAX package's ``kernels/dequant_matmul.py``: the
+uniform grid and, for a matrix packed with a learned codebook
+(``p.points`` set), its LUT variant. :func:`dequant_matmul` dispatches on
+the device of ``x``: a CPU tensor runs the plain version
+:func:`dequant_matmul_reference`, a CUDA tensor launches the hand-written
+kernel ``csrc/dequant_matmul.cu`` (or raises). ``dequant_matmul.launches``
+counts launches of the uniform kernel, ``dequant_matmul.launches_lut`` those
+of the LUT variant.
 """
 
 from __future__ import annotations
@@ -18,16 +21,17 @@ from .packed import PackedLinear, dequantize_linear
 
 _COMPUTE = (torch.float32, torch.bfloat16)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# qdt_dequant_matmul(x, x_bf16, compute_bf16, packed, scale, offset, bias,
-#                    out, M, K, N, npad, bits, stream)
-_ARGTYPES = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# qdt_dequant_matmul(x, x_bf16, compute_bf16, packed, scale, offset, points,
+#                    bias, out, M, K, N, npad, bits, stream)
+_ARGTYPES = [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 
 
 def dequant_matmul_reference(
     x: torch.Tensor, p: PackedLinear, *, compute_dtype=torch.float32
 ) -> torch.Tensor:
-    """Plain version: dense dequant in f32, both operands rounded to
-    ``compute_dtype``, products summed in f32 (+ bias) → f32 [M, N]."""
+    """Plain version: dense dequant in f32 (through the LUT when
+    ``p.points`` is set), both operands rounded to ``compute_dtype``,
+    products summed in f32 (+ bias) → f32 [M, N]."""
     w = dequantize_linear(p, dtype=compute_dtype).to(torch.float32)
     out = x.to(compute_dtype).to(torch.float32) @ w
     if p.bias is not None:
@@ -46,7 +50,7 @@ def check_operands(x: torch.Tensor, p: PackedLinear, compute_dtype) -> None:
         raise ValueError(f"x must be f32 or bf16, got {x.dtype}")
     if p.bits not in (2, 4, 8):
         raise ValueError(f"bits must be 2, 4 or 8, got {p.bits}")
-    tensors = [x, p.packed, p.scale, p.offset] + ([p.bias] if p.bias is not None else [])
+    tensors = [x, p.packed, p.scale, p.offset] + [t for t in (p.points, p.bias) if t is not None]
     for t in tensors:
         if t.device != x.device:
             raise ValueError(f"operands on {t.device} and {x.device}")
@@ -54,6 +58,12 @@ def check_operands(x: torch.Tensor, p: PackedLinear, compute_dtype) -> None:
             raise ValueError("kernel operands must be contiguous")
     if p.packed.dtype != torch.uint8 or p.scale.dtype != torch.float32:
         raise ValueError("packed must be uint8 and scale/offset f32")
+    if p.bias is not None and tuple(p.bias.shape) != (p.shape[1],):
+        raise ValueError(f"bias must be [{p.shape[1]}], got {tuple(p.bias.shape)}")
+    if p.points is not None and (p.points.dtype != torch.float32
+                                 or tuple(p.points.shape) != (1 << p.bits,)):
+        raise ValueError(f"points must be f32 [{1 << p.bits}], got {p.points.dtype} "
+                         f"{tuple(p.points.shape)}")
 
 
 def dequant_matmul(
@@ -72,12 +82,17 @@ def dequant_matmul(
     _build.check(
         fn(_build.ptr(x), int(x.dtype == torch.bfloat16),
            int(compute_dtype == torch.bfloat16), _build.ptr(p.packed),
-           _build.ptr(p.scale), _build.ptr(p.offset), _build.ptr(p.bias),
-           _build.ptr(out), m, k, n, p.n_padded, p.bits, _build.stream()),
+           _build.ptr(p.scale), _build.ptr(p.offset), _build.ptr(p.points),
+           _build.ptr(p.bias), _build.ptr(out), m, k, n, p.n_padded, p.bits,
+           _build.stream()),
         "dequant_matmul",
     )
-    dequant_matmul.launches += 1
+    if p.points is None:
+        dequant_matmul.launches += 1
+    else:
+        dequant_matmul.launches_lut += 1
     return out
 
 
 dequant_matmul.launches = 0
+dequant_matmul.launches_lut = 0

@@ -12,8 +12,11 @@ same, so a matrix packed by either package is read by both.
   is ``levels * scale + offset``.
 - N is edge-padded to a whole number of bucket groups; ``shape`` keeps the
   logical (K, N).
-
-The learned-codebook branches (``points=``) are not ported yet.
+- A learned codebook packed ``lut_mode="exact"`` stores each weight's
+  nearest-point index as its level and the ``2^bits`` f32 points as a LUT
+  (``points``), with the bucket scale unfolded: a weight is
+  ``points[level] * scale + offset``. ``lut_mode="requant8"`` snaps the
+  codebook values onto the uniform 8-bit grid and stores a uniform matrix.
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ from typing import Optional, Tuple
 import torch
 
 from ..ops.bucketing import LINEAR, compute_scale
+from ..ops.codebook import nearest_point_idx
 from ..ops.uniform import quantize_levels_01
 
 BUCKET = 256
 MAX_GROUP = 8
+LUT_MODES = ("exact", "requant8")
 
 
 @dataclasses.dataclass
@@ -40,7 +45,7 @@ class PackedLinear:
     bits: int  # container bits (unpack width)
     shape: Tuple[int, int]  # logical (K, N)
     group: int = 1  # buckets per grid step of the TPU kernels (fixes Npad)
-    points: Optional[torch.Tensor] = None  # codebook LUT; always None here
+    points: Optional[torch.Tensor] = None  # f32 [2^bits] codebook LUT (None = uniform)
     bias: Optional[torch.Tensor] = None  # f32 [N]
     quant_bits: Optional[int] = None  # grid bits when stored wider (store_bits=8)
 
@@ -63,6 +68,7 @@ class PackedLinear:
             packed=self.packed.to(device),
             scale=self.scale.to(device),
             offset=self.offset.to(device),
+            points=None if self.points is None else self.points.to(device),
             bias=None if self.bias is None else self.bias.to(device),
         )
 
@@ -121,26 +127,46 @@ def pack_linear(
     max_group: Optional[int] = None,
     store_bits: Optional[int] = None,
 ) -> PackedLinear:
-    """Quantize a [K, N] f32 matrix onto the uniform ``bits`` grid and pack it.
+    """Quantize a [K, N] f32 matrix and pack it: onto the uniform ``bits``
+    grid, or, with ``points`` (``[2^bits]`` in the scaled domain), onto the
+    nearest codebook point (see the module docstring for ``lut_mode``).
 
-    ``store_bits=8`` keeps the ``bits``-level decisions but stores one level
-    per byte (dequantized values are bit-identical to the sub-byte form).
-    The tensors of the result live on ``w``'s device."""
+    ``store_bits=8`` (uniform only) keeps the ``bits``-level decisions but
+    stores one level per byte (dequantized values are bit-identical to the
+    sub-byte form). The tensors of the result live on ``w``'s device."""
     if w.ndim != 2:
         raise ValueError(f"pack_linear expects a matrix, got shape {tuple(w.shape)}")
-    if points is not None or lut_mode != "exact":
-        raise NotImplementedError("codebook packing: later slice")
+    if lut_mode not in LUT_MODES:
+        raise ValueError(f"lut_mode must be one of {LUT_MODES}, got {lut_mode!r}")
     sb = bits if store_bits is None else store_bits
-    if sb != bits and sb != 8:
-        raise ValueError(f"store_bits must be 8 (one level/byte), got {sb}")
+    if sb != bits:
+        if points is not None:
+            raise ValueError(
+                "store_bits applies to the uniform grid; codebooks use lut_mode='requant8'"
+            )
+        if sb != 8:
+            raise ValueError(f"store_bits must be 8 (one level/byte), got {sb}")
     w = w.to(torch.float32)
+    if points is not None:
+        points = torch.as_tensor(points).detach().to(w.device, torch.float32)
     k, n = w.shape
+    requant = points is not None and lut_mode == "requant8"
+    if requant:
+        sb = 8
     wp = _pad_cols(w, sb, max_group)
     buckets = wp.reshape(k * wp.shape[1] // BUCKET, BUCKET)
     sp = compute_scale(buckets, scaling)
     x01 = (buckets - sp.offset) / sp.scale
-    levels = quantize_levels_01(x01, bits)
-    scale_eff = sp.scale / ((1 << bits) - 1)
+    if requant:  # the codebook values on the uniform 8-bit grid: a uniform matrix
+        vals01 = torch.clamp(points[nearest_point_idx(x01, points)], 0.0, 1.0)
+        levels = quantize_levels_01(vals01, 8)
+        scale_eff = sp.scale / 255.0
+        bits, points = 8, None
+    elif points is not None:
+        levels, scale_eff = nearest_point_idx(x01, points), sp.scale
+    else:
+        levels = quantize_levels_01(x01, bits)
+        scale_eff = sp.scale / ((1 << bits) - 1)
     nb = wp.shape[1] // BUCKET
     return PackedLinear(
         packed=_plane_pack(levels.reshape(k, wp.shape[1]), sb),
@@ -149,6 +175,7 @@ def pack_linear(
         bits=sb,
         shape=(k, n),
         group=bucket_group(sb, n, max_group),
+        points=None if points is None else points.contiguous(),
         bias=None if bias is None else bias.to(torch.float32).contiguous(),
         quant_bits=None if sb == bits else bits,
     )
@@ -159,6 +186,7 @@ def dequantize_linear(p: PackedLinear, dtype=torch.float32) -> torch.Tensor:
     computed in f32, then cast to ``dtype``."""
     levels = plane_unpack(p.packed, p.bits)
     k, npad = levels.shape
-    lv = levels.reshape(k, npad // BUCKET, BUCKET).to(torch.float32)
-    w = lv * p.scale.T[:, :, None] + p.offset.T[:, :, None]
+    lv = levels.reshape(k, npad // BUCKET, BUCKET)
+    vals = lv.to(torch.float32) if p.points is None else p.points[lv.long()]
+    w = vals * p.scale.T[:, :, None] + p.offset.T[:, :, None]
     return w.reshape(k, npad)[:, : p.shape[1]].to(dtype)

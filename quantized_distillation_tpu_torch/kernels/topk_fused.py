@@ -1,11 +1,16 @@
 """Fused generator: dequant + matmul + bias → per-row top-k and logsumexp.
 
-PyTorch port of the JAX package's ``kernels/topk_fused.py`` (uniform grid).
-:func:`dequant_matmul_topk` returns ``(values [M, k] f32, indices [M, k]
-int32, lse [M, 1] f32)`` without writing the [M, N] logits: on a CPU tensor
-through the plain version :func:`dequant_matmul_topk_reference`, on a CUDA
-tensor through the hand-written two-pass kernel ``csrc/topk_fused.cu`` (or
-raises). ``dequant_matmul_topk.launches`` counts kernel launches.
+PyTorch port of the JAX package's ``kernels/topk_fused.py``: the uniform
+grid and, for a generator packed with a learned codebook (``p.points``
+set), its LUT variant. :func:`dequant_matmul_topk` returns ``(values [M, k]
+f32, indices [M, k] int32, lse [M, 1] f32)`` without writing the [M, N]
+logits: on a CPU tensor through the plain version
+:func:`dequant_matmul_topk_reference`, on a CUDA tensor through the
+hand-written two-pass kernel ``csrc/topk_fused.cu`` (or raises).
+``dequant_matmul_topk.launches`` counts launches of the uniform kernel,
+``dequant_matmul_topk.launches_lut`` those of the LUT variant. Columns at
+or past the logical width ``p.shape[1]`` never take part, whatever the
+padding holds.
 
 The port's top-k is exact for every input, with ``jax.lax.top_k``'s order
 (values descending, equal values by ascending index). The TPU kernel's
@@ -30,10 +35,10 @@ KMAX = 8
 _BM, _BN = 64, 64  # the kernel's row and column tile (csrc/dequant_tile.cuh)
 _TARGET_BLOCKS = 4 * 132  # a few waves of blocks on the H100's 132 SMs
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# qdt_topk_fused(x, x_bf16, compute_bf16, packed, scale, offset, bias, M, K, N,
-#                npad, bits, k, tiles_per_split, splits, part_v, part_i,
-#                part_m, part_s, out_v, out_i, out_lse, stream)
-_ARGTYPES = [_P, _I, _I, _P, _P, _P, _P] + [_I] * 8 + [_P] * 8
+# qdt_topk_fused(x, x_bf16, compute_bf16, packed, scale, offset, points, bias,
+#                M, K, N, npad, bits, k, tiles_per_split, splits, part_v,
+#                part_i, part_m, part_s, out_v, out_i, out_lse, stream)
+_ARGTYPES = [_P, _I, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P] * 8
 
 
 def topk_sorted(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -60,8 +65,8 @@ def pick_generator_group(
 def dequant_matmul_topk_reference(
     x: torch.Tensor, p: PackedLinear, k: int, *, compute_dtype=torch.float32
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version: the plain dequant-matmul (+ bias), then exact top-k
-    and lse."""
+    """Plain version: the plain dequant-matmul (+ bias; through the LUT
+    when ``p.points`` is set), then exact top-k and lse."""
     logits = dequant_matmul_reference(x, p, compute_dtype=compute_dtype)
     vals, idx = topk_sorted(logits, k)
     lse = torch.logsumexp(logits, dim=-1, keepdim=True)
@@ -122,14 +127,18 @@ def _launch(x, p, k, compute_dtype):
     ptr = _build.ptr
     _build.check(
         fn(ptr(x), int(x.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
-           ptr(p.packed), ptr(p.scale), ptr(p.offset), ptr(bias), m, kk, n,
+           ptr(p.packed), ptr(p.scale), ptr(p.offset), ptr(p.points), ptr(bias), m, kk, n,
            p.n_padded, p.bits, k, tiles_per_split, splits, ptr(part_v),
            ptr(part_i), ptr(part_m), ptr(part_s), ptr(vals), ptr(idx), ptr(lse),
            _build.stream()),
         "dequant_matmul_topk",
     )
-    dequant_matmul_topk.launches += 1
+    if p.points is None:
+        dequant_matmul_topk.launches += 1
+    else:
+        dequant_matmul_topk.launches_lut += 1
     return vals, idx, lse
 
 
 dequant_matmul_topk.launches = 0
+dequant_matmul_topk.launches_lut = 0

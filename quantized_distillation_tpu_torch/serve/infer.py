@@ -19,8 +19,15 @@ The TPU generator kernel's tuning knobs ``topk_slots``, ``topk_lse_shift``,
 ``topk_fold`` and ``topk_pair`` are accepted by :func:`pack_decoder` and
 ignored: the port's top-k is exact, so they have nothing to tune.
 ``generator_group`` is kept because it fixes the generator's padded width,
-and so the packed bytes. The learned-codebook deploy (``points=``), the
-coverage penalty and per-hypothesis attention are not ported yet.
+and so the packed bytes. The coverage penalty and per-hypothesis attention
+are not ported yet.
+
+A learned-codebook deploy (``pack_decoder(points=...)``) packs every matrix
+with the codebook: ``lut_mode="exact"`` keeps each weight's point index
+and the LUT, so each decode step launches the LUT variants of the two
+kernels (3 dequant-matmuls and 1 fused generator); ``lut_mode="requant8"``
+(the default, as in the JAX package) snaps the codebook values onto the
+uniform 8-bit grid and runs the uniform kernels.
 """
 
 from __future__ import annotations
@@ -84,7 +91,7 @@ class PackedDecoder:
     cells: Tuple[PackedLSTMCell, ...]
     attn_in: Optional[torch.Tensor]  # [H, H] compute dtype (None = dot attention)
     attn_out: PackedLinear  # [2H, H]
-    generator: PackedLinear  # [H, V_pad] + bias (-1e9 on the padding)
+    generator: PackedLinear  # [H, V] + bias (uniform: V padded, -1e9 bias on the padding)
     hidden: int
     compute_dtype: torch.dtype = torch.bfloat16
 
@@ -119,28 +126,34 @@ def pack_decoder(
     """Flax-layout Seq2Seq parameters (see :mod:`..convert`) → packed
     decoder on ``device``. Packing runs on the CPU, so the bytes do not
     depend on the device; ``topk_*`` are accepted and ignored (see the
-    module docstring)."""
+    module docstring). ``points`` ([2^bits] in the scaled domain, a tensor
+    or an array) packs every matrix with that codebook, as ``lut_mode``
+    says; the generator then goes through ``pack_linear`` with its N-long
+    bias, and the fused kernel masks the padded columns itself."""
     dev = resolve_device(device)
     if points is not None:
-        raise NotImplementedError("codebook packing: later slice")
+        points = torch.as_tensor(points, dtype=torch.float32).cpu()
+    quant = dict(scaling=scaling, points=points, lut_mode=lut_mode)
     dec = params["decoder"]
     cells = []
     for i in range(cfg.num_layers):
         w, b = _fuse_cell(dec[f"lstm_{i}"])
-        cells.append(
-            PackedLSTMCell(w=pack_linear(w, bits, scaling=scaling).to(dev), bias=b.to(dev))
-        )
+        cells.append(PackedLSTMCell(w=pack_linear(w, bits, **quant).to(dev), bias=b.to(dev)))
     attn = dec["attn"]
     attn_in = None
     if cfg.attn_type == "general":
         attn_in = torch.as_tensor(attn["linear_in"]["kernel"]).to(dev, compute_dtype)
-    attn_out = pack_linear(torch.as_tensor(attn["linear_out"]["kernel"]), bits, scaling=scaling)
-    generator = pack_generator_sharded(
-        torch.as_tensor(params["generator"]["kernel"]),
-        torch.as_tensor(params["generator"]["bias"]),
-        bits, mp=1, scaling=scaling, max_group=generator_group,
-        store_bits=generator_store_bits,
-    )
+    attn_out = pack_linear(torch.as_tensor(attn["linear_out"]["kernel"]), bits, **quant)
+    gen_kernel = torch.as_tensor(params["generator"]["kernel"])
+    gen_bias = torch.as_tensor(params["generator"]["bias"])
+    if points is None:
+        generator = pack_generator_sharded(
+            gen_kernel, gen_bias, bits, mp=1, scaling=scaling, max_group=generator_group,
+            store_bits=generator_store_bits,
+        )
+    else:
+        generator = pack_linear(gen_kernel, bits, bias=gen_bias, max_group=generator_group,
+                                **quant)
     return PackedDecoder(
         tgt_embed=torch.as_tensor(params["tgt_embed"]["embedding"]).to(dev, compute_dtype),
         cells=tuple(cells),

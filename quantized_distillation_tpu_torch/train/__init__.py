@@ -1,13 +1,15 @@
 """Training (PyTorch port of the JAX package's ``train/``): the KD trainer
-with STE fake-quant weights, its losses, the NMT task and the loops.
+with STE fake-quant weights or learned codebooks, its losses, the NMT task,
+the loops and automatic bit assignment.
 
-Ported: mode ``weights`` (quantized distillation) for the seq2seq family.
-Still to come: differentiable quantization (``codebooks``/``joint``,
-``bits.py``), the experiment manager, the vision and LM tasks, and
+Ported for the seq2seq family: modes ``weights`` (quantized distillation),
+``codebooks`` and ``joint`` (differentiable quantization), and ``bits.py``.
+Still to come: the experiment manager, the vision and LM tasks, and
 multi-GPU training.
 """
 
-from . import losses, quantize_tree, tasks, trainer
+from . import bits, losses, quantize_tree, tasks, trainer
+from .bits import assign_bits, gradient_sensitivities
 from .loops import evaluate, fit
 from .losses import accuracy, cross_entropy, distillation_loss, kd_kl
 from .tasks import nmt_task
@@ -21,6 +23,9 @@ from .trainer import (
 )
 
 __all__ = [
+    "bits",
+    "assign_bits",
+    "gradient_sensitivities",
     "losses",
     "evaluate",
     "fit",

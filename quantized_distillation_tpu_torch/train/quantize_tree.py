@@ -14,8 +14,15 @@ order) and assembles the per-leaf results back into fused tensors
 ``bits_map`` keys read the same in both packages.
 
 Quantizable leaves: ndim >= 2 (kernels, embeddings) and no excluded
-substring in the path; biases stay full precision. The learned-codebook
-transforms come with differentiable quantization (slice 3 of the port).
+substring in the path; biases stay full precision.
+
+Differentiable quantization (``QuantSpec(method="codebook")``) keeps one
+learned codebook of ``2^bits`` points per quantizable leaf, in a flat dict
+keyed by flax path (:func:`init_codebook_tree`); :func:`ste_codebook_tree`
+fake-quantizes each leaf onto its codebook, straight-through in the weights
+and differentiable in the points. Its ops run leaf by leaf, eagerly (the
+JAX package compiles them into the step): a few hundred small launches per
+step, which the train step's stage breakdown reports as the codebook tree.
 """
 
 from __future__ import annotations
@@ -28,12 +35,12 @@ import torch
 from ..config import QuantSpec
 from ..convert import flax_leaves, flax_paths, fuse_flax_leaves
 from ..kernels.fake_quant import fake_quant_buckets
+from ..ops import codebook as cb
 from ..ops import uniform
-from ..ops.bucketing import from_buckets, to_buckets
+from ..ops.bucketing import apply_scale, compute_scale, from_buckets, to_buckets
 
 Params = Mapping[str, torch.Tensor]
-
-_CODEBOOKS = "learned codebooks (method='codebook') come with slice 3 of the port"
+Codebooks = Dict[str, torch.Tensor]
 
 
 def is_quantizable(path: str, leaf: torch.Tensor, spec: QuantSpec) -> bool:
@@ -106,9 +113,8 @@ def ste_quantize_tree(
     gradient: each touched parameter ``w`` becomes ``w + (q - w).detach()``.
     ``bits_map`` (flax path → bits) overrides ``spec.bits`` per leaf.
     Deterministic rounding takes one fake-quant launch per bits-group;
-    stochastic rounding needs ``generator``."""
-    if spec.method == "codebook":
-        raise NotImplementedError(_CODEBOOKS)
+    stochastic rounding needs ``generator``. (Learned codebooks go through
+    :func:`ste_codebook_tree`.)"""
     detached = {n: t.detach() for n, t in params.items()}
     values = _hard_values(detached, spec, bits_map, generator)
     q = map_quantizable(lambda p, _: values[p], detached, spec)
@@ -121,30 +127,46 @@ def ste_quantize_tree(
 def quantize_tree_hard(
     params: Params,
     spec: QuantSpec,
-    codebooks=None,
+    codebooks: Optional[Codebooks] = None,
     bits_map: Optional[Dict[str, int]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Quantize-dequantize values with no gradient path (deployment values;
     rounding is deterministic whatever ``spec.stochastic`` says, as in the
-    JAX package)."""
-    if spec.method == "codebook":
-        raise NotImplementedError(_CODEBOOKS)
+    JAX package). ``spec.method == "codebook"`` snaps each leaf onto its
+    codebook in ``codebooks``."""
     detached = {n: t.detach() for n, t in params.items()}
+    if spec.method == "codebook":
+        if codebooks is None:
+            raise ValueError("codebook method requires codebooks")
+        return map_quantizable(
+            lambda p, w: cb.fake_quant(w, codebooks[p].detach(), bucket_size=spec.bucket_size,
+                                       scaling=spec.scaling),
+            detached, spec,
+        )
     values = _hard_values(detached, spec.replace(stochastic=False), bits_map, None)
     return map_quantizable(lambda p, _: values[p], detached, spec)
 
 
-def index_streams(params: Params, spec: QuantSpec, codebooks=None) -> Dict[str, np.ndarray]:
+def index_streams(
+    params: Params, spec: QuantSpec, codebooks: Optional[Codebooks] = None
+) -> Dict[str, np.ndarray]:
     """Quantization-level stream per quantizable leaf (flax path → int32
-    levels, row-major, padding dropped), for Huffman size accounting."""
-    if spec.method == "codebook":
-        raise NotImplementedError(_CODEBOOKS)
+    levels, or codebook indices when ``spec.method == "codebook"`` and
+    ``codebooks`` are given; row-major, padding dropped), for Huffman size
+    accounting."""
     streams: Dict[str, np.ndarray] = {}
     for path, leaf in flax_leaves(params):
         if is_quantizable(path, leaf, spec):
-            qt = uniform.quantize(leaf.detach(), spec.bits, bucket_size=spec.bucket_size,
-                                  scaling=spec.scaling)
-            streams[path] = qt.levels.reshape(-1)[: qt.n].cpu().numpy()
+            leaf = leaf.detach()
+            if spec.method == "codebook" and codebooks is not None:
+                ct = cb.quantize(leaf, codebooks[path], bucket_size=spec.bucket_size,
+                                 scaling=spec.scaling)
+                idx, n = ct.idx, ct.n
+            else:
+                qt = uniform.quantize(leaf, spec.bits, bucket_size=spec.bucket_size,
+                                      scaling=spec.scaling)
+                idx, n = qt.levels, qt.n
+            streams[path] = idx.reshape(-1)[:n].to(torch.int32).cpu().numpy()
     return streams
 
 
@@ -153,9 +175,30 @@ def param_sizes(params: Params) -> Dict[str, int]:
     return {path: leaf.numel() for path, leaf in flax_leaves(params)}
 
 
-def init_codebook_tree(params: Params, spec: QuantSpec, mode: str = "uniform"):
-    raise NotImplementedError(_CODEBOOKS)
+def init_codebook_tree(params: Params, spec: QuantSpec, mode: str = "uniform") -> Codebooks:
+    """One codebook of ``2^spec.bits`` f32 points per quantizable leaf, keyed
+    by flax path, on the leaf's device: the uniform grid, or (``quantile``)
+    the quantiles of the leaf's bucket-scaled weights, the last bucket's
+    edge padding included, as the JAX package computes them."""
+    books: Codebooks = {}
+    for path, leaf in flax_leaves(params):
+        if not is_quantizable(path, leaf, spec):
+            continue
+        x01 = None
+        if mode == "quantile":
+            b, _ = to_buckets(leaf.detach(), spec.bucket_size)
+            x01 = apply_scale(b, compute_scale(b, spec.scaling))
+        books[path] = cb.init_points(spec.bits, mode, x01, device=leaf.device)
+    return books
 
 
-def ste_codebook_tree(params: Params, codebooks, spec: QuantSpec):
-    raise NotImplementedError(_CODEBOOKS)
+def ste_codebook_tree(params: Params, codebooks: Codebooks, spec: QuantSpec) -> Dict[str, torch.Tensor]:
+    """Codebook fake-quant of every quantizable leaf: value the leaf snapped
+    onto its codebook, gradient straight through to the weights and
+    scatter-added into the points, so the same transform serves joint
+    training and frozen-weight differentiable quantization."""
+    return map_quantizable(
+        lambda p, x: cb.ste_fake_quant(x, codebooks[p], bucket_size=spec.bucket_size,
+                                       scaling=spec.scaling),
+        params, spec,
+    )

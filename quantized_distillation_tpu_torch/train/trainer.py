@@ -1,5 +1,5 @@
 """Knowledge-distillation trainer with fake-quant STE weights (PyTorch port
-of the JAX package's ``train/trainer.py``, mode ``weights``).
+of the JAX package's ``train/trainer.py``).
 
 One train step does what the JAX package compiles into one ``jit``:
 fake-quantize the student's quantizable weights with a straight-through
@@ -15,8 +15,18 @@ it in two (weight quantization, dropout); here two ``torch.Generator``s on
 the step's device are seeded from ``(rng, step, 0)`` and ``(rng, step,
 1)``. They cannot give JAX's bits.
 
-Not ported yet: modes ``codebooks``/``joint`` (differentiable quantization,
-slice 3), and ``mesh``/``grad_reduce_dtype`` (multi-GPU, last).
+Three modes cover both of the paper's algorithms, as in the JAX package:
+``weights`` (quantized distillation: the optimizer steps the master
+weights), ``codebooks`` (differentiable quantization: the weights are
+frozen and the optimizer steps each leaf's codebook points) and ``joint``
+(one optimizer over both: global-norm clip over both, then Adam). The two
+codebook modes need ``QuantSpec(method="codebook")``. In ``codebooks``
+mode the weights get no gradient (``requires_grad`` off), no update and no
+optimizer state. The optimizer sees one name → tensor dict; a codebook's
+name is ``CODEBOOK_PREFIX`` + its flax path, which no parameter name can
+be (those have no ``/``).
+
+Not ported yet: ``mesh``/``grad_reduce_dtype`` (multi-GPU, last).
 """
 
 from __future__ import annotations
@@ -44,8 +54,9 @@ from .optim import (
 Params = Dict[str, torch.Tensor]
 Batch = Dict[str, Any]
 
-_SLICE3 = "differentiable quantization (modes 'codebooks'/'joint') comes with slice 3 of the port"
 _MULTI_GPU = "multi-GPU training (mesh, grad_reduce_dtype) comes last in the port"
+MODES = ("weights", "codebooks", "joint")
+CODEBOOK_PREFIX = "codebook:"
 
 
 @dataclass
@@ -53,6 +64,7 @@ class TrainState:
     step: int
     params: Params  # parameter name → full-precision master tensor
     opt_state: OptState
+    codebooks: Optional[Dict[str, torch.Tensor]] = None  # flax path → [2^bits] points
 
     def replace(self, **kw) -> "TrainState":
         return dataclasses.replace(self, **kw)
@@ -90,42 +102,71 @@ def build_optimizer(cfg: TrainConfig, steps_per_epoch: int = 1) -> Optimizer:
     return Optimizer(cfg.optimizer, sched, cfg.clip_norm, cfg.weight_decay)
 
 
+def _check_mode(mode: str, quant: Optional[QuantSpec]) -> None:
+    if mode not in MODES:
+        raise ValueError(f"unknown train mode {mode!r}; expected one of {MODES}")
+    if mode != "weights" and (quant is None or quant.method != "codebook"):
+        raise ValueError(f"mode {mode!r} trains codebooks: it needs QuantSpec(method='codebook')")
+
+
+def trainable(params: Params, codebooks: Optional[Dict[str, torch.Tensor]],
+              mode: str) -> Dict[str, torch.Tensor]:
+    """What the optimizer steps in ``mode``, as one name → tensor dict: the
+    parameters, the codebooks (under ``CODEBOOK_PREFIX`` + flax path), or
+    both."""
+    books = {CODEBOOK_PREFIX + p: t for p, t in (codebooks or {}).items()}
+    if mode == "weights":
+        return dict(params)
+    if mode == "codebooks":
+        return books
+    return {**params, **books}
+
+
 def create_train_state(
     params: Mapping[str, torch.Tensor],
     tx: Optimizer,
     *,
     quant: Optional[QuantSpec] = None,
+    codebook_init: str = "uniform",
     mode: str = "weights",
     device="cuda",
 ) -> TrainState:
-    """Train state over ``params`` (``dict(model.named_parameters())``):
-    turns their gradients on and trains them in place, so the model that
-    owns them is the one trained. Every tensor must be on ``device``."""
+    """Train state over ``params`` (``dict(model.named_parameters())``),
+    trained in place, so the model that owns them is the one trained: their
+    gradients are turned on, or off in mode ``codebooks``. A codebook
+    ``quant`` adds one codebook per quantizable leaf (``codebook_init``:
+    ``uniform`` or ``quantile``). Every tensor must be on ``device``."""
     dev = resolve_device(device)
-    if mode != "weights":
-        raise NotImplementedError(_SLICE3)
-    if quant is not None and quant.method == "codebook":
-        raise NotImplementedError(_SLICE3)
+    _check_mode(mode, quant)
     params = dict(params)
     for name, p in params.items():
         if p.device != dev:
             raise ValueError(f"parameter {name} is on {p.device}, not {dev}")
-        p.requires_grad_(True)
-    return TrainState(step=0, params=params, opt_state=tx.init(params))
+        p.requires_grad_(mode != "codebooks")
+    codebooks = None
+    if quant is not None and quant.method == "codebook":
+        codebooks = qt.init_codebook_tree(params, quant, codebook_init)
+        for t in codebooks.values():
+            t.requires_grad_(mode != "weights")
+    return TrainState(step=0, params=params, codebooks=codebooks,
+                      opt_state=tx.init(trainable(params, codebooks, mode)))
 
 
 def quantized_params(
     params: Params,
     quant: Optional[QuantSpec],
-    codebooks=None,
+    codebooks: Optional[Dict[str, torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
     bits_map: Optional[Dict[str, int]] = None,
 ) -> Params:
-    """STE fake-quant view of the parameters (identity when quant is None)."""
+    """STE fake-quant view of the parameters (identity when quant is None;
+    onto ``codebooks`` for a codebook ``quant``)."""
     if quant is None:
         return params
-    if quant.method == "codebook" or codebooks is not None:
-        raise NotImplementedError(_SLICE3)
+    if quant.method == "codebook":
+        if codebooks is None:
+            raise ValueError("codebook method requires codebooks")
+        return qt.ste_codebook_tree(params, codebooks, quant)
     return qt.ste_quantize_tree(params, quant, generator, bits_map)
 
 
@@ -156,17 +197,24 @@ def loss_and_grads(
     bits_map: Optional[Dict[str, int]] = None,
     quant_generator: Optional[torch.Generator] = None,
     dropout_generator: Optional[torch.Generator] = None,
+    codebooks: Optional[Dict[str, torch.Tensor]] = None,
+    mode: str = "weights",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Params]:
     """The JAX step's ``value_and_grad`` of its loss: ``(loss, metrics,
-    grads)`` with ``grads`` keyed like ``params`` (zeros where the loss does
-    not reach a parameter, as ``jax.grad`` gives)."""
-    q_params = quantized_params(params, quant, None, quant_generator, bits_map)
+    grads)`` with ``grads`` keyed like :func:`trainable` (zeros where the
+    loss does not reach a tensor, as ``jax.grad`` gives). In mode
+    ``codebooks`` the weights are detached, as the JAX step stops their
+    gradient."""
+    if mode == "codebooks":
+        params = {n: t.detach() for n, t in params.items()}
+    q_params = quantized_params(params, quant, codebooks, quant_generator, bits_map)
     logits, _ = task.student_forward(q_params, batch, True, dropout_generator)
     teacher_logits = task.teacher_forward(batch) if task.teacher_forward else None
     loss, metrics = task.loss_and_metrics(logits, teacher_logits, batch, distill)
-    names = list(params)
-    grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
-    grads = {n: torch.zeros_like(params[n]) if g is None else g for n, g in zip(names, grads)}
+    wrt = trainable(params, codebooks, mode)
+    names = list(wrt)
+    grads = torch.autograd.grad(loss, [wrt[n] for n in names], allow_unused=True)
+    grads = {n: torch.zeros_like(wrt[n]) if g is None else g for n, g in zip(names, grads)}
     return loss.detach(), metrics, grads
 
 
@@ -185,11 +233,11 @@ def make_train_step(
     """The train step ``(state, batch, rng: int) -> (state, metrics)``.
 
     ``metrics`` holds the task's metrics, ``loss`` and ``grad_norm`` (the
-    global norm of the gradients before clipping), as 0-dim tensors on the
-    device. The state's master weights are updated in place."""
+    global norm of the trained tensors' gradients before clipping), as 0-dim
+    tensors on the device. What ``mode`` trains (the master weights, the
+    codebooks or both) is updated in place."""
     dev = resolve_device(device)
-    if mode != "weights":
-        raise NotImplementedError(_SLICE3)
+    _check_mode(mode, quant)
     if mesh is not None or grad_reduce_dtype is not None:
         raise NotImplementedError(_MULTI_GPU)
 
@@ -198,10 +246,12 @@ def make_train_step(
         q_gen, drop_gen = step_generators(dev, rng, state.step)
         loss, metrics, grads = loss_and_grads(
             task, state.params, batch, quant=quant, distill=distill, bits_map=bits_map,
-            quant_generator=q_gen, dropout_generator=drop_gen,
+            quant_generator=q_gen, dropout_generator=drop_gen, codebooks=state.codebooks,
+            mode=mode,
         )
-        updates, opt_state = tx.update(grads, state.opt_state, state.params)
-        apply_updates(state.params, updates)
+        wrt = trainable(state.params, state.codebooks, mode)
+        updates, opt_state = tx.update(grads, state.opt_state, wrt)
+        apply_updates(wrt, updates)
         metrics = dict(metrics, loss=loss, grad_norm=global_norm(grads))
         return state.replace(step=state.step + 1, opt_state=opt_state), metrics
 
@@ -217,8 +267,9 @@ def make_eval_step(
     device="cuda",
 ):
     """Eval step ``(state, batch) -> metrics`` on the deployment
-    (hard-quantized) weights, as the reference evaluates the quantized
-    model, not the full-precision master copy."""
+    (hard-quantized, with the state's codebooks for a codebook ``quant``)
+    weights, as the reference evaluates the quantized model, not the
+    full-precision master copy."""
     dev = resolve_device(device)
 
     def eval_fn(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
@@ -226,7 +277,7 @@ def make_eval_step(
         with torch.no_grad():
             params = state.params
             if quant is not None and quantized_eval:
-                params = qt.quantize_tree_hard(params, quant, None, bits_map)
+                params = qt.quantize_tree_hard(params, quant, state.codebooks, bits_map)
             logits, _ = task.student_forward(params, batch, False, None)
             _, metrics = task.loss_and_metrics(logits, None, batch, None)
         return metrics

@@ -1,4 +1,5 @@
-"""The PyTorch port's three serving kernels.
+"""The PyTorch port's three serving kernels, and the LUT variants of the
+first two (a matrix packed with a learned codebook).
 
 On the CPU each wrapper runs its plain PyTorch version; those are held
 against the JAX package's Pallas kernels run in interpret mode (as
@@ -11,6 +12,7 @@ card; they skip where PyTorch sees no card. JAX is imported inside the CPU
 tests' fixture, so ``pytest -m gpu`` runs on a machine without JAX.
 """
 
+import dataclasses
 import types
 
 import numpy as np
@@ -49,14 +51,21 @@ def jx():
     )
 
 
-def _pair(jx, w, bits, bias=None, **kw):
-    """The same weights packed by both packages."""
+def _pair(jx, w, bits, bias=None, points=None, **kw):
+    """The same weights (and codebook) packed by both packages."""
     jb = None if bias is None else jx.jnp.asarray(bias)
     tb = None if bias is None else torch.from_numpy(bias)
+    jpts = None if points is None else jx.jnp.asarray(points)
+    tpts = None if points is None else torch.from_numpy(points)
     return (
-        jx.pack_linear(jx.jnp.asarray(w), bits, bias=jb, **kw),
-        pack_linear(torch.from_numpy(w), bits, bias=tb, **kw),
+        jx.pack_linear(jx.jnp.asarray(w), bits, bias=jb, points=jpts, **kw),
+        pack_linear(torch.from_numpy(w), bits, bias=tb, points=tpts, **kw),
     )
+
+
+def _points(rng, bits):
+    """A trained-looking codebook: out of order, partly outside [0, 1]."""
+    return rng.uniform(-0.1, 1.1, 1 << bits).astype(np.float32)
 
 
 def _ties_cand(rng, b=16, n=25):
@@ -149,6 +158,78 @@ class TestFusedTopKPlain:
         _, tp = _pair(jx, np.ones((16, 256), np.float32), 4)
         with pytest.raises(ValueError):
             dequant_matmul_topk(torch.ones(2, 16), tp, 9)
+
+
+class TestLUTPlain:
+    """The LUT variants' plain versions against the JAX package's codebook
+    kernels (``_codebook_kernel`` and the ``pts_ref`` branch of
+    ``_topk_kernel``) in interpret mode and its jnp references."""
+
+    @pytest.mark.parametrize("bits", [2, 4, 8])
+    @pytest.mark.parametrize("n", [512, 300])  # 300: N not a multiple of the group width
+    def test_dequant_matmul_lut_matches_pallas_interpret(self, jx, bits, n):
+        rng = np.random.default_rng(20 + bits)
+        w = rng.standard_normal((64, n)).astype(np.float32)
+        bias = rng.standard_normal(n).astype(np.float32)
+        x = rng.standard_normal((9, 64)).astype(np.float32)
+        pts = _points(rng, bits)
+        jp, tp = _pair(jx, w, bits, bias, points=pts, lut_mode="exact")
+        assert tp.points is not None
+        pal = jx.dequant_matmul(jx.jnp.asarray(x), jp, compute_dtype=jx.jnp.float32, interpret=True)
+        ref = jx.dequant_matmul_reference(jx.jnp.asarray(x), jp)
+        got = dequant_matmul(torch.from_numpy(x), tp, compute_dtype=torch.float32)
+        assert got.shape == (9, n)
+        np.testing.assert_allclose(got.numpy(), np.asarray(pal), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("bits", [2, 4, 8])
+    @pytest.mark.parametrize("n", [1024, 700])
+    def test_topk_lut_matches_pallas_interpret(self, jx, bits, n):
+        rng = np.random.default_rng(30 + bits)
+        w = rng.standard_normal((64, n)).astype(np.float32)
+        bias = rng.standard_normal(n).astype(np.float32)
+        x = rng.standard_normal((9, 64)).astype(np.float32)
+        pts = _points(rng, bits)
+        jp, tp = _pair(jx, w, bits, bias, points=pts, lut_mode="exact", max_group=2)
+        assert tp.n_padded > n or n == 1024  # padded columns carry no -1e9 bias
+        # slots=8 >= k: the TPU kernel keeps enough survivors to be exact
+        pv, pi, plse = jx.dequant_matmul_topk(
+            jx.jnp.asarray(x), jp, 5, compute_dtype=jx.jnp.float32, interpret=True, slots=8
+        )
+        rv, ri, rlse = jx.dequant_matmul_topk_reference(jx.jnp.asarray(x), jp, 5)
+        v, i, lse = dequant_matmul_topk(torch.from_numpy(x), tp, 5, compute_dtype=torch.float32)
+        assert int(i.max()) < n
+        for jv, ji, jl in ((pv, pi, plse), (rv, ri, rlse)):
+            np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=1e-4)
+            np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+            np.testing.assert_allclose(lse.numpy(), np.asarray(jl), atol=1e-4)
+
+    def test_bf16_lut_matches_jax_reference(self, jx):
+        rng = np.random.default_rng(6)
+        w = rng.standard_normal((64, 256)).astype(np.float32)
+        x = rng.standard_normal((8, 64)).astype(np.float32)
+        jp, tp = _pair(jx, w, 4, points=_points(rng, 4), lut_mode="exact")
+        ref = np.asarray(jx.dequant_matmul_reference(jx.jnp.asarray(x), jp,
+                                                     compute_dtype=jx.jnp.bfloat16))
+        got = dequant_matmul(torch.from_numpy(x), tp, compute_dtype=torch.bfloat16).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+
+    def test_plain_versions_count_no_launch_and_check_points(self, jx):
+        rng = np.random.default_rng(7)
+        _, tp = _pair(jx, rng.standard_normal((16, 256)).astype(np.float32), 4,
+                      points=_points(rng, 4), lut_mode="exact")
+        counts = (dequant_matmul.launches_lut, dequant_matmul_topk.launches_lut)
+        dequant_matmul(torch.ones(2, 16), tp)
+        dequant_matmul_topk(torch.ones(2, 16), tp, 3)
+        assert (dequant_matmul.launches_lut, dequant_matmul_topk.launches_lut) == counts
+        from quantized_distillation_tpu_torch.kernels.dequant_matmul import check_operands
+
+        bad = dataclasses.replace(tp, points=tp.points[:8])
+        with pytest.raises(ValueError, match="points"):
+            check_operands(torch.ones(2, 16), bad, torch.float32)
+        with pytest.raises(ValueError, match="points"):
+            check_operands(torch.ones(2, 16), dataclasses.replace(tp, points=tp.points.double()),
+                           torch.float32)
 
 
 class TestBeamCombinePlain:
@@ -254,3 +335,43 @@ def test_gpu_beam_combine_bit_exact(cuda):
         want = beam_combine_topk_reference(c, t, 5)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_gpu_dequant_matmul_lut_matches_plain(cuda, bits, cd):
+    rng = np.random.default_rng(40 + bits)
+    pts = torch.from_numpy(_points(rng, bits))
+    p = _packed_cuda(rng, 200, 700, bits, points=pts, lut_mode="exact")
+    assert p.points.is_cuda
+    for xdt in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.standard_normal((77, 200)).astype(np.float32)).to(cuda, xdt)
+        n0, l0 = dequant_matmul.launches, dequant_matmul.launches_lut
+        got = dequant_matmul(x, p, compute_dtype=cd)
+        torch.cuda.synchronize()
+        assert (dequant_matmul.launches, dequant_matmul.launches_lut) == (n0, l0 + 1)
+        want = dequant_matmul_reference(x, p, compute_dtype=cd)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
+def test_gpu_topk_fused_lut_matches_plain(cuda, bits, cd):
+    # N = 5000 pads to 6144 with edge-padded weights and no -1e9 bias: the
+    # kernel itself keeps the padding out
+    rng = np.random.default_rng(50 + bits)
+    pts = torch.from_numpy(_points(rng, bits))
+    p = _packed_cuda(rng, 256, 5000, bits, points=pts, lut_mode="exact", max_group=8)
+    x = torch.from_numpy(rng.standard_normal((130, 256)).astype(np.float32)).to(cuda)
+    n0, l0 = dequant_matmul_topk.launches, dequant_matmul_topk.launches_lut
+    v, i, lse = dequant_matmul_topk(x, p, 5, compute_dtype=cd)
+    torch.cuda.synchronize()
+    assert (dequant_matmul_topk.launches, dequant_matmul_topk.launches_lut) == (n0, l0 + 1)
+    rv, ri, rlse = dequant_matmul_topk_reference(x, p, 5, compute_dtype=cd)
+    torch.testing.assert_close(v, rv, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+    assert int(i.max()) < 5000
+    if cd == torch.float32:
+        assert torch.equal(i, ri)

@@ -111,6 +111,45 @@ def test_to_buckets_and_scale_match_jax():
         np.testing.assert_array_equal(np.asarray(js.scale), ts.scale.numpy())
 
 
+def _points(rng, bits):
+    """Trained-looking codebook: out of order, partly outside [0, 1], with a
+    collision."""
+    pts = rng.uniform(-0.1, 1.1, 1 << bits).astype(np.float32)
+    pts[1] = pts[-1]
+    return pts
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("lut_mode", ["exact", "requant8"])
+@pytest.mark.parametrize("n", [512, 300])
+def test_codebook_pack_linear_bytes_identical(bits, lut_mode, n):
+    rng = np.random.default_rng(bits * 100 + n)
+    w = rng.standard_normal((40, n)).astype(np.float32)
+    bias = rng.standard_normal(n).astype(np.float32)
+    pts = _points(rng, bits)
+    jp = jpk.pack_linear(jnp.asarray(w), bits, points=jnp.asarray(pts), bias=jnp.asarray(bias),
+                         lut_mode=lut_mode, max_group=2)
+    tp = tpk.pack_linear(torch.from_numpy(w), bits, points=torch.from_numpy(pts),
+                         bias=torch.from_numpy(bias), lut_mode=lut_mode, max_group=2)
+    _assert_same_packed(jp, tp)
+    if lut_mode == "exact":
+        np.testing.assert_array_equal(np.asarray(jp.points), tp.points.numpy())
+    else:
+        assert jp.points is None and tp.points is None and tp.bits == 8
+    np.testing.assert_array_equal(np.asarray(jpk.dequantize_linear(jp)),
+                                  tpk.dequantize_linear(tp).numpy())
+
+
 def test_codebook_packing_not_ported():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tpk.pack_linear(torch.zeros(4, 256), 4, points=torch.linspace(0, 1, 16))
+    """Named when codebook packing was not ported yet: now the port packs
+    a learned codebook, refuses what the JAX package refuses, and moves the
+    LUT with the matrix."""
+    w, pts = torch.zeros(4, 256), torch.linspace(0, 1, 16)
+    with pytest.raises(ValueError, match="requant8"):
+        tpk.pack_linear(w, 4, points=pts, store_bits=8)
+    with pytest.raises(ValueError, match="lut_mode"):
+        tpk.pack_linear(w, 4, points=pts, lut_mode="lut")
+    p = tpk.pack_linear(w, 4, points=pts)
+    assert p.points.dtype == torch.float32
+    moved = p.to("meta")  # every tensor moves, the LUT too
+    assert {t.device.type for t in (moved.packed, moved.scale, moved.offset, moved.points)} == {"meta"}

@@ -84,6 +84,53 @@ def test_packed_beam_search_matches_jax(twin, bits, beam):
     _assert_same_beams(jout, tout)
 
 
+def _codebook_decoders(twin, lut_mode, bits=4):
+    """Both packages' decoders packed with one learned-looking codebook."""
+    jm, v, tm, params, _, _ = twin
+    pts = np.random.default_rng(bits).uniform(-0.05, 1.05, 1 << bits).astype(np.float32)
+    jdec = jinfer.pack_decoder(
+        v["params"], jm.cfg, bits, points=jnp.asarray(pts), lut_mode=lut_mode,
+        compute_dtype=jnp.float32, use_pallas=False, generator_group=GEN_GROUP,
+    )
+    tdec = infer.pack_decoder(
+        params, tm.cfg, bits, points=torch.from_numpy(pts), lut_mode=lut_mode,
+        compute_dtype=torch.float32, generator_group=GEN_GROUP, device="cpu",
+    )
+    return jdec, tdec
+
+
+@pytest.mark.parametrize("lut_mode", ["exact", "requant8"])
+@pytest.mark.parametrize("beam", BEAMS[:2])
+def test_codebook_beam_search_matches_jax(twin, lut_mode, beam):
+    jm, v, tm, _, src, sl = twin
+    jdec, tdec = _codebook_decoders(twin, lut_mode)
+    if lut_mode == "exact":  # every matrix keeps its indices and the LUT
+        assert all(p.points is not None for p in (tdec.generator, tdec.attn_out, tdec.cells[0].w))
+        assert tdec.generator.shape == (64, 600) and tdec.generator.bias.shape == (600,)
+    else:
+        assert tdec.generator.points is None and tdec.generator.bits == 8
+    jout = jinfer.beam_search_packed(jm, v, jdec, jnp.asarray(src), jnp.asarray(sl), JaxBeamConfig(**beam))
+    tout = infer.beam_search_packed(
+        tm, tdec, torch.from_numpy(src).long(), torch.from_numpy(sl), BeamConfig(**beam), device="cpu"
+    )
+    _assert_same_beams(jout, tout)
+
+
+def test_codebook_requant8_decodes_like_exact(twin):
+    # tests/test_infer.py::test_codebook_requant8_matches_exact, on the port
+    _, _, tm, _, src, sl = twin
+    cfg = BeamConfig(beam_size=2, max_len=6)
+    s, sl_t = torch.from_numpy(src).long(), torch.from_numpy(sl)
+    _, d_exact = _codebook_decoders(twin, "exact")
+    _, d_rq = _codebook_decoders(twin, "requant8")
+    t1, _ = infer.beam_search_packed(tm, d_exact, s, sl_t, cfg, device="cpu")
+    t2, _ = infer.beam_search_packed(tm, d_rq, s, sl_t, cfg, device="cpu")
+    assert torch.equal(t1, t2)
+    # the logits path (no fused top-k) decodes the LUT deploy the same way
+    t3, _ = infer.beam_search_packed(tm, d_exact, s, sl_t, cfg, fused_topk=False, device="cpu")
+    assert torch.equal(t1, t3)
+
+
 def test_logits_beam_path_matches_jax(twin):
     jm, v, tm, _, src, sl = twin
     jdec, tdec = _decoders(twin, 4)

@@ -23,6 +23,8 @@ import torch
 
 from quantized_distillation_tpu_torch.config import DistillSpec, QuantSpec, TrainConfig
 from quantized_distillation_tpu_torch.convert import (
+    codebooks_from_numpy,
+    codebooks_to_numpy,
     flax_leaves,
     params_from_numpy,
     params_to_numpy,
@@ -41,7 +43,11 @@ from quantized_distillation_tpu_torch.train import (
     nmt_task,
 )
 from quantized_distillation_tpu_torch.train import quantize_tree as qt
-from quantized_distillation_tpu_torch.train.trainer import as_batch, loss_and_grads
+from quantized_distillation_tpu_torch.train.trainer import (
+    CODEBOOK_PREFIX,
+    as_batch,
+    loss_and_grads,
+)
 from quantized_distillation_tpu_torch.utils.metrics import MetricsLogger
 
 torch.set_num_threads(2)
@@ -207,10 +213,41 @@ class TestQuantizeTree:
         hard = qt.quantize_tree_hard(params, spec)
         assert all(torch.equal(hard[n], t) for n, t in qt.quantize_tree_hard(
             params, QuantSpec(bits=4)).items())
-        for fn in (lambda: qt.init_codebook_tree(params, spec),
-                   lambda: qt.quantize_tree_hard(params, QuantSpec(method="codebook"))):
-            with pytest.raises(NotImplementedError, match="slice 3"):
-                fn()
+        # learned codebooks: one per quantizable leaf; the hard values need them
+        books = qt.init_codebook_tree(params, spec)
+        assert len(books) == 37 and all(b.shape == (16,) for b in books.values())
+        with pytest.raises(ValueError, match="codebooks"):
+            qt.quantize_tree_hard(params, QuantSpec(method="codebook"))
+        hard = qt.quantize_tree_hard(params, QuantSpec(method="codebook"), books)
+        # uniform-grid points snap like the uniform quantizer, up to rounding
+        ref = qt.quantize_tree_hard(params, QuantSpec(bits=4))
+        assert all(torch.allclose(hard[n], ref[n], atol=1e-5) for n in hard)
+
+    @pytest.mark.parametrize("init", ["uniform", "quantile"])
+    def test_codebook_tree_matches_jax(self, jx, twin, init):
+        params = _port_params(twin)
+        spec = QuantSpec(bits=4, method="codebook")
+        jspec = jx.Quant(bits=4, method="codebook")
+        want = jx.qt.init_codebook_tree(twin.sv["params"], jspec, init)
+        got = qt.init_codebook_tree(params, spec, init)
+        assert list(got) == list(want)  # the same keys, in flax leaf order
+        for path, w in want.items():
+            np.testing.assert_allclose(got[path].numpy(), np.asarray(w), rtol=0,
+                                       atol=np.spacing(np.float32(1)), err_msg=path)
+        assert codebooks_to_numpy(codebooks_from_numpy(want)).keys() == want.keys()
+        # quantize with JAX's own points, carried across unchanged
+        books = codebooks_from_numpy(jx.jax.tree.map(np.asarray, want))
+        jhard = _flat(jx.qt.quantize_tree_hard(twin.sv["params"], jspec, want))
+        hard = _flat(params_to_numpy(qt.quantize_tree_hard(params, spec, books)))
+        ste = _flat(params_to_numpy(qt.ste_codebook_tree(params, books, spec)))
+        for path, w in jhard.items():
+            np.testing.assert_allclose(hard[path], w, rtol=0, atol=VALUE_ATOL, err_msg=path)
+            np.testing.assert_array_equal(ste[path], hard[path])
+        jstreams = jx.qt.index_streams(twin.sv["params"], jspec, want)
+        streams = qt.index_streams(params, spec, books)
+        assert streams.keys() == jstreams.keys()
+        for path, w in jstreams.items():
+            np.testing.assert_array_equal(streams[path], w)
 
 
 # ------------------------------------------------------------------- losses
@@ -331,16 +368,161 @@ class TestKDStep:
         assert out[-1] < out[0] and np.isfinite(out).all()
 
     def test_unported_modes_raise(self, twin):
+        # the codebook modes are ported: without a codebook QuantSpec they
+        # have nothing to train, and an unknown mode is refused
         tx = build_optimizer(TrainConfig())
         task = nmt_task(twin.student, twin.teacher, device="cpu")
         for fn in (
             lambda: create_train_state(_port_params(twin), tx, mode="codebooks", device="cpu"),
-            lambda: make_train_step(task, tx, mode="joint", device="cpu"),
+            lambda: make_train_step(task, tx, mode="joint", quant=QuantSpec(bits=4),
+                                    device="cpu"),
+            lambda: make_train_step(task, tx, mode="points", device="cpu"),
         ):
-            with pytest.raises(NotImplementedError, match="slice 3"):
+            with pytest.raises(ValueError, match="mode"):
                 fn()
+        cb = QuantSpec(bits=4, method="codebook")
+        state = create_train_state(_port_params(twin), tx, quant=cb, mode="codebooks",
+                                   device="cpu")
+        assert all(not p.requires_grad for p in state.params.values())
+        assert all(b.requires_grad for b in state.codebooks.values())
+        # the weights hold no optimizer state; joint holds both, under unclashing names
+        assert set(state.opt_state.mu) == {CODEBOOK_PREFIX + p for p in state.codebooks}
+        joint = create_train_state(_port_params(twin), tx, quant=cb, mode="joint", device="cpu")
+        assert set(joint.opt_state.mu) == set(joint.params) | set(state.opt_state.mu)
+        assert len(joint.opt_state.mu) == len(joint.params) + 37
+        make_train_step(task, tx, quant=cb, mode="codebooks", device="cpu")
         with pytest.raises(NotImplementedError, match="multi-GPU"):
             make_train_step(task, tx, mesh=object(), device="cpu")
+
+
+def _jax_codebook_loss_and_grads(jx, twin, batch, books, mode, distill):
+    """The JAX step's value_and_grad over what ``mode`` trains."""
+    task = jx.tasks.nmt_task(twin.js, twin.jt, twin.tv)
+    jb = {k: jx.jnp.asarray(v) for k, v in batch.items()}
+    quant = jx.Quant(bits=4, method="codebook")
+    trainable = jx.trainer._trainable(
+        jx.trainer.TrainState(0, twin.sv["params"], None, None, books), mode)
+
+    def loss_fn(tr):
+        st = jx.trainer._with_trainable(
+            jx.trainer.TrainState(0, twin.sv["params"], None, None, books), mode, tr)
+        params = st.params if mode != "codebooks" else jx.jax.lax.stop_gradient(st.params)
+        q = jx.trainer.quantized_params(params, quant, st.codebooks, None)
+        logits, _ = task.student_forward({"params": q}, jb, True,
+                                         {"dropout": jx.jax.random.PRNGKey(0)})
+        return task.loss_and_metrics(logits, task.teacher_forward(jb), jb, distill)
+
+    (loss, metrics), grads = jx.jax.value_and_grad(loss_fn, has_aux=True)(trainable)
+    if mode == "joint":
+        pgrads, bgrads = grads
+    else:
+        pgrads, bgrads = None, grads
+    return float(loss), {k: float(v) for k, v in metrics.items()}, pgrads, bgrads
+
+
+class TestCodebookKDStep:
+    """Differentiable quantization: a 4-bit codebook KD step matched to the
+    JAX package's, from JAX's own quantile-initialised codebooks."""
+
+    @pytest.mark.parametrize("mode", ["joint", "codebooks"])
+    def test_loss_metrics_and_grads_match_jax(self, jx, twin, mode):
+        batch = _batch(seed=11)
+        jbooks = jx.qt.init_codebook_tree(twin.sv["params"], jx.Quant(bits=4, method="codebook"),
+                                          "quantile")
+        jloss, jmetrics, jpgrads, jbgrads = _jax_codebook_loss_and_grads(
+            jx, twin, batch, jbooks, mode, jx.Distill(0.5, 2.0))
+        books = {p: t.requires_grad_(True)
+                 for p, t in codebooks_from_numpy(jx.jax.tree.map(np.asarray, jbooks)).items()}
+        params = {n: p.requires_grad_(mode == "joint") for n, p in _port_params(twin).items()}
+        task = nmt_task(twin.student, twin.teacher, device="cpu")
+        loss, metrics, grads = loss_and_grads(
+            task, params, as_batch(batch, torch.device("cpu")),
+            quant=QuantSpec(bits=4, method="codebook"), distill=DistillSpec(0.5, 2.0),
+            codebooks=books, mode=mode)
+        np.testing.assert_allclose(float(loss), jloss, rtol=LOSS_RTOL)
+        for k, v in jmetrics.items():
+            np.testing.assert_allclose(float(metrics[k]), v, rtol=LOSS_RTOL)
+        bgrads = {n[len(CODEBOOK_PREFIX):]: g for n, g in grads.items()
+                  if n.startswith(CODEBOOK_PREFIX)}
+        assert bgrads.keys() == jbgrads.keys()
+        for path, want in jbgrads.items():
+            want = np.asarray(want)
+            tol = GRAD_TOL * max(float(np.abs(want).max()), 1e-12)
+            np.testing.assert_allclose(bgrads[path].numpy(), want, rtol=0, atol=tol, err_msg=path)
+        pgrads = {n: g for n, g in grads.items() if not n.startswith(CODEBOOK_PREFIX)}
+        if mode == "codebooks":
+            assert pgrads == {}
+            return
+        got = _flat(params_to_numpy(pgrads))
+        for path, want in _flat(jpgrads).items():
+            tol = GRAD_TOL * max(float(np.abs(want).max()), 1e-12)
+            np.testing.assert_allclose(got[path], want, rtol=0, atol=tol, err_msg=path)
+
+    @pytest.mark.parametrize("mode", ["joint", "codebooks"])
+    def test_sgd_steps_match_jax_train_step(self, jx, twin, mode):
+        batch = _batch(seed=12)
+        cfg = dict(learning_rate=0.5, clip_norm=0.05, optimizer="sgd")
+        quant, jquant = QuantSpec(bits=4, method="codebook"), jx.Quant(bits=4, method="codebook")
+        jtx = jx.trainer.build_optimizer(jx.TrainConfig(**cfg))
+        jstate = jx.trainer.create_train_state(twin.sv["params"], jtx, quant=jquant, mode=mode)
+        jstep = jx.trainer.make_train_step(
+            jx.tasks.nmt_task(twin.js, twin.jt, twin.tv), jtx, quant=jquant,
+            distill=jx.Distill(0.5, 2.0), mode=mode, donate=False)
+        tx = build_optimizer(TrainConfig(**cfg))
+        state = create_train_state(_port_params(twin), tx, quant=quant, mode=mode, device="cpu")
+        w0 = {n: p.detach().clone() for n, p in state.params.items()}
+        b0 = {p: b.detach().clone() for p, b in state.codebooks.items()}
+        step = make_train_step(nmt_task(twin.student, twin.teacher, device="cpu"), tx,
+                               quant=quant, distill=DistillSpec(0.5, 2.0), mode=mode,
+                               device="cpu")
+        for _ in range(2):
+            jstate, jm = jstep(jstate, {k: jx.jnp.asarray(v) for k, v in batch.items()},
+                               jx.jax.random.PRNGKey(0))
+            state, m = step(state, batch, 0)
+            assert set(m) == set(jm)
+            for k in jm:
+                np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=LOSS_RTOL, err_msg=k)
+        for path, w in jstate.codebooks.items():
+            np.testing.assert_allclose(state.codebooks[path].detach().numpy(), np.asarray(w),
+                                       rtol=1e-5, atol=1e-6, err_msg=path)
+        assert any(not torch.equal(state.codebooks[p], b0[p]) for p in b0)
+        if mode == "codebooks":  # frozen: bit for bit
+            assert all(torch.equal(state.params[n], w0[n]) for n in w0)
+        else:
+            want = _flat(jx.jax.tree.map(np.asarray, jstate.params))
+            got = _flat(params_to_numpy(state.params))
+            for path, w in want.items():
+                np.testing.assert_allclose(got[path], w, rtol=1e-5, atol=1e-6, err_msg=path)
+        # eval on the hard-quantized weights with the trained codebooks
+        jeval = jx.trainer.make_eval_step(jx.tasks.nmt_task(twin.js, twin.jt, twin.tv),
+                                          quant=jquant)
+        ev = make_eval_step(nmt_task(twin.student, twin.teacher, device="cpu"), quant=quant,
+                            device="cpu")
+        jm = jeval(jstate, {k: jx.jnp.asarray(v) for k, v in batch.items()})
+        m = ev(state, batch)
+        for k in jm:
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=LOSS_RTOL, err_msg=k)
+
+    def test_joint_codebook_training_decreases_loss(self):
+        student = make_seq2seq("student_small", 30, 40, device="cpu", seed=1)
+        teacher = make_seq2seq("student_small", 30, 40, hidden=160, embed_dim=160,
+                               device="cpu", seed=2)
+        batch = {
+            "src": np.array([[5, 6, 7, 0], [8, 9, 4, 3]]), "src_len": np.array([3, 4]),
+            "tgt_in": np.array([[1, 5, 6], [1, 7, 8]]),
+            "tgt_out": np.array([[5, 6, 2], [7, 8, 2]]), "tgt_mask": np.ones((2, 3)),
+        }
+        quant = QuantSpec(bits=4, method="codebook")
+        tx = build_optimizer(TrainConfig(learning_rate=5e-3, clip_norm=5.0))
+        state = create_train_state(dict(student.named_parameters()), tx, quant=quant,
+                                   mode="joint", codebook_init="quantile", device="cpu")
+        step = make_train_step(nmt_task(student, teacher, device="cpu"), tx, quant=quant,
+                               distill=DistillSpec(0.5, 2.0), mode="joint", device="cpu")
+        out = []
+        for _ in range(10):
+            state, m = step(state, batch, 0)
+            out.append(float(m["loss"]))
+        assert out[-1] < out[0] and np.isfinite(out).all()
 
 
 # ---------------------------------------------------------------- optimizer
@@ -493,3 +675,35 @@ def test_gpu_train_step_matches_cpu(cuda):
     for n, p in runs["cpu"][0].params.items():
         np.testing.assert_allclose(runs["cuda"][0].params[n].detach().cpu().numpy(),
                                    p.detach().numpy(), rtol=1e-5, atol=1e-6, err_msg=n)
+
+
+@pytest.mark.gpu
+def test_gpu_joint_codebook_step_matches_cpu(cuda):
+    """One joint codebook KD step: card against CPU from the same weights.
+    The codebook gradients are scatter-adds that the card sums with atomics
+    in no fixed order: within 1e-4 of each tensor's largest |gradient|."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = _batch(seed=13)
+    quant = QuantSpec(bits=4, method="codebook")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        student = make_seq2seq("student_small", V, V, hidden=48, embed_dim=24, num_layers=2,
+                               dropout=0.0, device=dev, seed=1)
+        teacher = make_seq2seq("student_small", V, V, hidden=40, embed_dim=16, num_layers=2,
+                               dropout=0.0, device=dev, seed=2)
+        tx = build_optimizer(TrainConfig(optimizer="sgd", learning_rate=0.5, clip_norm=5.0))
+        state = create_train_state(dict(student.named_parameters()), tx, quant=quant,
+                                   mode="joint", codebook_init="quantile", device=dev)
+        loss, metrics, grads = loss_and_grads(
+            nmt_task(student, teacher, device=dev), state.params,
+            as_batch(batch, torch.device(dev)), quant=quant, distill=DistillSpec(0.5, 2.0),
+            codebooks=state.codebooks, mode="joint")
+        runs[dev] = (dict(metrics, loss=loss), grads)
+    for k, v in runs["cpu"][0].items():
+        np.testing.assert_allclose(float(runs["cuda"][0][k]), float(v), rtol=LOSS_RTOL)
+    assert runs["cuda"][1].keys() == runs["cpu"][1].keys()
+    for n, g in runs["cpu"][1].items():
+        tol = GRAD_TOL * max(float(g.abs().max()), 1e-12)
+        np.testing.assert_allclose(runs["cuda"][1][n].cpu().numpy(), g.numpy(), rtol=0,
+                                   atol=tol, err_msg=n)
