@@ -9,19 +9,27 @@ Phases, each printing one JSON line:
    non-zero without a result when PyTorch sees no card;
 2. build: compiles the four CUDA sources of ``csrc/`` (one ``nvcc`` each,
    in parallel; the LUT variants are template instances in two of them) and
-   reports the seconds and ``ptxas`` resource lines;
+   reports the seconds and ``ptxas`` resource lines; then ``cuobjdump -sass``
+   of the dequant-matmul library counts the tensor-core instructions
+   (HGMMA, HMMA) of each instance: at least one in every bf16-compute
+   instance, none in the f32 ones;
 3. kernels: calls each serving kernel's wrapper at the shapes the serving
    main path gives it (student_medium, V=32000, B=256 x beam 5 = 1280 rows,
-   4-bit), holds it against its plain PyTorch version on the same inputs,
-   and times kernel, plain version and a one-call PyTorch yardstick with
-   CUDA events;
+   4-bit), holds it against its plain PyTorch version on the same inputs
+   (dequant-matmul also at a ragged 77 x 200 x 700 for 2/4/8 bits, at
+   rtol = atol = 1e-4 for bf16 compute as for f32), and times kernel, plain
+   version and a one-call PyTorch yardstick on the device: CUDA events
+   around a CUDA graph of back-to-back calls, so the host's time to issue
+   each call is left out (dequant-matmul also reports its tile plan,
+   TFLOP/s and share of the bound);
 4. main path: ``pack_decoder`` → ``beam_search_packed`` at full width (depth
    as published: 2 layers), checks the launch counters (3 dequant-matmul,
    1 fused top-k, 1 combine per decode step), finite scores, and f32 tokens
    equal to the port's CPU plain path on 16 sentences; then times the packed
    bf16 path and the dense FP32 ``beam_search`` on the card;
 5. profile: device time by kernel over one packed beam search
-   (``torch.profiler``) and the device's busy share of that run;
+   (``torch.profiler``), the dequant-matmul and generator kernels' device ms
+   in it, and the device's busy share of that run;
 6. train kernel: the fake-quant kernel at the train step's shape (every
    quantizable leaf of student_medium: 105,984 buckets x 256), bit-exact
    against its plain version for 2/4/8 bits x linear/abs-max and on
@@ -68,10 +76,12 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -87,6 +97,7 @@ from quantized_distillation_tpu_torch.kernels import (
     beam_combine_topk,
     beam_combine_topk_reference,
     dequant_matmul,
+    dequant_matmul_plan,
     dequant_matmul_reference,
     dequant_matmul_topk,
     dequant_matmul_topk_reference,
@@ -114,6 +125,7 @@ from quantized_distillation_tpu_torch.train.trainer import (
     quantized_params,
     trainable,
 )
+from quantized_distillation_tpu_torch.utils.timing import graph_ms
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
 PEAK_F32 = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sheet)
@@ -125,6 +137,9 @@ F32_TOL = 1e-4  # rtol = atol, as tests/test_kernels.py states for f32 compute
 LOSS_RTOL, GRAD_TOL, W_RTOL, W_ATOL = 1e-5, 1e-4, 1e-5, 1e-6
 BF16_REL = 2e-2  # bf16 values: relative to the row's largest |value|
 BF16_TIE = 4 * 2.0 ** -8  # bf16 tie band (TestCrossKernelNumerics), times max(|logit|, 1)
+
+DESIGN = "tensor cores (wgmma)"
+RAGGED = (77, 200, 700)  # M, K, N: K not a multiple of 16, N of 64
 
 SRC = "quantized_distillation_tpu_torch/csrc/"
 JAXK = "quantized_distillation_tpu/kernels/"
@@ -233,11 +248,63 @@ def phase_build():
     emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(logs), "ptxas": ptxas})
 
 
-def check_values(checks, name, got, want, cd):
-    """f32: |got - want| <= tol * (1 + |want|); bf16: within BF16_REL of the
-    row's largest |want|. Returns the max abs error."""
+def cuobjdump() -> str:
+    """cuobjdump beside nvcc, else the copy in Triton's package."""
+    cands = [Path(_build._nvcc()).parent / "cuobjdump"]
+    try:
+        import triton
+
+        cands.append(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    for cand in cands:
+        if cand.exists():
+            return str(cand)
+    raise FileNotFoundError("cuobjdump not found beside nvcc or in triton/backends/nvidia/bin")
+
+
+def phase_sass(checks):
+    """Tensor cores, shown in the machine code: HGMMA (wgmma) and HMMA
+    (mma.sync) instructions in each instance of the dequant-matmul library.
+    Every bf16-compute instance (dequant_matmul_tc_kernel) must hold at least
+    one, the f32 instances (dequant_matmul_kernel) none."""
+    lib = _build._lib_path("dequant_matmul")
+    try:
+        tool = cuobjdump()
+    except FileNotFoundError as e:
+        checks.require(False, str(e))
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    found = []
+    for part in sass.split("Function : ")[1:]:
+        fn = part.split("\n", 1)[0].strip()
+        found.append({"function": fn, "HGMMA": part.count("HGMMA"),
+                      "HMMA": len(re.findall(r"\bHMMA\b", part)),
+                      "tensor_core": "dequant_matmul_tc_kernel" in fn})
+    tc = [f for f in found if f["tensor_core"]]
+    f32 = [f for f in found if "dequant_matmul_kernel" in f["function"]]
+    checks.require(len(tc) > 0 and len(f32) > 0, f"sass: {len(tc)} bf16 and {len(f32)} f32 instances")
+    for f in tc:
+        checks.require(f["HGMMA"] + f["HMMA"] > 0, f"sass: no tensor-core instruction in {f['function']}")
+    for f in f32:
+        checks.require(f["HGMMA"] + f["HMMA"] == 0, f"sass: tensor-core instruction in {f['function']}")
+    emit({"phase": "sass", "tool": tool, "library": lib.name,
+          "bf16_instances": len(tc), "f32_instances": len(f32),
+          "hgmma_per_bf16_instance": sorted({f["HGMMA"] for f in tc}),
+          "tensor_core_instructions_in_f32_instances": sum(f["HGMMA"] + f["HMMA"] for f in f32),
+          "instances": [[f["function"][:60], f["HGMMA"], f["HMMA"]] for f in found]})
+
+
+def check_values(checks, name, got, want, cd, exact_products=False):
+    """f32 compute, or bf16 with ``exact_products``: |got - want| <= F32_TOL
+    * (1 + |want|). That holds the dequant-matmul at bf16 as the GPU tests
+    do: kernel and plain version round the same operands to bf16 and sum
+    products that are exact in f32, so only the summation order differs.
+    Other bf16 values: within BF16_REL of the row's largest |want|. Returns
+    the max abs error."""
     err = (got - want).abs()
-    if cd == torch.float32:
+    if cd == torch.float32 or exact_products:
         ok = bool((err <= F32_TOL * (1 + want.abs())).all())
     else:
         scale = want.abs().amax(dim=-1, keepdim=True).clamp_min(1.0)
@@ -275,9 +342,13 @@ def lut_points(bits: int, gen) -> torch.Tensor:
 def kernel_dequant_matmul(checks, name, replaces, dec, rows, gen, lut_bits=()):
     """The dequant-matmul kernel at the three decode-step shapes of ``dec``
     against its plain version (f32 and bf16 compute; with ``lut_bits``, also
-    each matrix repacked with a random codebook of those bits), timed at bf16
-    against the plain version and bf16 ``torch.matmul`` on the dequantized
-    weight. Returns the kernel-table row, summed over one decode step."""
+    each matrix repacked with a random codebook of those bits), and at the
+    ragged shape RAGGED (2/4/8 bits, x f32 and bf16, bias set; codebooks when
+    ``lut_bits`` is given); every check at F32_TOL, bf16 compute too. At
+    bf16, per decode shape: the tile plan, device time (CUDA graph) against
+    the plain version and bf16 ``torch.matmul`` on the dequantized weight,
+    achieved TFLOP/s and share of the bound. Returns the kernel-table row,
+    summed over one decode step."""
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     dm = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, err=0.0, flops=0.0, bytes=0.0)
@@ -292,31 +363,48 @@ def kernel_dequant_matmul(checks, name, replaces, dec, rows, gen, lut_bits=()):
             for cd in (torch.float32, bf16):
                 got = dequant_matmul(x, q, compute_dtype=cd)
                 want = dequant_matmul_reference(x, q, compute_dtype=cd)
-                err = check_values(checks, f"{name}/{mat}/{bits}/{cd}", got, want, cd)
+                err = check_values(checks, f"{name}/{mat}/{bits}/{cd}", got, want, cd, True)
                 errs[f"{mat}/{bits}/{cd}"] = err
                 if cd == bf16 and q is p:
                     dm["err"] = max(dm["err"], err)
         w16 = dequantize_linear(p, bf16)
-        ms = cuda_ms(lambda: dequant_matmul(x, p, compute_dtype=bf16))
-        plain = cuda_ms(lambda: dequant_matmul_reference(x, p, compute_dtype=bf16))
-        lib = cuda_ms(lambda: torch.matmul(x.to(bf16), w16))
+        ms = graph_ms(lambda: dequant_matmul(x, p, compute_dtype=bf16))
+        plain = graph_ms(lambda: dequant_matmul_reference(x, p, compute_dtype=bf16))
+        lib = graph_ms(lambda: torch.matmul(x.to(bf16), w16))
         flops = 2.0 * rows * k * n
         byt = nbytes(x) + packed_bytes(p) + rows * n * 4
-        bms, _ = bound(flops, byt)
-        shapes.append({"name": mat, "M": rows, "K": k, "N": n, "x": str(xdt), "ms": ms,
-                       "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+        bms, by = bound(flops, byt)
+        shapes.append({"name": mat, "M": rows, "K": k, "N": n, "x": str(xdt),
+                       "plan": dequant_matmul_plan(x, p), "ms": ms, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": bms, "bound_by": by,
+                       "tflops": flops / (ms * 1e-3) / 1e12, "share_of_bound": bms / ms,
                        "flops": flops, "bytes": byt})
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                          ("bound_ms", bms), ("flops", flops), ("bytes", byt)):
             dm[key] += val
+    m, k, n = RAGGED
+    for bits in (2, 4, 8):
+        w = torch.randn(k, n, generator=gen)
+        pts = lut_points(bits, gen) if lut_bits else None
+        q = pack_linear(w, bits, bias=torch.randn(n, generator=gen), points=pts).to(dev)
+        for xdt in (torch.float32, bf16):
+            x = torch.randn(m, k, generator=gen).to(dev, xdt)
+            for cd in (torch.float32, bf16):
+                got = dequant_matmul(x, q, compute_dtype=cd)
+                want = dequant_matmul_reference(x, q, compute_dtype=cd)
+                errs[f"ragged/{bits}/{xdt}/{cd}"] = check_values(
+                    checks, f"{name}/ragged {m}x{k}x{n}/{bits}/{xdt}/{cd}", got, want, cd, True)
     _, by = bound(dm["flops"], dm["bytes"])
     emit({"phase": "kernel", "name": name, "per_shape": shapes, "max_abs_err": errs,
-          "per_step": {"flops": dm["flops"], "bytes": dm["bytes"]}})
+          "ragged": {"M": m, "K": k, "N": n, "bits": [2, 4, 8], "bias": True},
+          "per_step": {"flops": dm["flops"], "bytes": dm["bytes"], "ms": dm["ms"],
+                       "library_ms": dm["library_ms"]}})
     return {
         "name": name, "route": "cuda", "source": SRC + "dequant_matmul.cu",
         "replaces": replaces, "max_abs_err": dm["err"],
         "ms": dm["ms"], "plain_ms": dm["plain_ms"], "bound_ms": dm["bound_ms"],
         "bound_by": by, "library_ms": dm["library_ms"],
+        "design": DESIGN,
         "per": "one decode step: lstm_0 + lstm_1 + attn_out",
     }
 
@@ -348,9 +436,10 @@ def kernel_topk(checks, name, replaces, g, rows, gen, extra: dict) -> dict:
         logits = torch.matmul(x.to(bf16), g16).float() + bias
         return torch.topk(logits, k_top), torch.logsumexp(logits, dim=-1)
 
-    ms = cuda_ms(lambda: dequant_matmul_topk(x, g, k_top, compute_dtype=bf16))
-    plain = cuda_ms(lambda: dequant_matmul_topk_reference(x, g, k_top, compute_dtype=bf16), iters=5)
-    lib = cuda_ms(library)
+    ms = graph_ms(lambda: dequant_matmul_topk(x, g, k_top, compute_dtype=bf16))
+    plain = graph_ms(lambda: dequant_matmul_topk_reference(x, g, k_top, compute_dtype=bf16),
+                     calls=5)
+    lib = graph_ms(library)
     flops = 2.0 * rows * g.shape[0] * g.shape[1]
     byt = nbytes(x) + packed_bytes(g) + rows * (k_top * 8 + 4)
     bms, by = bound(flops, byt)
@@ -395,9 +484,9 @@ def phase_kernels(checks, dec, rows, gen):
     want = beam_combine_topk_reference(cand, tok, k_top)
     exact = all(torch.equal(a, c) for a, c in zip(got, want))
     checks.require(exact, "beam_combine: not bit-exact")
-    ms = cuda_ms(lambda: beam_combine_topk(cand, tok, k_top), iters=100)
-    plain = cuda_ms(lambda: beam_combine_topk_reference(cand, tok, k_top), iters=100)
-    lib = cuda_ms(lambda: torch.topk(cand, k_top), iters=100)
+    ms = graph_ms(lambda: beam_combine_topk(cand, tok, k_top), calls=100)
+    plain = graph_ms(lambda: beam_combine_topk_reference(cand, tok, k_top), calls=100)
+    lib = graph_ms(lambda: torch.topk(cand, k_top), calls=100)
     flops, byt = float(b * n * k_top), nbytes(cand, tok) + b * k_top * 12
     bms, by = bound(flops, byt)
     emit({"phase": "kernel", "name": "beam_combine_topk", "B": b, "n": n, "k": k_top,
@@ -482,8 +571,9 @@ def phase_profile(run, median_s: float, phase: str = "profile", focus: str = Non
     """Device time by kernel over one run (a packed beam search, a train
     step) under torch.profiler, and the device's busy share: of that run's
     host time (inflated by the profiler's own host overhead) and of the
-    median unprofiled run. ``focus``: a kernel-name substring whose share of
-    the device time is reported too."""
+    median unprofiled run; the device ms and calls of the dequant-matmul
+    kernels and of the fused generator's. ``focus``: a kernel-name substring
+    whose share of the device time is reported too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -506,6 +596,9 @@ def phase_profile(run, median_s: float, phase: str = "profile", focus: str = Non
         "device_busy_share_of_median_run": device_ms / (median_s * 1e3),
         "top": [{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels[:12]],
     }
+    for family, key in (("dequant_matmul", "dequant_matmul"), ("generator", "topk_")):
+        out[f"{family}_device_ms"] = sum(ms for k, ms, _ in kernels if key in k)
+        out[f"{family}_calls"] = sum(n for k, _, n in kernels if key in k)
     if focus:
         focus_ms = sum(ms for k, ms, _ in kernels if focus in k)
         out.update(focus=focus, focus_ms=focus_ms, focus_share=focus_ms / max(device_ms, 1e-9))
@@ -541,8 +634,8 @@ def phase_train_kernel(checks, student, gen) -> dict:
         checks.require(ok, f"fake_quant degenerate buckets {scaling}: not bit-exact")
     checks.require(torch.equal(fake_quant_buckets(flat[:128], 4), flat[:128]),
                    "fake_quant: constant or zero buckets changed")
-    ms = cuda_ms(lambda: fake_quant_buckets(buckets, 4))
-    plain = cuda_ms(lambda: fake_quant_buckets_reference(buckets, 4))
+    ms = graph_ms(lambda: fake_quant_buckets(buckets, 4))
+    plain = graph_ms(lambda: fake_quant_buckets_reference(buckets, 4))
     n = buckets.numel()
     flops, byt = 8.0 * n, 2 * nbytes(buckets)
     bms, by = bound(flops, byt, PEAK_F32)
@@ -848,7 +941,7 @@ def phase_lut_kernels(checks, dec, rows, gen):
     ri = dequant_matmul_topk_reference(x, g, 5, compute_dtype=torch.float32)[1]
     checks.require(torch.equal(i, ri), "dequant_matmul_topk_lut/f32: indices not exact")
     gu = pack_linear(dequantize_linear(g), g.bits, bias=g.bias, max_group=g.group)
-    uniform_ms = cuda_ms(lambda: dequant_matmul_topk(x, gu, 5, compute_dtype=torch.bfloat16))
+    uniform_ms = graph_ms(lambda: dequant_matmul_topk(x, gu, 5, compute_dtype=torch.bfloat16))
     return [row, kernel_topk(checks, "dequant_matmul_topk_lut", JAXK + "topk_fused.py:197", g,
                              rows, gen, {"uniform_kernel_ms_same_shape": uniform_ms})]
 
@@ -948,8 +1041,9 @@ def main(argv=None) -> int:
     # f32 matmuls (the FP32 beam_search leg, the f32 parity runs) in true f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase_build()
     checks = Checks()
+    phase_build()
+    phase_sass(checks)
     model = make_seq2seq(args.preset, args.vocab, args.vocab, device="cuda", seed=args.seed)
     params = params_to_numpy(model)
     rows = args.batch * args.beam

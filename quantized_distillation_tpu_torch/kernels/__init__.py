@@ -7,7 +7,7 @@ built from ``csrc/`` (see :mod:`._build`) or raises.
 """
 
 from .beam_combine import beam_combine_topk, beam_combine_topk_reference
-from .dequant_matmul import dequant_matmul, dequant_matmul_reference
+from .dequant_matmul import dequant_matmul, dequant_matmul_plan, dequant_matmul_reference
 from .fake_quant import fake_quant_buckets, fake_quant_buckets_reference
 from .packed import (
     BUCKET,
@@ -32,6 +32,7 @@ __all__ = [
     "beam_combine_topk_reference",
     "bucket_group",
     "dequant_matmul",
+    "dequant_matmul_plan",
     "dequant_matmul_reference",
     "dequant_matmul_topk",
     "dequant_matmul_topk_reference",

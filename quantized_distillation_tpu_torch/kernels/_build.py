@@ -58,14 +58,19 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def start_nvcc(source: Path, out) -> subprocess.Popen:
+    """Start ``nvcc`` with the port's flags for one ``.cu`` file into the
+    shared library ``out``; the log is on the process's ``stdout``."""
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def _start(name: str, out: Path):
     """Start ``nvcc`` for one source into a temporary file beside ``out``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return name, out, tmp, proc
+    return name, out, tmp, start_nvcc(CSRC / f"{name}.cu", tmp)
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:

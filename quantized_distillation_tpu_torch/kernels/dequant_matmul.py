@@ -5,9 +5,10 @@ uniform grid and, for a matrix packed with a learned codebook
 (``p.points`` set), its LUT variant. :func:`dequant_matmul` dispatches on
 the device of ``x``: a CPU tensor runs the plain version
 :func:`dequant_matmul_reference`, a CUDA tensor launches the hand-written
-kernel ``csrc/dequant_matmul.cu`` (or raises). ``dequant_matmul.launches``
-counts launches of the uniform kernel, ``dequant_matmul.launches_lut`` those
-of the LUT variant.
+kernel ``csrc/dequant_matmul.cu`` (or raises): on the tensor cores at bf16
+compute, on the CUDA cores at f32. ``dequant_matmul.launches`` counts
+launches of the uniform kernel, ``dequant_matmul.launches_lut`` those of the
+LUT variant.
 """
 
 from __future__ import annotations
@@ -24,6 +25,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # qdt_dequant_matmul(x, x_bf16, compute_bf16, packed, scale, offset, points,
 #                    bias, out, M, K, N, npad, bits, stream)
 _ARGTYPES = [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+# qdt_dequant_matmul_plan(M, K, N, x_bf16, compute_bf16, lut, bits, plan[6])
+_PLAN_ARGTYPES = [_I, _I, _I, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)]
+_PLAN_KEYS = ("BM", "BN", "stages", "blocks", "smem_bytes", "blocks_per_sm")
+ALIGN = 16  # bytes: the TMA's alignment for the packed operands
 
 
 def dequant_matmul_reference(
@@ -66,6 +71,32 @@ def check_operands(x: torch.Tensor, p: PackedLinear, compute_dtype) -> None:
                          f"{tuple(p.points.shape)}")
 
 
+def check_alignment(p: PackedLinear) -> None:
+    """The tensor-core kernel (bf16 compute) copies the packed bytes, scale
+    and offset with the TMA, which needs 16-byte aligned bases (their rows,
+    npad·bits/8 bytes, are then aligned too). ``pack_linear``'s tensors
+    always are; a view into a larger buffer may not be. x may have any
+    alignment: where it rules the TMA out, the kernel's threads copy every
+    operand themselves."""
+    for name in ("packed", "scale", "offset"):
+        if getattr(p, name).data_ptr() % ALIGN:
+            raise ValueError(f"{name} must be {ALIGN}-byte aligned for bf16 compute "
+                             f"(address {getattr(p, name).data_ptr():#x})")
+
+
+def dequant_matmul_plan(x: torch.Tensor, p: PackedLinear, *, compute_dtype=torch.bfloat16) -> dict:
+    """The tile plan :func:`dequant_matmul` launches for these operands, from
+    the CUDA library (it depends on the card's SM count): rows and columns
+    per tile, copy stages, blocks, dynamic shared memory bytes and resident
+    blocks per SM."""
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
+    fn = _build.function("dequant_matmul", "qdt_dequant_matmul_plan", _PLAN_ARGTYPES)
+    _build.check(fn(x.shape[0], x.shape[1], p.shape[1], int(x.dtype == torch.bfloat16),
+                    int(compute_dtype == torch.bfloat16), int(p.points is not None), p.bits,
+                    plan), "dequant_matmul_plan")
+    return dict(zip(_PLAN_KEYS, plan))
+
+
 def dequant_matmul(
     x: torch.Tensor, p: PackedLinear, *, compute_dtype=torch.bfloat16
 ) -> torch.Tensor:
@@ -75,6 +106,8 @@ def dequant_matmul(
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     check_operands(x, p, compute_dtype)
+    if compute_dtype == torch.bfloat16:
+        check_alignment(p)
     m, k = x.shape
     n = p.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)

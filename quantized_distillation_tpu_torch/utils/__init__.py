@@ -1,2 +1,3 @@
-"""Utilities of the PyTorch port: metrics logging (``utils.metrics``).
-BLEU scoring, artifacts and profiling helpers come with later slices."""
+"""Utilities of the PyTorch port: metrics logging (``utils.metrics``) and
+device timing on the card (``utils.timing``). BLEU scoring, artifacts and
+profiling helpers come with later slices."""

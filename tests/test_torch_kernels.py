@@ -232,6 +232,50 @@ class TestLUTPlain:
                            torch.float32)
 
 
+class TestDequantMatmulWrapper:
+    """What the wrapper checks before a launch, on the CPU."""
+
+    def test_alignment_check_raises_on_misaligned_packed_bytes(self):
+        from quantized_distillation_tpu_torch.kernels.dequant_matmul import ALIGN, check_alignment
+
+        p = pack_linear(torch.randn(16, 256), 4)
+        check_alignment(p)  # pack_linear's tensors are fresh allocations
+        buf = torch.zeros(p.packed.numel() + ALIGN, dtype=torch.uint8)
+        for shift in (1, 4, 8):
+            view = buf[shift:shift + p.packed.numel()].view(p.packed.shape)
+            with pytest.raises(ValueError, match="aligned"):
+                check_alignment(dataclasses.replace(p, packed=view))
+        aligned = buf[ALIGN:ALIGN + p.packed.numel()].view(p.packed.shape)
+        check_alignment(dataclasses.replace(p, packed=aligned))
+
+    @pytest.mark.parametrize("bits", [2, 4, 8])
+    def test_plain_path_takes_any_alignment_and_k(self, bits):
+        # the CPU path runs the plain version whatever the alignment; x with
+        # K = 77 is what the kernel copies element by element at bf16
+        rng = np.random.default_rng(bits)
+        w = torch.from_numpy(rng.standard_normal((77, 300)).astype(np.float32))
+        p = pack_linear(w, bits, bias=torch.ones(300))
+        buf = torch.zeros(p.packed.numel() + 1, dtype=torch.uint8)
+        view = buf[1:].view(p.packed.shape)
+        view.copy_(p.packed)
+        q = dataclasses.replace(p, packed=view)
+        x = torch.from_numpy(rng.standard_normal((5, 77)).astype(np.float32))
+        for cd in (torch.float32, torch.bfloat16):
+            torch.testing.assert_close(dequant_matmul(x, q, compute_dtype=cd),
+                                       dequant_matmul_reference(x, p, compute_dtype=cd))
+
+    @pytest.mark.parametrize("preset", ["tiles", "ablate"])
+    def test_sweep_edits_each_match_the_sources_once(self, preset):
+        # the sweep builds its variants by text edits of csrc/: each must
+        # still find exactly one place to change
+        from quantized_distillation_tpu_torch.kernels import _build
+        from quantized_distillation_tpu_torch.kernels.dequant_matmul_sweep import PRESETS
+
+        for name, edits in PRESETS[preset].items():
+            for fname, old, _ in edits:
+                assert (_build.CSRC / fname).read_text().count(old) == 1, (name, fname, old)
+
+
 class TestBeamCombinePlain:
     def test_matches_pallas_interpret_and_lax_top_k_with_ties(self, jx):
         rng = np.random.default_rng(11)
@@ -278,20 +322,44 @@ def _packed_cuda(rng, k, n, bits, bias=True, **kw):
     return pack_linear(w, bits, bias=b, **kw).to("cuda")
 
 
+# (M, K, N): the decode step's three matrices, then shapes that between them
+# take every M in {1, 63, 64, 65, 1280}, K in {8, 77, 200, 512, 768} (77 leaves
+# bf16 and f32 rows off 16-byte alignment) and N in {31, 256, 700, 1024}
+DM_SHAPES = [
+    (1280, 768, 1024), (1280, 512, 1024), (1280, 512, 256),
+    (77, 200, 700), (1, 8, 31), (63, 77, 256), (64, 200, 700), (65, 512, 1024),
+    (1280, 77, 31), (63, 768, 700), (1, 200, 1024), (65, 8, 256),
+]
+
+
+def _check_dequant_matmul(cuda, rng, shape, bits, cd, lut):
+    """The kernel against its plain version for x f32 and bf16, bias set and
+    unset. f32 compute: rtol = atol = 1e-4. bf16 compute on the tensor cores:
+    both round the operands to bf16 and the products are exact in f32, so
+    only the f32 summation order differs; the same 1e-4 holds."""
+    m, k, n = shape
+    pts = torch.from_numpy(_points(rng, bits)) if lut else None
+    for bias in (True, False):
+        p = _packed_cuda(rng, k, n, bits, bias=bias, points=pts)
+        assert (p.points is not None) == lut
+        for xdt in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda, xdt)
+            n0, l0 = dequant_matmul.launches, dequant_matmul.launches_lut
+            got = dequant_matmul(x, p, compute_dtype=cd)
+            torch.cuda.synchronize()
+            counts = (dequant_matmul.launches, dequant_matmul.launches_lut)
+            assert counts == ((n0, l0 + 1) if lut else (n0 + 1, l0))
+            want = dequant_matmul_reference(x, p, compute_dtype=cd)
+            assert got.shape == (m, n)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", DM_SHAPES)
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
-def test_gpu_dequant_matmul_matches_plain(cuda, bits, cd):
-    rng = np.random.default_rng(bits)
-    p = _packed_cuda(rng, 200, 700, bits)  # K not a multiple of 16, ragged N
-    for xdt in (torch.float32, torch.bfloat16):
-        x = torch.from_numpy(rng.standard_normal((77, 200)).astype(np.float32)).to(cuda, xdt)
-        n0 = dequant_matmul.launches
-        got = dequant_matmul(x, p, compute_dtype=cd)
-        torch.cuda.synchronize()
-        assert dequant_matmul.launches == n0 + 1
-        want = dequant_matmul_reference(x, p, compute_dtype=cd)
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+def test_gpu_dequant_matmul_matches_plain(cuda, shape, bits, cd):
+    _check_dequant_matmul(cuda, np.random.default_rng(bits), shape, bits, cd, lut=False)
 
 
 @pytest.mark.gpu
@@ -338,21 +406,29 @@ def test_gpu_beam_combine_bit_exact(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", DM_SHAPES)
 @pytest.mark.parametrize("bits", [2, 4, 8])
 @pytest.mark.parametrize("cd", [torch.float32, torch.bfloat16])
-def test_gpu_dequant_matmul_lut_matches_plain(cuda, bits, cd):
-    rng = np.random.default_rng(40 + bits)
-    pts = torch.from_numpy(_points(rng, bits))
-    p = _packed_cuda(rng, 200, 700, bits, points=pts, lut_mode="exact")
-    assert p.points.is_cuda
-    for xdt in (torch.float32, torch.bfloat16):
-        x = torch.from_numpy(rng.standard_normal((77, 200)).astype(np.float32)).to(cuda, xdt)
-        n0, l0 = dequant_matmul.launches, dequant_matmul.launches_lut
-        got = dequant_matmul(x, p, compute_dtype=cd)
-        torch.cuda.synchronize()
-        assert (dequant_matmul.launches, dequant_matmul.launches_lut) == (n0, l0 + 1)
-        want = dequant_matmul_reference(x, p, compute_dtype=cd)
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+def test_gpu_dequant_matmul_lut_matches_plain(cuda, shape, bits, cd):
+    _check_dequant_matmul(cuda, np.random.default_rng(40 + bits), shape, bits, cd, lut=True)
+
+
+@pytest.mark.gpu
+def test_gpu_dequant_matmul_plan(cuda):
+    """The tile plans the decode step gets: two warpgroups on 256 rows for
+    the lstm matrices, one on 64 rows for attn_out, 80 blocks each; f32
+    compute keeps the CUDA-core kernel's 64 x 64 tiles."""
+    from quantized_distillation_tpu_torch.kernels import dequant_matmul_plan
+
+    rng = np.random.default_rng(0)
+    for (k, n), rows in (((768, 1024), 256), ((512, 1024), 256), ((512, 256), 64)):
+        p = _packed_cuda(rng, k, n, 4)
+        x = torch.zeros(1280, k, device=cuda, dtype=torch.bfloat16)
+        plan = dequant_matmul_plan(x, p)
+        assert (plan["BM"], plan["BN"]) == (rows, 64)
+        assert plan["blocks"] == (1280 // rows) * (n // 64) and plan["blocks_per_sm"] >= 1
+        f32 = dequant_matmul_plan(x, p, compute_dtype=torch.float32)
+        assert (f32["BM"], f32["BN"], f32["smem_bytes"]) == (64, 64, 0)
 
 
 @pytest.mark.gpu
