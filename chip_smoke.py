@@ -9,19 +9,22 @@ Phases, each printing one JSON line:
    non-zero without a result when PyTorch sees no card;
 2. build: compiles the four CUDA sources of ``csrc/`` (one ``nvcc`` each,
    in parallel; the LUT variants are template instances in two of them) and
-   reports the seconds and ``ptxas`` resource lines; then ``cuobjdump -sass``
-   of the dequant-matmul library counts the tensor-core instructions
-   (HGMMA, HMMA) of each instance: at least one in every bf16-compute
-   instance, none in the f32 ones;
+   reports the seconds and ``ptxas`` resource lines; fails if ``ptxas``
+   serialized the wgmma of any instance (warning C7518) or spilled in a
+   tensor-core instance; then ``cuobjdump -sass`` of the dequant-matmul and
+   fused-generator libraries counts the tensor-core instructions (HGMMA,
+   HMMA) of each instance: at least one in every bf16-compute instance,
+   none in the f32 ones;
 3. kernels: calls each serving kernel's wrapper at the shapes the serving
    main path gives it (student_medium, V=32000, B=256 x beam 5 = 1280 rows,
    4-bit), holds it against its plain PyTorch version on the same inputs
-   (dequant-matmul also at a ragged 77 x 200 x 700 for 2/4/8 bits, at
-   rtol = atol = 1e-4 for bf16 compute as for f32), and times kernel, plain
+   (dequant-matmul and the generator also at a ragged 77 x 200 x 700, the
+   generator at K = 77 too, for 2/4/8 bits; both at rtol = atol = 1e-4 for
+   bf16 compute as for f32), and times kernel, plain
    version and a one-call PyTorch yardstick on the device: CUDA events
    around a CUDA graph of back-to-back calls, so the host's time to issue
-   each call is left out (dequant-matmul also reports its tile plan,
-   TFLOP/s and share of the bound);
+   each call is left out (dequant-matmul and the generator also report
+   their plan, TFLOP/s and share of the bound);
 4. main path: ``pack_decoder`` → ``beam_search_packed`` at full width (depth
    as published: 2 layers), checks the launch counters (3 dequant-matmul,
    1 fused top-k, 1 combine per decode step), finite scores, and f32 tokens
@@ -29,7 +32,8 @@ Phases, each printing one JSON line:
    bf16 path and the dense FP32 ``beam_search`` on the card;
 5. profile: device time by kernel over one packed beam search
    (``torch.profiler``), the dequant-matmul and generator kernels' device ms
-   in it, and the device's busy share of that run;
+   in it (the generator's merge pass apart), and the device's busy share of
+   that run;
 6. train kernel: the fake-quant kernel at the train step's shape (every
    quantizable leaf of student_medium: 105,984 buckets x 256), bit-exact
    against its plain version for 2/4/8 bits x linear/abs-max and on
@@ -100,6 +104,7 @@ from quantized_distillation_tpu_torch.kernels import (
     dequant_matmul_plan,
     dequant_matmul_reference,
     dequant_matmul_topk,
+    dequant_matmul_topk_plan,
     dequant_matmul_topk_reference,
     dequantize_linear,
     fake_quant_buckets,
@@ -139,7 +144,9 @@ BF16_REL = 2e-2  # bf16 values: relative to the row's largest |value|
 BF16_TIE = 4 * 2.0 ** -8  # bf16 tie band (TestCrossKernelNumerics), times max(|logit|, 1)
 
 DESIGN = "tensor cores (wgmma)"
+DESIGN_TOPK = "tensor cores (wgmma), x resident in shared memory, top-k and lse from registers"
 RAGGED = (77, 200, 700)  # M, K, N: K not a multiple of 16, N of 64
+RAGGED_TOPK_K = (200, 77)  # the generator also at K = 77: x rows off 16-byte alignment
 
 SRC = "quantized_distillation_tpu_torch/csrc/"
 JAXK = "quantized_distillation_tpu/kernels/"
@@ -235,9 +242,29 @@ def phase_device():
     return dev, smi
 
 
-def phase_build():
+TC_KERNELS = ("dequant_matmul_tc_kernel", "topk_tc_kernel", "topk_tc_stream_kernel")
+
+
+def ptxas_faults(log: str) -> tuple:
+    """From one ``nvcc -Xptxas -v`` log: the warnings that wgmma was
+    serialized (C7518), and the tensor-core functions with spill stores."""
+    serialized = [line.strip() for line in log.splitlines()
+                  if "C7518" in line or ("wgmma" in line and "serialized" in line)]
+    spills, fn = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[-1].strip()
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn and int(m.group(1)) > 0 and any(k in fn for k in TC_KERNELS):
+            spills.append(f"{fn[:80]}: {m.group(1)} bytes")
+    return serialized, spills
+
+
+def phase_build(checks):
+    """Builds every library (anew, so that each compiler log is read) and
+    fails on a serialized wgmma or a spilling tensor-core instance."""
     t0 = time.perf_counter()
-    logs = _build.build_all()
+    logs = _build.build_all(force=True)
     secs = time.perf_counter() - t0
     ptxas = [
         f"{name}: {line.split('ptxas info    : ')[-1]}"
@@ -245,7 +272,15 @@ def phase_build():
         for line in log.splitlines()
         if "registers" in line
     ]
-    emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(logs), "ptxas": ptxas})
+    faults = {}
+    for name in ("dequant_matmul", "topk_fused"):
+        serialized, spills = ptxas_faults(logs.get(name, ""))
+        checks.require(name in logs, f"build: no compiler log for {name}")
+        checks.require(not serialized, f"build: ptxas serialized wgmma in {name}: {serialized[:2]}")
+        checks.require(not spills, f"build: spill stores in tensor-core instances: {spills[:4]}")
+        faults[name] = {"wgmma_serialized": len(serialized), "tc_spilling": len(spills)}
+    emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(logs), "faults": faults,
+          "ptxas": ptxas})
 
 
 def cuobjdump() -> str:
@@ -263,37 +298,50 @@ def cuobjdump() -> str:
     raise FileNotFoundError("cuobjdump not found beside nvcc or in triton/backends/nvidia/bin")
 
 
+# library → (names of its bf16-compute pass instances, name of its f32 instances)
+SASS_LIBS = {
+    "dequant_matmul": (("dequant_matmul_tc_kernel",), "dequant_matmul_kernel"),
+    "topk_fused": (("topk_tc_kernel", "topk_tc_stream_kernel"), "topk_partial_kernel"),
+}
+
+
 def phase_sass(checks):
     """Tensor cores, shown in the machine code: HGMMA (wgmma) and HMMA
-    (mma.sync) instructions in each instance of the dequant-matmul library.
-    Every bf16-compute instance (dequant_matmul_tc_kernel) must hold at least
-    one, the f32 instances (dequant_matmul_kernel) none."""
-    lib = _build._lib_path("dequant_matmul")
+    (mma.sync) instructions in each instance of the dequant-matmul and
+    fused-generator libraries. Every bf16-compute instance
+    (dequant_matmul_tc_kernel; the generator's pass 1, topk_tc_kernel and
+    topk_tc_stream_kernel) must hold at least one, the f32 instances
+    (dequant_matmul_kernel, topk_partial_kernel) none."""
     try:
         tool = cuobjdump()
     except FileNotFoundError as e:
         checks.require(False, str(e))
         return
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
-    found = []
-    for part in sass.split("Function : ")[1:]:
-        fn = part.split("\n", 1)[0].strip()
-        found.append({"function": fn, "HGMMA": part.count("HGMMA"),
-                      "HMMA": len(re.findall(r"\bHMMA\b", part)),
-                      "tensor_core": "dequant_matmul_tc_kernel" in fn})
-    tc = [f for f in found if f["tensor_core"]]
-    f32 = [f for f in found if "dequant_matmul_kernel" in f["function"]]
-    checks.require(len(tc) > 0 and len(f32) > 0, f"sass: {len(tc)} bf16 and {len(f32)} f32 instances")
-    for f in tc:
-        checks.require(f["HGMMA"] + f["HMMA"] > 0, f"sass: no tensor-core instruction in {f['function']}")
-    for f in f32:
-        checks.require(f["HGMMA"] + f["HMMA"] == 0, f"sass: tensor-core instruction in {f['function']}")
-    emit({"phase": "sass", "tool": tool, "library": lib.name,
-          "bf16_instances": len(tc), "f32_instances": len(f32),
-          "hgmma_per_bf16_instance": sorted({f["HGMMA"] for f in tc}),
-          "tensor_core_instructions_in_f32_instances": sum(f["HGMMA"] + f["HMMA"] for f in f32),
-          "instances": [[f["function"][:60], f["HGMMA"], f["HMMA"]] for f in found]})
+    for name, (tc_names, f32_name) in SASS_LIBS.items():
+        lib = _build._lib_path(name)
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        found = []
+        for part in sass.split("Function : ")[1:]:
+            fn = part.split("\n", 1)[0].strip()
+            found.append({"function": fn, "HGMMA": part.count("HGMMA"),
+                          "HMMA": len(re.findall(r"\bHMMA\b", part)),
+                          "tensor_core": any(k in fn for k in tc_names)})
+        tc = [f for f in found if f["tensor_core"]]
+        f32 = [f for f in found if f32_name in f["function"]]
+        checks.require(len(tc) > 0 and len(f32) > 0,
+                       f"sass {name}: {len(tc)} bf16 and {len(f32)} f32 instances")
+        for f in tc:
+            checks.require(f["HGMMA"] + f["HMMA"] > 0,
+                           f"sass: no tensor-core instruction in {f['function']}")
+        for f in f32:
+            checks.require(f["HGMMA"] + f["HMMA"] == 0,
+                           f"sass: tensor-core instruction in {f['function']}")
+        emit({"phase": "sass", "tool": tool, "library": lib.name,
+              "bf16_instances": len(tc), "f32_instances": len(f32),
+              "hgmma_per_bf16_instance": sorted({f["HGMMA"] for f in tc}),
+              "tensor_core_instructions_in_f32_instances": sum(f["HGMMA"] + f["HMMA"] for f in f32),
+              "instances": [[f["function"][:60], f["HGMMA"], f["HMMA"]] for f in found]})
 
 
 def check_values(checks, name, got, want, cd, exact_products=False):
@@ -409,26 +457,54 @@ def kernel_dequant_matmul(checks, name, replaces, dec, rows, gen, lut_bits=()):
     }
 
 
+def check_topk(checks, name, x, g, k_top, cd) -> dict:
+    """The generator against its plain version on one input: values and lse
+    at F32_TOL for both compute types (at bf16 both round the same operands
+    and sum products exact in f32), indices up to the tie band, no index at
+    or past the logical width."""
+    v, i, lse = dequant_matmul_topk(x, g, k_top, compute_dtype=cd)
+    rv, ri, rlse = dequant_matmul_topk_reference(x, g, k_top, compute_dtype=cd)
+    err = max(check_values(checks, f"{name}/{cd}/values", v, rv, cd, True),
+              check_values(checks, f"{name}/{cd}/lse", lse, rlse, cd, True))
+    eq, band = check_topk_indices(checks, f"{name}/{cd}", v, i, rv, ri, cd)
+    checks.require(0 <= int(i.min()) and int(i.max()) < g.shape[1],
+                   f"{name}: an index outside [0, N) was chosen")
+    return {"max_abs_err": err, "rows_equal": eq, "rows_in_tie_band": band}
+
+
+def ragged_topk(checks, name, gen, lut: bool) -> dict:
+    """The generator at M = 77, N = 700 and K = 200 and 77 (x rows off
+    16-byte alignment at K = 77): 2/4/8 bits, x f32 and bf16, both compute
+    types, k = 5; with ``lut``, each packed with a random codebook (edge
+    padding masked by the kernel)."""
+    m, _, n = RAGGED
+    out = {}
+    for k in RAGGED_TOPK_K:
+        for bits in (2, 4, 8):
+            pts = lut_points(bits, gen) if lut else None
+            q = pack_linear(torch.randn(k, n, generator=gen), bits,
+                            bias=torch.randn(n, generator=gen), points=pts).to("cuda")
+            for xdt in (torch.float32, torch.bfloat16):
+                x = torch.randn(m, k, generator=gen).to("cuda", xdt)
+                for cd in (torch.float32, torch.bfloat16):
+                    out[f"{k}/{bits}/{xdt}/{cd}"] = check_topk(
+                        checks, f"{name}/ragged {m}x{k}x{n}/{bits}/{xdt}", x, q, 5, cd)["max_abs_err"]
+    return out
+
+
 def kernel_topk(checks, name, replaces, g, rows, gen, extra: dict) -> dict:
     """The fused generator kernel on the generator ``g`` against its plain
-    version (f32 and bf16 compute: values, lse, indices up to the tie band;
-    no index at or past the logical width), timed at bf16 against the plain
-    version and one PyTorch call (bf16 matmul + bias, ``torch.topk``,
-    ``torch.logsumexp``). ``extra`` joins the printed line. Returns the
-    kernel-table row."""
+    version (f32 and bf16 compute, see check_topk), at the ragged shapes,
+    and timed at bf16 against the plain version and one PyTorch call (bf16
+    matmul + bias, ``torch.topk``, ``torch.logsumexp``), with its plan,
+    TFLOP/s and share of the bound. ``extra`` joins the printed line.
+    Returns the kernel-table row."""
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
     k_top = 5
     x = torch.randn(rows, g.shape[0], generator=gen).to(dev)
-    stats = {}
-    for cd in (torch.float32, bf16):
-        v, i, lse = dequant_matmul_topk(x, g, k_top, compute_dtype=cd)
-        rv, ri, rlse = dequant_matmul_topk_reference(x, g, k_top, compute_dtype=cd)
-        err = max(check_values(checks, f"{name}/{cd}/values", v, rv, cd),
-                  check_values(checks, f"{name}/{cd}/lse", lse, rlse, cd))
-        eq, band = check_topk_indices(checks, f"{name}/{cd}", v, i, rv, ri, cd)
-        checks.require(int(i.max()) < g.shape[1], f"{name}: a column past N was chosen")
-        stats[str(cd)] = {"max_abs_err": err, "rows_equal": eq, "rows_in_tie_band": band}
+    stats = {str(cd): check_topk(checks, name, x, g, k_top, cd) for cd in (torch.float32, bf16)}
+    ragged = ragged_topk(checks, name, gen, g.points is not None)
     g16 = dequantize_linear(g, bf16)
     bias = g.bias
 
@@ -444,12 +520,15 @@ def kernel_topk(checks, name, replaces, g, rows, gen, extra: dict) -> dict:
     byt = nbytes(x) + packed_bytes(g) + rows * (k_top * 8 + 4)
     bms, by = bound(flops, byt)
     emit({"phase": "kernel", "name": name, "M": rows, "K": g.shape[0], "N": g.shape[1],
-          "N_padded": g.n_padded, "k": k_top, "checks": stats, "flops": flops, "bytes": byt,
-          **extra})
+          "N_padded": g.n_padded, "k": k_top, "checks": stats, "ragged_max_abs_err": ragged,
+          "plan": dequant_matmul_topk_plan(x, g), "ms": ms, "library_ms": lib,
+          "tflops": flops / (ms * 1e-3) / 1e12, "share_of_bound": bms / ms,
+          "flops": flops, "bytes": byt, **extra})
     return {
         "name": name, "route": "cuda", "source": SRC + "topk_fused.cu", "replaces": replaces,
         "max_abs_err": stats[str(bf16)]["max_abs_err"],
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        "design": DESIGN_TOPK,
     }
 
 
@@ -596,7 +675,8 @@ def phase_profile(run, median_s: float, phase: str = "profile", focus: str = Non
         "device_busy_share_of_median_run": device_ms / (median_s * 1e3),
         "top": [{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels[:12]],
     }
-    for family, key in (("dequant_matmul", "dequant_matmul"), ("generator", "topk_")):
+    for family, key in (("dequant_matmul", "dequant_matmul"), ("generator", "topk_"),
+                        ("generator_merge", "topk_merge")):
         out[f"{family}_device_ms"] = sum(ms for k, ms, _ in kernels if key in k)
         out[f"{family}_calls"] = sum(n for k, _, n in kernels if key in k)
     if focus:
@@ -1042,7 +1122,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = Checks()
-    phase_build()
+    phase_build(checks)
     phase_sass(checks)
     model = make_seq2seq(args.preset, args.vocab, args.vocab, device="cuda", seed=args.seed)
     params = params_to_numpy(model)

@@ -45,12 +45,6 @@
 // x element by element), in the same kernel. The packed bytes, scale and
 // offset must be 16-byte aligned; the wrapper checks that and raises.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include <initializer_list>
-#include <utility>
-
 #include "dequant_tile.cuh"
 #include "dequant_tile_tc.cuh"
 
@@ -73,8 +67,8 @@ __global__ void __launch_bounds__(THREADS)
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
   float acc[4][4] = {};
-  tile_mma<XT, false, LUT>(x, M, K, packed, scale, offset, lut, bits, row_bytes,
-                          N, row0, col0, acc, As, Bs);
+  tile_mma<XT, LUT>(x, M, K, packed, scale, offset, lut, bits, row_bytes, N, row0,
+                    col0, acc, As, Bs);
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -150,48 +144,6 @@ __global__ void __launch_bounds__(WG * tc::WG_THREADS)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime (no link to libcuda).
-static PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
-  }();
-  return fn;
-}
-
-// A 2D TMA descriptor: `dims` and `box` innermost first, `stride` the
-// bytes between rows. Elements outside the tensor read as 0.
-static cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                              cuuint64_t inner, cuuint64_t rows, cuuint64_t stride,
-                              cuuint32_t box_inner, cuuint32_t box_rows,
-                              CUtensorMapSwizzle swizzle) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {inner, rows};
-  const cuuint64_t strides[1] = {stride};
-  const cuuint32_t box[2] = {box_inner, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-static int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v > 0 ? v : 132;
-  }();
-  return n;
-}
-
 // Tile shape of the tensor-core kernel: the first of SHAPES that fits in
 // shared memory and launches at least half a block per SM. Measured at the decode shapes on an H100
 // (PERF.md): two warpgroups of two 64-row tiles each (256 rows) sharing one
@@ -213,7 +165,7 @@ static int pick_shape(int M, int N, int x_size, bool lut, int bits) {
     if (tc::smem_bytes(rows, x_size, lut, bits, sh.bn, tc::stages_for(x_size)) > tc::SMEM_MAX)
       continue;  // f32 x at 256 rows
     const int64_t blocks = (int64_t)((M + rows - 1) / rows) * ((N + sh.bn - 1) / sh.bn);
-    if (2 * blocks >= sm_count()) return i;
+    if (2 * blocks >= tc::sm_count()) return i;
     last = i;
   }
   return last;
@@ -253,18 +205,11 @@ static cudaError_t run_tc(const void* x, const void* packed, const void* scale,
   tc::Maps maps{};
   if (tma) {
     const bool bf16 = sizeof(XT) == 2;
-    const cuuint64_t nb = row_bytes / (32 * BITS);  // buckets: scale/offset rows
-    cudaError_t e = tensor_map(
+    cudaError_t e = tc::tensor_map(
         &maps.x, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, K,
         M, (cuuint64_t)K * sizeof(XT), tc::BK, T::ROWS,
         bf16 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
-    if (e == cudaSuccess)
-      e = tensor_map(&maps.packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, row_bytes, K, row_bytes,
-                     T::PB, tc::BK, CU_TENSOR_MAP_SWIZZLE_NONE);
-    for (auto [map, src] : {std::pair{&maps.scale, scale}, std::pair{&maps.offset, offset}})
-      if (e == cudaSuccess)
-        e = tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, src, K, nb, (cuuint64_t)K * 4, tc::BK,
-                       1, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (e == cudaSuccess) e = tc::weight_maps(&maps, packed, scale, offset, K, row_bytes, BITS, T::PB);
     if (e != cudaSuccess) return e;
   }
   kern<<<grid, T::THREADS, T::SMEM, stream>>>(

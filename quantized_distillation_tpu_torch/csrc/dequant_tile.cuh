@@ -1,5 +1,6 @@
-// Shared tile loop of the packed-weight kernels: one 64x64 output tile of
-// x[M, K] @ dequant(W)[K, N], accumulated in f32 by plain FMA.
+// Shared f32 tile loop of the packed-weight kernels: one 64x64 output tile
+// of x[M, K] @ dequant(W)[K, N], accumulated in f32 by plain FMA on the CUDA
+// cores (f32 compute).
 //
 // The packed layout is the one kernels/packed.py writes: W's levels are
 // planar-packed uint8 [K, Npad*bits/8] in 256-column buckets (value t of
@@ -13,13 +14,11 @@
 // tile loop looks each level up there: a GPU gathers from shared memory in
 // one instruction, where the TPU kernel needs 2^bits select passes.
 //
-// Rounding follows the plain PyTorch version (dequant_matmul_reference):
-// the weight (or its LUT value) is dequantized in f32 (separate multiply
-// and add, no fused
-// multiply-add, so it is the same float), both operands are rounded to the
-// compute type (bf16 or f32), and the products are summed in f32. A product
-// of two bf16 values is exact in f32, so only the order of the sum differs
-// from the plain version.
+// Rounding follows the plain PyTorch version (dequant_matmul_reference) at
+// f32 compute: the weight (or its LUT value) is dequantized in f32 (separate
+// multiply and add, no fused multiply-add, so it is the same float) and the
+// products are summed in f32; only the order of the sum differs. bf16
+// compute runs on the tensor cores instead (dequant_tile_tc.cuh).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,15 +33,6 @@ constexpr int BN = 64;   // tile columns (divides BUCKET)
 constexpr int BK = 16;   // K slab per shared-memory stage
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 constexpr int LUT_MAX = 256;  // points of an 8-bit codebook
-
-template <bool BF16>
-__device__ __forceinline__ float to_compute(float v) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -73,7 +63,7 @@ __device__ __forceinline__ void load_lut(const float* __restrict__ points,
 // rows >= M and columns >= N read as 0; with LUT, a level indexes the points
 // in shared memory `lut` (see load_lut). Every thread of the block calls it;
 // it ends with a barrier, so the caller may reuse shared memory after it.
-template <typename XT, bool BF16, bool LUT>
+template <typename XT, bool LUT>
 __device__ __forceinline__ void tile_mma(
     const XT* __restrict__ x, int M, int K, const uint8_t* __restrict__ packed,
     const float* __restrict__ scale, const float* __restrict__ offset,
@@ -89,7 +79,7 @@ __device__ __forceinline__ void tile_mma(
       const int m = e / BK, kk = e % BK;
       const int gm = row0 + m, gk = k0 + kk;
       float v = 0.f;
-      if (gm < M && gk < K) v = to_compute<BF16>(load_f32(x + (int64_t)gm * K + gk));
+      if (gm < M && gk < K) v = load_f32(x + (int64_t)gm * K + gk);
       As[kk][m] = v;
     }
 #pragma unroll
@@ -101,7 +91,7 @@ __device__ __forceinline__ void tile_mma(
         const int level = unpack_level(packed, row_bytes, gk, gn, bits);
         const float lvl = LUT ? lut[level] : (float)level;
         const int64_t so = (int64_t)j * K + gk;
-        w = to_compute<BF16>(__fadd_rn(__fmul_rn(lvl, scale[so]), offset[so]));
+        w = __fadd_rn(__fmul_rn(lvl, scale[so]), offset[so]);
       }
       Bs[kk][cn] = w;
     }

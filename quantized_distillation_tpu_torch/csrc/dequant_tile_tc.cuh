@@ -17,8 +17,9 @@
 //     copy instead (cp.async, or plain loads for bf16 x). Rows >= M and
 //     k >= K read as 0. bf16 x lands directly in the swizzled layout wgmma
 //     reads; f32 x lands row major and is rounded to bf16
-//     (__float2bfloat16_rn, as to_compute<true>) into a separate A tile.
-//  2. dequantize, shared to shared, all threads: each weight
+//     (__float2bfloat16_rn, as the plain version's x.to(bf16)) into a
+//     separate A tile.
+//  2. dequantize, shared to shared, all threads (transform_b): each weight
 //     bf16(__fadd_rn(__fmul_rn(v, s[k]), o[k])), v the level (made a float
 //     exactly with the 2^23 trick: no int-to-float conversion) or
 //     lut[level]. With a 2- or 4-bit codebook a slab has only 64 x 2^bits
@@ -36,13 +37,17 @@
 //     s + 1 is dequantized while slab s's products run; wgmma.wait_group 1
 //     before the next slab keeps the buffers being overwritten free.
 //
+// The weight side (WSide: the slab copy load_w_slab, the per-tile thread
+// task WTask and transform_b) is shared with the fused generator
+// (topk_fused.cu), which keeps x resident in shared memory and streams only
+// weights through the same ring.
+//
 // The products of two bf16 values are exact in f32; only the order of the
-// f32 sum differs from the plain version. The fused generator can reuse
-// the loop as it uses tile_mma: points in shared memory, columns >= N read
-// as 0.
+// f32 sum differs from the plain version.
 #pragma once
 
 #include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include "dequant_tile.cuh"
 
@@ -146,8 +151,10 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* tile) {
 #define QDT_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
 #define QDT_F16(i) QDT_F4(i), QDT_F4(i + 4), QDT_F4(i + 8), QDT_F4(i + 12)
 
-// d[64 x 64] += A[64 x 16] B[16 x 64], both operands K-major in shared memory.
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+// d[64 x 64] (+)= A[64 x 16] B[16 x 64], both operands K-major in shared
+// memory; scale_d = 0 overwrites d instead of adding to it.
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                          int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -155,18 +162,19 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t 
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "%32, %33, p, 1, 1, 0, 0;\n}\n"
       : QDT_F16(0), QDT_F16(16)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d[64 x 32] += A[64 x 16] B[16 x 32].
-__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db) {
+// d[64 x 32] (+)= A[64 x 16] B[16 x 32].
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da, uint64_t db,
+                                          int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
       "%16, %17, p, 1, 1, 0, 0;\n}\n"
       : QDT_F16(0)
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 #undef QDT_F16
@@ -184,8 +192,9 @@ __device__ __forceinline__ float level_to_float(uint32_t v) {
 }
 
 // TMA descriptors of a call's operands: x [M, K] with a [ROWS, 64] box
-// (128-byte swizzle for bf16), packed [K, row_bytes] with a [64, PB] box,
-// scale and offset [Npad/256, K] with a [1, 64] box.
+// (128-byte swizzle for bf16; unused by the generator), packed [K,
+// row_bytes] with a [64, PB] box, scale and offset [Npad/256, K] with a
+// [1, 64] box.
 struct Maps {
   CUtensorMap x, packed, scale, offset;
 };
@@ -205,48 +214,64 @@ constexpr bool a_in_ring(int x_size) { return x_size == 2; }
 constexpr int stages_for(int x_size) { return AHEAD + (a_in_ring(x_size) ? 2 : 1); }
 // Shared memory a block may have on an H100 (227 KB).
 constexpr int SMEM_MAX = 232448;
+// Shared memory of the weight side of a ring stage: packed bytes, then 64
+// scales and 64 offsets.
+constexpr int w_stage_bytes(int bits, int bn) { return BK * packed_row_bytes(bits, bn) + 2 * BK * 4; }
 
 // Dynamic shared memory of a tile configuration: [A x2 (f32 x only)][B x2]
 // [x x STAGES][packed x STAGES][scale, offset x STAGES][table][lut: 2^bits
 // points][an mbarrier per stage], + 1024 for aligning the base.
 constexpr int smem_bytes(int rows, int x_size, bool lut, int bits, int bn, int stages) {
   return (a_in_ring(x_size) ? 0 : 2 * rows * BK * 2) + 2 * bn * BK * 2 +
-         stages * (rows * BK * x_size + BK * packed_row_bytes(bits, bn) + 2 * BK * 4) +
+         stages * (rows * BK * x_size + w_stage_bytes(bits, bn)) +
          BK * table_entries(lut, bits) * 2 + (lut ? 4 << bits : 0) + 8 * stages + 1024;
 }
 
-// Shapes and shared-memory layout of one tile configuration. BN is 32, 64
-// or 128 and divides the 256-column bucket, so a tile never straddles one.
-// Each of the WG warpgroups multiplies MT row tiles of 64.
-template <typename XT, bool LUT, int BITS, int BN, int WG, int MT>
-struct Tile {
-  static constexpr int THREADS = WG * WG_THREADS;
-  static constexpr int ROWS = WG * MT * BM;
+// The weight side of a tile configuration: BN columns (32, 64 or 128,
+// dividing the 256-column bucket, so a tile never straddles one) of a
+// 64-deep slab, dequantized by THREADS threads.
+template <bool LUT, int BITS_, int BN_, int THREADS_>
+struct WSide {
+  static constexpr int BITS = BITS_;
+  static constexpr int BN = BN_;
+  static constexpr int THREADS = THREADS_;
   static constexpr int PLANE = 32 * BITS;  // bytes of a bucket row's plane
   static constexpr int PB = packed_row_bytes(BITS, BN);
   static constexpr int NSUB = BN >= 64 ? BN / 64 : 1;  // wgmma instructions per k16 and row tile
   static constexpr int NREG = BN >= 64 ? 32 : 16;      // accumulators per instruction
   static constexpr int L = table_entries(LUT, BITS);
-  static constexpr bool A_IN_RING = a_in_ring(sizeof(XT));
-  static constexpr int STAGES = stages_for(sizeof(XT));
+  static constexpr bool IS_LUT = LUT;
   // B transform: CPT adjacent columns x one 8-deep k chunk per task, PASSES tasks a thread
   static constexpr int CPT = BN * 8 / THREADS >= 4 ? 4 : BN * 8 / THREADS;
   static constexpr int GROUPS = BN / CPT;  // column groups of a k chunk
   static constexpr int PASSES = BN * 8 / (THREADS * CPT);
-  static constexpr int A_BYTES = ROWS * BK * 2;
   static constexpr int B_BYTES = BN * BK * 2;
-  static constexpr int X_BYTES = ROWS * BK * (int)sizeof(XT);
   static constexpr int P_BYTES = BK * PB;
-  static constexpr int B_OFF = A_IN_RING ? 0 : 2 * A_BYTES;
-  static constexpr int X_OFF = B_OFF + 2 * B_BYTES;
-  static constexpr int P_OFF = X_OFF + STAGES * X_BYTES;
-  static constexpr int SO_OFF = P_OFF + STAGES * P_BYTES;
-  static constexpr int TABLE_OFF = SO_OFF + STAGES * 2 * BK * 4;
-  static constexpr int LUT_OFF = TABLE_OFF + BK * L * 2;
-  static constexpr int BAR_OFF = LUT_OFF + (LUT ? 4 << BITS : 0);
-  static constexpr int SMEM = smem_bytes(ROWS, sizeof(XT), LUT, BITS, BN, STAGES);
+  static constexpr int SO_BYTES = 2 * BK * 4;
+  static constexpr int TABLE_BYTES = BK * L * 2;
+  static constexpr int LUT_BYTES = LUT ? 4 << BITS : 0;
   static_assert(CPT >= 1 && PASSES >= 1 && GROUPS <= 32 && 32 % GROUPS == 0,
                 "a k chunk's threads must lie in one warp");
+};
+
+// Shapes and shared-memory layout of one tile configuration of the
+// dequant-matmul. Each of the WG warpgroups multiplies MT row tiles of 64.
+template <typename XT, bool LUT, int BITS, int BN, int WG, int MT>
+struct Tile : WSide<LUT, BITS, BN, WG * WG_THREADS> {
+  using W = WSide<LUT, BITS, BN, WG * WG_THREADS>;
+  static constexpr int ROWS = WG * MT * BM;
+  static constexpr bool A_IN_RING = a_in_ring(sizeof(XT));
+  static constexpr int STAGES = stages_for(sizeof(XT));
+  static constexpr int A_BYTES = ROWS * BK * 2;
+  static constexpr int X_BYTES = ROWS * BK * (int)sizeof(XT);
+  static constexpr int B_OFF = A_IN_RING ? 0 : 2 * A_BYTES;
+  static constexpr int X_OFF = B_OFF + 2 * W::B_BYTES;
+  static constexpr int P_OFF = X_OFF + STAGES * X_BYTES;
+  static constexpr int SO_OFF = P_OFF + STAGES * W::P_BYTES;
+  static constexpr int TABLE_OFF = SO_OFF + STAGES * W::SO_BYTES;
+  static constexpr int LUT_OFF = TABLE_OFF + W::TABLE_BYTES;
+  static constexpr int BAR_OFF = LUT_OFF + W::LUT_BYTES;
+  static constexpr int SMEM = smem_bytes(ROWS, sizeof(XT), LUT, BITS, BN, STAGES);
   static_assert(BAR_OFF + 8 * STAGES + 1024 == SMEM, "layout and size disagree");
 };
 
@@ -256,6 +281,152 @@ __device__ __forceinline__ uint32_t load_bytes(const uint8_t* p) {
   if constexpr (CPT == 4) return *reinterpret_cast<const uint32_t*>(p);
   else if constexpr (CPT == 2) return *reinterpret_cast<const uint16_t*>(p);
   else return *p;
+}
+
+// One thread's share of the B transform of the tile starting at column
+// col0: CPT adjacent columns n0 .. n0 + CPT - 1 (adjacent bytes of a packed
+// row, one field) in the k chunks q0 + p * (THREADS / GROUPS).
+template <class W>
+struct WTask {
+  int q0, lb;
+  int sh[W::CPT], row_of[W::CPT];
+  uint32_t keep[W::CPT];
+  __device__ __forceinline__ WTask(int tid, int col0, int N) {
+    const int cb = col0 % BUCKET;  // tile's first column in its bucket
+    const int n0 = (tid % W::GROUPS) * W::CPT;
+    q0 = tid / W::GROUPS;
+    const int c0 = cb + n0;  // first column in the bucket
+    lb = c0 % W::PLANE - cb % W::PLANE;
+    // slot b holds column n0 + (b + rot) % CPT: rotating by lane keeps the
+    // 16-byte stores of a quarter warp on distinct banks
+    const int rot = (tid / (8 / W::CPT)) % W::CPT;
+#pragma unroll
+    for (int b = 0; b < W::CPT; ++b) {
+      const int cc = (b + rot) % W::CPT;
+      sh[b] = 8 * cc + (c0 / W::PLANE) * W::BITS;
+      row_of[b] = n0 + cc;
+      keep[b] = col0 + n0 + cc < N ? 0xFFFFFFFFu : 0u;
+    }
+  }
+};
+
+// Copies the weights of the 64-deep slab at k0 of the tile starting at
+// column col0 into a ring stage: ps [64, PB] packed bytes, so 64 scales then
+// 64 offsets. With `tma`, one thread asks the TMA for the three boxes, which
+// complete on `bar` (the caller has announced their bytes); else every
+// thread copies with cp.async, zero-filling k >= K (the caller commits).
+template <class W>
+__device__ __forceinline__ void load_w_slab(bool tma, const Maps* maps,
+                                            const uint8_t* __restrict__ packed,
+                                            const float* __restrict__ scale,
+                                            const float* __restrict__ offset, int K,
+                                            int64_t row_bytes, int col0, int k0, uint8_t* ps,
+                                            float* so, uint64_t* bar) {
+  const int tid = threadIdx.x;
+  const int j = col0 / BUCKET;  // the tile's bucket: its scale and offset row
+  const int64_t pstart = (int64_t)j * W::PLANE + (col0 % BUCKET) % W::PLANE;  // first byte
+  if (tma) {
+    const bool lead = tid == 0;  // the thread that asks the TMA
+    tma_load_2d(lead, ps, &maps->packed, (int)pstart, k0, bar);
+    tma_load_2d(lead, so, &maps->scale, k0, j, bar);
+    tma_load_2d(lead, so + BK, &maps->offset, k0, j, bar);
+    return;
+  }
+  constexpr int PPR = W::PB / 16;
+#pragma unroll
+  for (int e = tid; e < BK * PPR; e += W::THREADS) {
+    const int kk = e / PPR, q = e % PPR;
+    const int gk = k0 + kk;
+    const bool ok = gk < K;
+    cp_async16(ps + kk * W::PB + q * 16,
+               ok ? packed + (int64_t)gk * row_bytes + pstart + q * 16 : packed, ok ? 16 : 0);
+  }
+  for (int e = tid; e < 2 * BK; e += W::THREADS) {  // so[0:64] scale, so[64:128] offset
+    const int gk = k0 + e % BK;
+    const float* src = e < BK ? scale : offset;
+    const bool ok = gk < K;
+    cp_async4(so + e, ok ? src + (int64_t)j * K + gk : src, ok ? 4 : 0);
+  }
+}
+
+// Dequantizes a landed stage (ps, so) into the swizzled bf16 B tile bt, as
+// `task` divides it; with LUT, lut holds the 2^BITS points (load_lut) and
+// table is scratch for 2/4-bit codebooks. Every thread of the block calls it.
+template <class W>
+__device__ __forceinline__ void transform_b(const WTask<W>& task, const uint8_t* ps,
+                                            const float* so, const float* lut,
+                                            __nv_bfloat16* table, uint8_t* bt) {
+  constexpr int MASK = (1 << W::BITS) - 1;
+  constexpr int THREADS = W::THREADS;
+  const int tid = threadIdx.x;
+  if constexpr (W::L > 0) {
+    // Each k chunk belongs to one warp's threads, so a warp builds the
+    // table rows of its own chunks and only a warp barrier is needed.
+    constexpr int QW = 32 / W::GROUPS;  // chunks of a warp in one pass
+    const int lane = tid % 32, qw0 = (tid - lane) / W::GROUPS;
+#pragma unroll
+    for (int p = 0; p < W::PASSES; ++p)
+#pragma unroll
+      for (int e = lane; e < QW * 8 * W::L; e += 32) {
+        const int kk = (qw0 + e / (8 * W::L) + p * (THREADS / W::GROUPS)) * 8 +
+                       e % (8 * W::L) / W::L;
+        const int lv = e % W::L;
+        table[kk * W::L + lv] =
+            __float2bfloat16_rn(__fadd_rn(__fmul_rn(lut[lv], so[kk]), so[BK + kk]));
+      }
+    __syncwarp();
+  }
+  uint32_t words[W::PASSES][8];
+#pragma unroll
+  for (int p = 0; p < W::PASSES; ++p)
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int q = task.q0 + p * (THREADS / W::GROUPS);
+      words[p][kk] = load_bytes<W::CPT>(ps + (q * 8 + kk) * W::PB + task.lb);
+    }
+#pragma unroll
+  for (int p = 0; p < W::PASSES; ++p) {
+    const int q = task.q0 + p * (THREADS / W::GROUPS);
+    uint32_t h[W::CPT][4];
+    if constexpr (W::L > 0) {
+      const uint16_t* tab = reinterpret_cast<const uint16_t*>(table) + q * 8 * W::L;
+#pragma unroll
+      for (int b = 0; b < W::CPT; ++b)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t lo = tab[(2 * i) * W::L + ((words[p][2 * i] >> task.sh[b]) & MASK)];
+          const uint32_t hi =
+              tab[(2 * i + 1) * W::L + ((words[p][2 * i + 1] >> task.sh[b]) & MASK)];
+          h[b][i] = (lo | (hi << 16)) & task.keep[b];
+        }
+    } else {
+      float s8[8], o8[8];
+#pragma unroll
+      for (int i = 0; i < 8; i += 4) {
+        const float4 sv = *reinterpret_cast<const float4*>(so + q * 8 + i);
+        const float4 ov = *reinterpret_cast<const float4*>(so + BK + q * 8 + i);
+        s8[i] = sv.x, s8[i + 1] = sv.y, s8[i + 2] = sv.z, s8[i + 3] = sv.w;
+        o8[i] = ov.x, o8[i + 1] = ov.y, o8[i + 2] = ov.z, o8[i + 3] = ov.w;
+      }
+#pragma unroll
+      for (int b = 0; b < W::CPT; ++b)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float w[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const uint32_t level = (words[p][2 * i + u] >> task.sh[b]) & MASK;
+            const float v = W::IS_LUT ? lut[level] : level_to_float(level);
+            w[u] = __fadd_rn(__fmul_rn(v, s8[2 * i + u]), o8[2 * i + u]);
+          }
+          h[b][i] = pack_bf16x2(w[0], w[1]) & task.keep[b];
+        }
+    }
+#pragma unroll
+    for (int b = 0; b < W::CPT; ++b)
+      *reinterpret_cast<uint4*>(bt + swz(task.row_of[b], q)) =
+          make_uint4(h[b][0], h[b][1], h[b][2], h[b][3]);
+  }
 }
 
 // acc[mt * NSUB + sub][i] += x[row0 + 64 * (MT * warpgroup + mt) + ., :]
@@ -278,8 +449,8 @@ __device__ __forceinline__ void tile_mma_tc(
                 [Tile<XT, LUT, BITS, BN, WG, MT>::NREG],
     uint8_t* smem) {
   using T = Tile<XT, LUT, BITS, BN, WG, MT>;
-  constexpr int MASK = (1 << BITS) - 1;
-  constexpr int THREADS = T::THREADS;
+  using W = typename T::W;
+  constexpr int THREADS = W::THREADS;
   constexpr int STAGES = T::STAGES;
   const int tid = threadIdx.x;
   uint8_t* const a_tiles = smem;
@@ -288,46 +459,19 @@ __device__ __forceinline__ void tile_mma_tc(
   const float* const lut = reinterpret_cast<const float*>(smem + T::LUT_OFF);
   uint64_t* const full = reinterpret_cast<uint64_t*>(smem + T::BAR_OFF);  // slab landed
   auto x_stage = [&](int st) { return smem + T::X_OFF + st * T::X_BYTES; };
-  auto p_stage = [&](int st) { return smem + T::P_OFF + st * T::P_BYTES; };
-  auto so_stage = [&](int st) { return reinterpret_cast<float*>(smem + T::SO_OFF + st * 2 * BK * 4); };
-
-  const int j = col0 / BUCKET;
-  const int cb = col0 % BUCKET;  // tile's first column in its bucket
-  const int64_t pstart = (int64_t)j * T::PLANE + cb % T::PLANE;
-  // B transform task of this thread: columns n0 .. n0 + CPT - 1 (adjacent
-  // bytes of a packed row, one field), k chunks q0 + p * (THREADS / GROUPS)
-  const int n0 = (tid % T::GROUPS) * T::CPT;
-  const int q0 = tid / T::GROUPS;
-  const int c0 = cb + n0;  // first column in the bucket
-  const int lb = c0 % T::PLANE - cb % T::PLANE;
-  // slot b holds column n0 + (b + rot) % CPT: rotating by lane keeps the
-  // 16-byte stores of a quarter warp on distinct banks
-  const int rot = (tid / (8 / T::CPT)) % T::CPT;
-  int sh[T::CPT], row_of[T::CPT];
-  uint32_t keep[T::CPT];
-#pragma unroll
-  for (int b = 0; b < T::CPT; ++b) {
-    const int cc = (b + rot) % T::CPT;
-    sh[b] = 8 * cc + (c0 / T::PLANE) * BITS;
-    row_of[b] = n0 + cc;
-    keep[b] = col0 + n0 + cc < N ? 0xFFFFFFFFu : 0u;
-  }
+  auto p_stage = [&](int st) { return smem + T::P_OFF + st * W::P_BYTES; };
+  auto so_stage = [&](int st) { return reinterpret_cast<float*>(smem + T::SO_OFF + st * W::SO_BYTES); };
+  const WTask<W> task(tid, col0, N);
 
   // Copy slab s into stage st. x: bf16 into the swizzled A layout, f32 row
   // major.
   auto load_slab = [&](int s, int st) {
     uint8_t* xs = x_stage(st);
-    uint8_t* ps = p_stage(st);
-    float* so = so_stage(st);
     const int k0 = s * BK;
     if (tma) {  // one thread asks the TMA for the whole slab
       const bool one = tid == 0;
-      mbar_expect_tx(one, &full[st], T::X_BYTES + T::P_BYTES + 2 * BK * 4);
+      mbar_expect_tx(one, &full[st], T::X_BYTES + W::P_BYTES + W::SO_BYTES);
       tma_load_2d(one, xs, &maps->x, k0, row0, &full[st]);
-      tma_load_2d(one, ps, &maps->packed, (int)pstart, k0, &full[st]);
-      tma_load_2d(one, so, &maps->scale, k0, j, &full[st]);
-      tma_load_2d(one, so + BK, &maps->offset, k0, j, &full[st]);
-      return;
     } else if constexpr (T::A_IN_RING) {
 #pragma unroll
       for (int e = tid; e < T::ROWS * 8; e += THREADS) {
@@ -353,21 +497,8 @@ __device__ __forceinline__ void tile_mma_tc(
         cp_async4(xs + e * 4, ok ? x + (int64_t)gm * K + gk : x, ok ? 4 : 0);
       }
     }
-    constexpr int PPR = T::PB / 16;
-#pragma unroll
-    for (int e = tid; e < BK * PPR; e += THREADS) {
-      const int kk = e / PPR, q = e % PPR;
-      const int gk = k0 + kk;
-      const bool ok = gk < K;
-      cp_async16(ps + kk * T::PB + q * 16,
-                 ok ? packed + (int64_t)gk * row_bytes + pstart + q * 16 : packed, ok ? 16 : 0);
-    }
-    for (int e = tid; e < 2 * BK; e += THREADS) {  // so[0:64] scale, so[64:128] offset
-      const int gk = k0 + e % BK;
-      const float* src = e < BK ? scale : offset;
-      const bool ok = gk < K;
-      cp_async4(so + e, ok ? src + (int64_t)j * K + gk : src, ok ? 4 : 0);
-    }
+    load_w_slab<W>(tma, maps, packed, scale, offset, K, row_bytes, col0, k0, p_stage(st),
+                   so_stage(st), &full[st]);
   };
 
   // f32 x rounded to bf16 into the A tile
@@ -382,80 +513,6 @@ __device__ __forceinline__ void tile_mma_tc(
       *reinterpret_cast<uint4*>(at + swz(r, q)) =
           make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
                      pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
-    }
-  };
-
-  // the dequantized weights into the B tile
-  auto transform_b = [&](int st, int buf) {
-    const uint8_t* ps = p_stage(st);
-    const float* so = so_stage(st);
-    uint8_t* bt = b_tiles + buf * T::B_BYTES;
-    if constexpr (T::L > 0) {
-      // Each k chunk belongs to one warp's threads, so a warp builds the
-      // table rows of its own chunks and only a warp barrier is needed.
-      constexpr int QW = 32 / T::GROUPS;  // chunks of a warp in one pass
-      const int lane = tid % 32, qw0 = (tid - lane) / T::GROUPS;
-#pragma unroll
-      for (int p = 0; p < T::PASSES; ++p)
-#pragma unroll
-        for (int e = lane; e < QW * 8 * T::L; e += 32) {
-          const int kk = (qw0 + e / (8 * T::L) + p * (THREADS / T::GROUPS)) * 8 +
-                         e % (8 * T::L) / T::L;
-          const int lv = e % T::L;
-          table[kk * T::L + lv] =
-              __float2bfloat16_rn(__fadd_rn(__fmul_rn(lut[lv], so[kk]), so[BK + kk]));
-        }
-      __syncwarp();
-    }
-    uint32_t words[T::PASSES][8];
-#pragma unroll
-    for (int p = 0; p < T::PASSES; ++p)
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const int q = q0 + p * (THREADS / T::GROUPS);
-        words[p][kk] = load_bytes<T::CPT>(ps + (q * 8 + kk) * T::PB + lb);
-      }
-#pragma unroll
-    for (int p = 0; p < T::PASSES; ++p) {
-      const int q = q0 + p * (THREADS / T::GROUPS);
-      uint32_t h[T::CPT][4];
-      if constexpr (T::L > 0) {
-        const uint16_t* tab = reinterpret_cast<const uint16_t*>(table) + q * 8 * T::L;
-#pragma unroll
-        for (int b = 0; b < T::CPT; ++b)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const uint32_t lo = tab[(2 * i) * T::L + ((words[p][2 * i] >> sh[b]) & MASK)];
-            const uint32_t hi = tab[(2 * i + 1) * T::L + ((words[p][2 * i + 1] >> sh[b]) & MASK)];
-            h[b][i] = (lo | (hi << 16)) & keep[b];
-          }
-      } else {
-        float s8[8], o8[8];
-#pragma unroll
-        for (int i = 0; i < 8; i += 4) {
-          const float4 sv = *reinterpret_cast<const float4*>(so + q * 8 + i);
-          const float4 ov = *reinterpret_cast<const float4*>(so + BK + q * 8 + i);
-          s8[i] = sv.x, s8[i + 1] = sv.y, s8[i + 2] = sv.z, s8[i + 3] = sv.w;
-          o8[i] = ov.x, o8[i + 1] = ov.y, o8[i + 2] = ov.z, o8[i + 3] = ov.w;
-        }
-#pragma unroll
-        for (int b = 0; b < T::CPT; ++b)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float w[2];
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-              const uint32_t level = (words[p][2 * i + u] >> sh[b]) & MASK;
-              const float v = LUT ? lut[level] : level_to_float(level);
-              w[u] = __fadd_rn(__fmul_rn(v, s8[2 * i + u]), o8[2 * i + u]);
-            }
-            h[b][i] = pack_bf16x2(w[0], w[1]) & keep[b];
-          }
-      }
-#pragma unroll
-      for (int b = 0; b < T::CPT; ++b)
-        *reinterpret_cast<uint4*>(bt + swz(row_of[b], q)) =
-            make_uint4(h[b][0], h[b][1], h[b][2], h[b][3]);
     }
   };
 
@@ -478,24 +535,24 @@ __device__ __forceinline__ void tile_mma_tc(
     if (s + AHEAD < S) load_slab(s + AHEAD, (s + AHEAD) % STAGES);
     cp_async_commit();
     if constexpr (!T::A_IN_RING) transform_a(st, s & 1);
-    transform_b(st, s & 1);
+    transform_b<W>(task, p_stage(st), so_stage(st), lut, table, b_tiles + (s & 1) * W::B_BYTES);
     fence_proxy_async();  // the generic-proxy writes of this slab, before wgmma reads them
     __syncthreads();
     const uint8_t* a = T::A_IN_RING ? x_stage(st) : a_tiles + (s & 1) * T::A_BYTES;
     const uint64_t da = desc_sw128(a + wg * MT * BM * 128);
-    const uint64_t db = desc_sw128(b_tiles + (s & 1) * T::B_BYTES);
+    const uint64_t db = desc_sw128(b_tiles + (s & 1) * W::B_BYTES);
     wgmma_fence();
 #pragma unroll
     for (int k16 = 0; k16 < BK / 16; ++k16) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-        for (int sub = 0; sub < T::NSUB; ++sub) {
+        for (int sub = 0; sub < W::NSUB; ++sub) {
           const uint64_t dam = da + 2 * k16 + mt * (BM * 128 >> 4);
           if constexpr (BN == 32)
-            wgmma_n32(acc[mt * T::NSUB + sub], dam, db + 2 * k16);
+            wgmma_n32(acc[mt * W::NSUB + sub], dam, db + 2 * k16);
           else
-            wgmma_n64(acc[mt * T::NSUB + sub], dam, db + 2 * k16 + sub * (64 * 128 >> 4));
+            wgmma_n64(acc[mt * W::NSUB + sub], dam, db + 2 * k16 + sub * (64 * 128 >> 4));
         }
       }
     }
@@ -504,9 +561,71 @@ __device__ __forceinline__ void tile_mma_tc(
   }
   wgmma_wait<0>();
 #pragma unroll
-  for (int t = 0; t < MT * T::NSUB; ++t)
+  for (int t = 0; t < MT * W::NSUB; ++t)
 #pragma unroll
-    for (int i = 0; i < T::NREG; ++i) fence_operand(acc[t][i]);
+    for (int i = 0; i < W::NREG; ++i) fence_operand(acc[t][i]);
+}
+
+// ------------------------------------------------------------ host side
+
+// cuTensorMapEncodeTiled, looked up through the runtime (no link to libcuda).
+static inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// A 2D TMA descriptor: `dims` and `box` innermost first, `stride` the
+// bytes between rows. Elements outside the tensor read as 0.
+static inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                                     const void* base, cuuint64_t inner, cuuint64_t rows,
+                                     cuuint64_t stride, cuuint32_t box_inner,
+                                     cuuint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {inner, rows};
+  const cuuint64_t strides[1] = {stride};
+  const cuuint32_t box[2] = {box_inner, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The weight maps (packed, scale, offset) of a call whose tiles need PB
+// packed bytes per k row; the caller has checked that the bases are 16-byte
+// aligned and K a multiple of 4 (the scale rows' stride).
+static inline cudaError_t weight_maps(Maps* maps, const void* packed, const void* scale,
+                                      const void* offset, int K, int64_t row_bytes, int bits,
+                                      int pb) {
+  const cuuint64_t nb = row_bytes / (32 * bits);  // buckets: scale/offset rows
+  cudaError_t e = tensor_map(&maps->packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, packed, row_bytes, K,
+                             row_bytes, pb, BK, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == cudaSuccess)
+    e = tensor_map(&maps->scale, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scale, K, nb,
+                   (cuuint64_t)K * 4, BK, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (e == cudaSuccess)
+    e = tensor_map(&maps->offset, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, offset, K, nb,
+                   (cuuint64_t)K * 4, BK, 1, CU_TENSOR_MAP_SWIZZLE_NONE);
+  return e;
+}
+
+static inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 132;
+  }();
+  return n;
 }
 
 }  // namespace tc

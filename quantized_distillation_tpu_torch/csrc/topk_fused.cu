@@ -3,24 +3,47 @@
 // writing the [M, N] logits to device memory.
 //
 // Replaces the TPU kernel _topk_kernel of
-// quantized_distillation_tpu/kernels/topk_fused.py (launched by
-// dequant_matmul_topk there), both its uniform branch and its codebook-LUT
-// branch (pts_ref): given a codebook, each level is first looked up in the
-// 2^bits points, which pass 1 keeps in shared memory (dequant_tile.cuh's LUT
-// variant). That kernel walks the vocab in order on one
-// core, carrying lane-class survivors in VMEM from one grid step to the
-// next. Blocks on a GPU run in no order and carry nothing between them, so
-// this is two passes:
+// quantized_distillation_tpu/kernels/topk_fused.py:78 (launched by
+// dequant_matmul_topk there, :685), both its uniform branch and its
+// codebook-LUT branch (pts_ref, :197-202): given a codebook, each level is
+// first looked up in the 2^bits points, which a block keeps in shared
+// memory. That kernel walks the vocab in order on one core, carrying
+// lane-class survivors in VMEM from one grid step to the next. Blocks on a
+// GPU run in no order and carry nothing between them, so this is two
+// passes:
 //
-//   pass 1 (topk_partial_kernel): a grid of (64-row tile) x (vocab split).
-//     Each block walks its split in 64-column tiles: the logits tile is
-//     computed on chip (dequant_tile.cuh) into shared memory with the bias
-//     added, then 4 threads per row scan it, each keeping an exact top-8 of
-//     (value, index) in registers and an online (max, sum of exp). The 4
-//     lists of a row merge by warp shuffles and only [M, splits, 8] values
-//     and indices plus [M, splits] (max, sum) reach device memory.
-//   pass 2 (topk_merge_kernel): one thread per row merges its splits'
-//     lists into the top-k and computes lse = max + log(sum).
+//   pass 1: a grid of (row tile) x (vocab split). Each block walks its
+//     split's vocab tiles, computes each logits tile on chip, adds the bias
+//     and folds it into each row's exact top-8 of (value, index) and online
+//     (max, sum of exp). Only [M, splits, 8] values and indices plus
+//     [M, splits] (max, sum) reach device memory.
+//   pass 2 (topk_merge_kernel): one warp per row merges its splits' lists
+//     (contiguous, so the reads coalesce) into the top-k and computes
+//     lse = max + log(sum).
+//
+// bf16 compute (the serving path) runs pass 1 on the tensor cores
+// (topk_tc_kernel): a block of WG warpgroups rounds its 64 * MT * WG rows
+// of x to bf16 once, into K/64 swizzled A slabs that stay resident in
+// shared memory for the whole split. Only weights move after that: the
+// packed bytes and each slab's scale and offset stream through
+// dequant_tile_tc.cuh's TMA ring, AHEAD slabs ahead, over the split's
+// (vocab tile, k slab) pairs, so the ring does not drain at a tile
+// boundary. Each weight is dequantized once per block (transform_b, shared
+// with the dequant-matmul) into a double-buffered swizzled bf16 B tile and
+// multiplied by wgmma.m64n64k16 into f32 registers. At a tile's last slab,
+// after wgmma.wait_group 0, each thread folds its accumulators straight
+// into its rows' state: in wgmma's layout a thread holds 16 columns of each
+// of 2 MT rows, and the 4 lanes of a quad share the rows. One exponential
+// per logit (the tile's max first, one rescale a tile); a cheap test
+// against the list's last entry before any insertion. At the end of the
+// split the quad's lists merge by shuffles. The logits never touch shared
+// or device memory. Where K is so large that x cannot stay resident even
+// for 64 rows, topk_tc_stream_kernel streams x per slab through
+// tc::tile_mma_tc instead (the ring then drains at every tile).
+//
+// f32 compute stays on the CUDA cores (topk_partial_kernel over tile_mma,
+// logits through a shared-memory tile, 4 threads a row): the tensor cores
+// have no exact f32 mode, and the f32 token parity checks rest on f32.
 //
 // Ties go to the lower vocab index at every step (values descending, equal
 // values by ascending index: the order of jax.lax.top_k and of the plain
@@ -33,22 +56,25 @@
 //
 // What bounds it on an H100: at the serving shape (M = 1280, K = 256,
 // N = 32768) it does 21.5 GFLOP against ~6 MB (the 4 MB of packed weights
-// and the f32 activations), ~3,500 operations per byte, so the tensor-core
-// rate bounds it. This first kernel runs the products as f32 FMA on CUDA
-// cores (see dequant_tile.cuh), far from that bound; tensor cores are the
-// next step. The logits never reach memory, which was the point of the TPU
-// kernel and stays the point here.
+// and the f32 activations read once, the candidates written), ~3,600
+// operations per byte, so the bf16 tensor-core rate bounds it: 21.7 us at
+// 989 TFLOP/s. Beyond the products, every block unpacks and dequantizes
+// its split's weights once (5 row tiles of 256 rows: 42 M weights a call)
+// and the CUDA cores take one exponential and one compare per logit
+// (41.9 M logits); both run beside the tensor cores, not on them.
 
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "dequant_tile.cuh"
+#include "dequant_tile_tc.cuh"
 
 namespace qdt {
 
 constexpr int KMAX = 8;
-constexpr int SEL = 4;  // threads per row in the select phase (BM * SEL == THREADS)
+constexpr int SEL = 4;  // threads per row in the f32 select phase (BM * SEL == THREADS)
+constexpr int MERGE_THREADS = 256;  // pass 2: a warp per row
 
 __device__ __forceinline__ bool better(float v1, int i1, float v2, int i2) {
   return v1 > v2 || (v1 == v2 && i1 < i2);
@@ -84,7 +110,18 @@ __device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2
   m = mx;
 }
 
-template <typename XT, bool BF16, bool LUT>
+// Pass 1's outputs: [M, splits, KMAX] values and indices, [M, splits] max
+// and sum.
+struct Parts {
+  float* v;
+  int* i;
+  float* m;
+  float* s;
+};
+
+// ------------------------------------------------- f32 compute, CUDA cores
+
+template <typename XT, bool LUT>
 __global__ void __launch_bounds__(THREADS)
     topk_partial_kernel(const XT* __restrict__ x,
                         const uint8_t* __restrict__ packed,
@@ -93,9 +130,7 @@ __global__ void __launch_bounds__(THREADS)
                         const float* __restrict__ points,
                         const float* __restrict__ bias, int M, int K, int N,
                         int bits, int64_t row_bytes, int tiles_per_split,
-                        int splits, float* __restrict__ part_v,
-                        int* __restrict__ part_i, float* __restrict__ part_m,
-                        float* __restrict__ part_s) {
+                        int splits, Parts out) {
   __shared__ float As[BK][BM];
   __shared__ float Bs[BK][BN];
   __shared__ float S[BM][BN + 1];
@@ -122,8 +157,8 @@ __global__ void __launch_bounds__(THREADS)
   for (int t = t0; t < t1; ++t) {
     const int col0 = t * BN;
     float acc[4][4] = {};
-    tile_mma<XT, BF16, LUT>(x, M, K, packed, scale, offset, lut, bits,
-                            row_bytes, N, row0, col0, acc, As, Bs);
+    tile_mma<XT, LUT>(x, M, K, packed, scale, offset, lut, bits, row_bytes, N, row0, col0, acc,
+                      As, Bs);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -174,23 +209,372 @@ __global__ void __launch_bounds__(THREADS)
     const int64_t base = (int64_t)row * splits + split;
 #pragma unroll
     for (int j = 0; j < KMAX; ++j) {
-      part_v[base * KMAX + j] = tv[j];
-      part_i[base * KMAX + j] = ti[j];
+      out.v[base * KMAX + j] = tv[j];
+      out.i[base * KMAX + j] = ti[j];
     }
-    part_m[base] = rm;
-    part_s[base] = rs;
+    out.m[base] = rm;
+    out.s[base] = rs;
   }
 }
 
-__global__ void topk_merge_kernel(const float* __restrict__ part_v,
-                                  const int* __restrict__ part_i,
-                                  const float* __restrict__ part_m,
-                                  const float* __restrict__ part_s, int M,
-                                  int splits, int k, float* __restrict__ out_v,
-                                  int* __restrict__ out_i,
-                                  float* __restrict__ out_lse) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= M) return;
+// ----------------------------------------------- bf16 compute, tensor cores
+
+// The state of R rows of one thread: an exact top-KMAX of (value, index) in
+// (value desc, index asc) order, its k-th value (the entry below which
+// nothing can reach the row's top-k), and an online (max, sum of
+// exp(x - max)).
+template <int R>
+struct Rows {
+  float tv[R][KMAX];
+  int ti[R][KMAX];
+  float kth[R], m[R], s[R];
+  __device__ __forceinline__ Rows() {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        tv[r][j] = -INFINITY;
+        ti[r][j] = INT_MAX;
+      }
+      kth[r] = m[r] = -INFINITY;
+      s[r] = 0.f;
+    }
+  }
+};
+
+// The bias of this thread's columns of the tile at col0 in wgmma's layout
+// (sub-tile sub, column 8 c + 2 (lane % 4) + u at b[sub][2 c + u]); -inf at
+// n >= N, which masks those columns out of max, sum and top-k.
+template <int NSUB>
+__device__ __forceinline__ void load_bias(const float* __restrict__ bias, int col0, int N,
+                                          float (&b)[NSUB][16]) {
+  const int q = threadIdx.x % 4;
+#pragma unroll
+  for (int sub = 0; sub < NSUB; ++sub)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int n = col0 + sub * 64 + 8 * (e / 2) + 2 * q + e % 2;
+      b[sub][e] = n < N ? bias[n] : -INFINITY;
+    }
+}
+
+// Folds a finished tile into this thread's rows: acc in wgmma's layout for
+// MT row tiles of NSUB 64-column sub-tiles from col0 (thread row 2 mt + h
+// holds acc[mt * NSUB + sub][4 c + 2 h + u] at column sub * 64 + 8 c +
+// 2 (lane % 4) + u: value e = 16 sub + 2 c + u of the row), b its bias
+// (load_bias). Per row: the tile's max, one rescale and one exponential a
+// value; then a bitmask of the values at or above the largest k-th value
+// of the quad (any value below it has k better ones in one lane's list, so
+// it cannot reach the row's top-k), and an insertion for each set bit
+// only. Masked columns (-inf) are never inserted.
+template <int MT, int NSUB>
+__device__ __forceinline__ void select_tile(const float (&acc)[MT * NSUB][32],
+                                            const float (&b)[NSUB][16], int col0, int ktop,
+                                            Rows<2 * MT>& rows) {
+  constexpr int VALS = 16 * NSUB;  // values of a row in this thread
+  static_assert(VALS <= 32, "one mask bit a value");
+  const int q = threadIdx.x % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 2 * mt + h;
+      float v[VALS];
+#pragma unroll
+      for (int e = 0; e < VALS; ++e)
+        v[e] = acc[mt * NSUB + e / 16][4 * (e % 16 / 2) + 2 * h + e % 2] + b[e / 16][e % 16];
+      // max and sum in 4 independent chains: at 8 warps an SM this code is
+      // bound by latency, not by instruction throughput
+      float mx4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < VALS; ++e) mx4[e % 4] = fmaxf(mx4[e % 4], v[e]);
+      const float mx = fmaxf(fmaxf(mx4[0], mx4[1]), fmaxf(mx4[2], mx4[3]));
+      const float nm = fmaxf(rows.m[r], mx);  // -inf while every column so far was masked
+      const float ref = nm == -INFINITY ? 0.f : nm;
+      float sum4[4] = {rows.s[r] * __expf(rows.m[r] - ref), 0.f, 0.f, 0.f};  // one rescale a tile
+#pragma unroll
+      for (int e = 0; e < VALS; ++e) sum4[e % 4] += __expf(v[e] - ref);
+      rows.s[r] = (sum4[0] + sum4[1]) + (sum4[2] + sum4[3]);
+      rows.m[r] = nm;
+      float thr = rows.kth[r];
+      thr = fmaxf(thr, __shfl_xor_sync(0xffffffffu, thr, 1));
+      thr = fmaxf(thr, __shfl_xor_sync(0xffffffffu, thr, 2));
+      uint32_t cand = 0;
+#pragma unroll
+      for (int e = 0; e < VALS; ++e) cand |= (uint32_t)(v[e] >= thr && v[e] != -INFINITY) << e;
+      while (cand) {
+        const int c = __ffs(cand) - 1;
+        cand &= cand - 1;
+        float vc = 0.f;
+#pragma unroll
+        for (int e = 0; e < VALS; ++e) vc = e == c ? v[e] : vc;
+        insert(rows.tv[r], rows.ti[r], vc, col0 + (c / 16) * 64 + 8 * (c % 16 / 2) + 2 * q + c % 2);
+        float kv = rows.tv[r][0];
+#pragma unroll
+        for (int j = 1; j < KMAX; ++j) kv = j == ktop - 1 ? rows.tv[r][j] : kv;
+        rows.kth[r] = kv;
+      }
+    }
+}
+
+// End of a split: merges the lists and (max, sum) of the 4 lanes of each
+// quad (they share rows in wgmma's layout) into lane q = 0, which writes the
+// split's entry of each of its rows below M. Thread row 2 mt + h is global
+// row rowp + 64 mt + 8 h.
+template <int MT>
+__device__ __forceinline__ void write_split(Rows<2 * MT>& rows, int rowp, int M, int split,
+                                            int splits, const Parts& out) {
+  const int q = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2 * MT; ++r) {
+#pragma unroll
+    for (int off = 2; off >= 1; off /= 2) {
+      float ov[KMAX];
+      int oi[KMAX];
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        ov[j] = __shfl_down_sync(0xffffffffu, rows.tv[r][j], off);
+        oi[j] = __shfl_down_sync(0xffffffffu, rows.ti[r][j], off);
+      }
+      const float om = __shfl_down_sync(0xffffffffu, rows.m[r], off);
+      const float os = __shfl_down_sync(0xffffffffu, rows.s[r], off);
+      if (q < off) {
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) insert(rows.tv[r], rows.ti[r], ov[j], oi[j]);
+        lse_merge(rows.m[r], rows.s[r], om, os);
+      }
+    }
+    const int row = rowp + 64 * (r / 2) + 8 * (r % 2);
+    if (q == 0 && row < M) {
+      const int64_t base = (int64_t)row * splits + split;
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        out.v[base * KMAX + j] = rows.tv[r][j];
+        out.i[base * KMAX + j] = rows.ti[r][j];
+      }
+      out.m[base] = rows.m[r];
+      out.s[base] = rows.s[r];
+    }
+  }
+}
+
+// Rounds rows row0 .. row0 + ROWS - 1 of x to bf16 (__float2bfloat16_rn, as
+// the plain version's x.to(bf16)) into ks swizzled [ROWS, 64] A slabs at a
+// (slab s at a + s * ROWS * 128); rows >= M and k >= K as 0. vec: x's base
+// and row stride are 16-byte aligned, so whole 8-element chunks load as
+// 16-byte words. Every thread of the block calls it.
+template <typename XT, int ROWS, int THREADS>
+__device__ __forceinline__ void load_x_resident(const XT* __restrict__ x, int M, int K, int row0,
+                                                int ks, bool vec, uint8_t* a) {
+  const int per_row = ks * 8;  // 16-byte chunks of a row of A
+#pragma unroll 4
+  for (int e = threadIdx.x; e < ROWS * per_row; e += THREADS) {
+    const int r = e / per_row, c = e % per_row;
+    const int gm = row0 + r, gk = c * 8;
+    const XT* src = x + (int64_t)gm * K + gk;
+    uint4 h;
+    if (vec && gm < M && gk + 8 <= K) {
+      if constexpr (sizeof(XT) == 2) {
+        h = *reinterpret_cast<const uint4*>(src);
+      } else {
+        const float4 lo = reinterpret_cast<const float4*>(src)[0];
+        const float4 hi = reinterpret_cast<const float4*>(src)[1];
+        h = make_uint4(tc::pack_bf16x2(lo.x, lo.y), tc::pack_bf16x2(lo.z, lo.w),
+                       tc::pack_bf16x2(hi.x, hi.y), tc::pack_bf16x2(hi.z, hi.w));
+      }
+    } else {
+      float f[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) f[i] = gm < M && gk + i < K ? load_f32(src + i) : 0.f;
+      h = make_uint4(tc::pack_bf16x2(f[0], f[1]), tc::pack_bf16x2(f[2], f[3]),
+                     tc::pack_bf16x2(f[4], f[5]), tc::pack_bf16x2(f[6], f[7]));
+    }
+    *reinterpret_cast<uint4*>(a + (c / 8) * ROWS * 128 + tc::swz(r, c % 8)) = h;
+  }
+}
+
+// Copy stages of the generator's ring: A is resident, not in the ring, so
+// a stage is free once its slab is dequantized.
+constexpr int GEN_STAGES = tc::AHEAD + 1;
+
+// Dynamic shared memory of a generator configuration: [B x2][packed x
+// STAGES][scale, offset x STAGES][table][lut][an mbarrier per stage],
+// padded to 1024, then ks resident A slabs of [rows, 64] bf16, + 1024 for
+// aligning the base.
+constexpr int gen_fixed_bytes(bool lut, int bits, int bn) {
+  return (2 * bn * tc::BK * 2 + GEN_STAGES * tc::w_stage_bytes(bits, bn) +
+          tc::BK * tc::table_entries(lut, bits) * 2 + (lut ? 4 << bits : 0) + 8 * GEN_STAGES +
+          1023) / 1024 * 1024;
+}
+constexpr int gen_smem_bytes(int rows, bool lut, int bits, int bn, int ks) {
+  return gen_fixed_bytes(lut, bits, bn) + ks * rows * tc::BK * 2 + 1024;
+}
+
+// Shapes and shared-memory layout of one generator configuration: WG
+// warpgroups, each with MT row tiles of 64, BN (a multiple of 64) columns
+// a vocab tile.
+template <bool LUT, int BITS, int BN, int WG, int MT>
+struct Gen : tc::WSide<LUT, BITS, BN, WG * tc::WG_THREADS> {
+  using W = tc::WSide<LUT, BITS, BN, WG * tc::WG_THREADS>;
+  static constexpr int ROWS = WG * MT * tc::BM;
+  static constexpr int STAGES = GEN_STAGES;
+  static constexpr int A_SLAB = ROWS * tc::BK * 2;
+  static constexpr int B_OFF = 0;
+  static constexpr int P_OFF = B_OFF + 2 * W::B_BYTES;
+  static constexpr int SO_OFF = P_OFF + STAGES * W::P_BYTES;
+  static constexpr int TABLE_OFF = SO_OFF + STAGES * W::SO_BYTES;
+  static constexpr int LUT_OFF = TABLE_OFF + W::TABLE_BYTES;
+  static constexpr int BAR_OFF = LUT_OFF + W::LUT_BYTES;
+  static constexpr int A_OFF = gen_fixed_bytes(LUT, BITS, BN);
+  static_assert(BN % 64 == 0, "vocab tiles are whole m64n64 sub-tiles");
+  static_assert(BAR_OFF + 8 * STAGES <= A_OFF && A_OFF % 1024 == 0, "layout and size disagree");
+  static constexpr int smem(int ks) { return gen_smem_bytes(ROWS, LUT, BITS, BN, ks); }
+};
+
+template <typename XT, bool LUT, int BITS, int BN, int WG, int MT>
+__global__ void __launch_bounds__(WG * tc::WG_THREADS)
+    topk_tc_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
+                   const float* __restrict__ scale, const float* __restrict__ offset,
+                   const float* __restrict__ points, const float* __restrict__ bias, int M,
+                   int K, int N, int64_t row_bytes, int tiles_per_split, int splits, int ktop,
+                   bool tma, bool vec, const __grid_constant__ tc::Maps maps, Parts out) {
+  using G = Gen<LUT, BITS, BN, WG, MT>;
+  using W = typename G::W;
+  extern __shared__ uint8_t dyn[];
+  uint8_t* smem = dyn + ((1024 - (tc::smem_addr(dyn) & 1023)) & 1023);
+  uint8_t* const b_tiles = smem + G::B_OFF;
+  uint8_t* const a_tiles = smem + G::A_OFF;
+  __nv_bfloat16* const table = reinterpret_cast<__nv_bfloat16*>(smem + G::TABLE_OFF);
+  float* const lut = reinterpret_cast<float*>(smem + G::LUT_OFF);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem + G::BAR_OFF);  // slab landed
+  auto p_stage = [&](int st) { return smem + G::P_OFF + st * W::P_BYTES; };
+  auto so_stage = [&](int st) { return reinterpret_cast<float*>(smem + G::SO_OFF + st * W::SO_BYTES); };
+  const int tid = threadIdx.x;
+  const int ks = (K + tc::BK - 1) / tc::BK;
+  const int row0 = blockIdx.x * G::ROWS;
+  const int t0 = blockIdx.y * tiles_per_split;
+  const int nt = min((N + BN - 1) / BN - t0, tiles_per_split);
+  const int total = nt * ks;  // slabs of the split's weight stream
+
+  if constexpr (LUT) load_lut(points, BITS, lut);
+#pragma unroll
+  for (int i = 0; i < G::STAGES; ++i) tc::mbar_init(tid == 0, &full[i], 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+  // slab i of the stream: k slab i % ks of vocab tile t0 + i / ks
+  auto load = [&](int i) {
+    const int st = i % G::STAGES;
+    tc::mbar_expect_tx(tma && tid == 0, &full[st], W::P_BYTES + W::SO_BYTES);
+    tc::load_w_slab<W>(tma, &maps, packed, scale, offset, K, row_bytes, (t0 + i / ks) * BN,
+                       (i % ks) * tc::BK, p_stage(st), so_stage(st), &full[st]);
+  };
+#pragma unroll
+  for (int i = 0; i < tc::AHEAD; ++i) {
+    if (i < total) load(i);
+    tc::cp_async_commit();
+  }
+  load_x_resident<XT, G::ROWS, W::THREADS>(x, M, K, row0, ks, vec, a_tiles);
+
+  const int wg = tid / tc::WG_THREADS;
+  Rows<2 * MT> rows;
+  float acc[MT * W::NSUB][32];
+#pragma unroll
+  for (int t = 0; t < MT * W::NSUB; ++t)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
+  int i = 0;
+  for (int t = t0; t < t0 + nt; ++t) {
+    const int col0 = t * BN;
+    const tc::WTask<W> task(tid, col0, N);
+    float b[W::NSUB][16];
+    load_bias<W::NSUB>(bias, col0, N, b);
+    for (int s = 0; s < ks; ++s, ++i) {
+      const int st = i % G::STAGES;
+      tc::cp_async_wait<tc::AHEAD - 1>();  // this thread's copies of slab i have landed
+      if (tma) tc::mbar_wait(&full[st], (i / G::STAGES) & 1);  // or the TMA's
+      __syncthreads();  // everyone's have; wgmma i - 2 and the transform of i - 1 are done
+      if (i + tc::AHEAD < total) load(i + tc::AHEAD);
+      tc::cp_async_commit();
+      uint8_t* const bt = b_tiles + (i & 1) * W::B_BYTES;
+      tc::transform_b<W>(task, p_stage(st), so_stage(st), lut, table, bt);
+      tc::fence_proxy_async();  // B (and, at the first slab, A) before wgmma reads them
+      __syncthreads();
+      const uint64_t da = tc::desc_sw128(a_tiles + s * G::A_SLAB + wg * MT * tc::BM * 128);
+      const uint64_t db = tc::desc_sw128(bt);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int k16 = 0; k16 < tc::BK / 16; ++k16) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+          for (int sub = 0; sub < W::NSUB; ++sub)
+            tc::wgmma_n64(acc[mt * W::NSUB + sub], da + 2 * k16 + mt * (tc::BM * 128 >> 4),
+                          db + 2 * k16 + sub * (64 * 128 >> 4), s > 0 || k16 > 0);
+        }
+      }
+      tc::wgmma_commit();
+      tc::wgmma_wait<1>();
+    }
+    tc::wgmma_wait<0>();
+#pragma unroll
+    for (int u = 0; u < MT * W::NSUB; ++u)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) tc::fence_operand(acc[u][e]);
+    select_tile<MT, W::NSUB>(acc, b, col0, ktop, rows);
+  }
+  const int lane = tid % 32, warp = (tid % tc::WG_THREADS) / 32;
+  write_split<MT>(rows, row0 + tc::BM * MT * wg + 16 * warp + lane / 4, M, blockIdx.y, splits,
+                  out);
+}
+
+// x too large to stay resident: one warpgroup on 64 rows; each vocab tile
+// streams x and the weights through tc::tile_mma_tc (threads copy, no TMA).
+template <typename XT, bool LUT, int BITS>
+__global__ void __launch_bounds__(tc::WG_THREADS)
+    topk_tc_stream_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ packed,
+                          const float* __restrict__ scale, const float* __restrict__ offset,
+                          const float* __restrict__ points, const float* __restrict__ bias,
+                          int M, int K, int N, int64_t row_bytes, int tiles_per_split,
+                          int splits, int ktop, Parts out) {
+  using T = tc::Tile<XT, LUT, BITS, 64, 1, 1>;
+  extern __shared__ uint8_t dyn[];
+  uint8_t* smem = dyn + ((1024 - (tc::smem_addr(dyn) & 1023)) & 1023);
+  if constexpr (LUT) load_lut(points, BITS, reinterpret_cast<float*>(smem + T::LUT_OFF));
+  const int row0 = blockIdx.x * tc::BM;
+  const int t0 = blockIdx.y * tiles_per_split;
+  const int t1 = min((N + 63) / 64, t0 + tiles_per_split);
+  Rows<2> rows;
+  float acc[1][32];
+  for (int t = t0; t < t1; ++t) {
+    float b[1][16];
+    load_bias<1>(bias, t * 64, N, b);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[0][e] = 0.f;
+    tc::tile_mma_tc<XT, LUT, BITS, 64, 1, 1>(x, M, K, packed, scale, offset, row_bytes, N, row0,
+                                             t * 64, false, nullptr, acc, smem);
+    select_tile<1, 1>(acc, b, t * 64, ktop, rows);
+  }
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  write_split<1>(rows, row0 + 16 * warp + lane / 4, M, blockIdx.y, splits, out);
+}
+
+// ------------------------------------------------------------------ pass 2
+
+// One warp per row: each lane folds a strided share of the row's splits
+// into its own list and (max, sum), then 5 butterfly rounds merge the
+// lanes' (disjoint) shares. Only a list's first k entries can reach the
+// result, and a list is sorted, so a round inserts at most the partner's
+// first k entries and stops at the first that does not enter: the first k
+// of every list stay exact.
+__global__ void __launch_bounds__(MERGE_THREADS)
+    topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
+                      const float* __restrict__ part_m, const float* __restrict__ part_s,
+                      int M, int splits, int k, float* __restrict__ out_v,
+                      int* __restrict__ out_i, float* __restrict__ out_lse) {
+  const int row = blockIdx.x * (MERGE_THREADS / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= M) return;  // the whole warp
+  const int64_t base = (int64_t)row * splits;
   float tv[KMAX];
   int ti[KMAX];
 #pragma unroll
@@ -198,61 +582,220 @@ __global__ void topk_merge_kernel(const float* __restrict__ part_v,
     tv[j] = -INFINITY;
     ti[j] = INT_MAX;
   }
+  for (int e = lane; e < splits * KMAX; e += 32)
+    insert(tv, ti, part_v[base * KMAX + e], part_i[base * KMAX + e]);
   float m = -INFINITY, s = 0.f;
-  for (int sp = 0; sp < splits; ++sp) {
-    const int64_t base = (int64_t)row * splits + sp;
+  for (int e = lane; e < splits; e += 32) lse_merge(m, s, part_m[base + e], part_s[base + e]);
 #pragma unroll
-    for (int j = 0; j < KMAX; ++j) insert(tv, ti, part_v[base * KMAX + j], part_i[base * KMAX + j]);
-    lse_merge(m, s, part_m[base], part_s[base]);
-  }
+  for (int off = 16; off >= 1; off /= 2) {
+    float ov[KMAX];
+    int oi[KMAX];
 #pragma unroll
-  for (int j = 0; j < KMAX; ++j) {
-    if (j < k) {
-      out_v[(int64_t)row * k + j] = tv[j];
-      out_i[(int64_t)row * k + j] = ti[j];
+    for (int j = 0; j < KMAX; ++j) {
+      ov[j] = __shfl_xor_sync(0xffffffffu, tv[j], off);
+      oi[j] = __shfl_xor_sync(0xffffffffu, ti[j], off);
     }
+    const float om = __shfl_xor_sync(0xffffffffu, m, off);
+    const float os = __shfl_xor_sync(0xffffffffu, s, off);
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      if (j >= k || !better(ov[j], oi[j], tv[KMAX - 1], ti[KMAX - 1])) break;
+      insert(tv, ti, ov[j], oi[j]);
+    }
+    lse_merge(m, s, om, os);
   }
-  out_lse[row] = m + logf(s);
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < k) {
+        out_v[(int64_t)row * k + j] = tv[j];
+        out_i[(int64_t)row * k + j] = ti[j];
+      }
+    }
+    out_lse[row] = m + logf(s);
+  }
 }
 
-template <typename XT, bool BF16, bool LUT>
-static void launch_partial(const void* x, const void* packed, const void* scale,
-                           const void* offset, const void* points,
-                           const void* bias, int M, int K, int N, int bits,
-                           int64_t row_bytes, int tiles_per_split, int splits,
-                           void* part_v, void* part_i, void* part_m,
-                           void* part_s, cudaStream_t stream) {
-  dim3 grid((M + BM - 1) / BM, splits);
-  topk_partial_kernel<XT, BF16, LUT><<<grid, THREADS, 0, stream>>>(
-      static_cast<const XT*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scale), static_cast<const float*>(offset),
-      static_cast<const float*>(points), static_cast<const float*>(bias), M, K,
-      N, bits, row_bytes, tiles_per_split, splits, static_cast<float*>(part_v),
-      static_cast<int*>(part_i), static_cast<float*>(part_m),
-      static_cast<float*>(part_s));
+// ---------------------------------------------------------------- host side
+
+// What a call needs, from the C entry points.
+struct Args {
+  const void *x, *packed, *scale, *offset, *points, *bias;
+  int M, K, N;
+  int64_t row_bytes;
+  int tiles_per_split, splits, k;
+  Parts out;
+  cudaStream_t stream;
+};
+
+// plan[] of qdt_topk_fused_plan
+enum { P_ROWS, P_BN, P_STAGES, P_TPS, P_SPLITS, P_BLOCKS, P_SMEM, P_PER_SM, P_RESIDENT, P_N };
+
+// Splits a vocab of ntiles tiles into about `wanted` splits of whole tiles,
+// none of them empty.
+static void split_vocab(int ntiles, int row_tiles, int wanted, int* plan) {
+  const int s = max(1, min(ntiles, wanted));
+  const int tps = (ntiles + s - 1) / s;
+  plan[P_TPS] = tps;
+  plan[P_SPLITS] = (ntiles + tps - 1) / tps;
+  plan[P_BLOCKS] = row_tiles * plan[P_SPLITS];
 }
 
-template <typename XT, bool BF16>
-static void launch_partial_lut(const void* x, const void* packed,
-                               const void* scale, const void* offset,
-                               const void* points, const void* bias, int M,
-                               int K, int N, int bits, int64_t row_bytes,
-                               int tiles_per_split, int splits, void* part_v,
-                               void* part_i, void* part_m, void* part_s,
-                               cudaStream_t stream) {
-  if (points)
-    launch_partial<XT, BF16, true>(x, packed, scale, offset, points, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, stream);
-  else
-    launch_partial<XT, BF16, false>(x, packed, scale, offset, points, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, stream);
+// Tensor-core configurations (warpgroups, row tiles of 64 each, columns a
+// vocab tile), measured at the serving shape on an H100 (PERF.md): two
+// warpgroups on 128 rows with 128-column vocab tiles won; 256 rows (two
+// row tiles a warpgroup) spill at 255 registers.
+struct GenShape {
+  int wg, mt, bn;
+};
+constexpr GenShape GEN_SHAPES[] = {{2, 1, 128}, {1, 1, 64}};
+constexpr int NGEN = sizeof(GEN_SHAPES) / sizeof(GEN_SHAPES[0]);
+
+// The first configuration whose resident x fits in shared memory and whose
+// rows do not exceed M rounded up to 64 (else the smallest that fits); -1
+// when none fits (the streamed-x instance).
+static int pick_gen(int M, int K, bool lut, int bits) {
+  const int ks = (K + tc::BK - 1) / tc::BK;
+  const int mr = (M + tc::BM - 1) / tc::BM * tc::BM;
+  int pick = -1, rows_min = INT_MAX;
+  for (int i = 0; i < NGEN; ++i) {
+    const GenShape& sh = GEN_SHAPES[i];
+    const int rows = sh.wg * sh.mt * tc::BM;
+    if (gen_smem_bytes(rows, lut, bits, sh.bn, ks) > tc::SMEM_MAX) continue;
+    if (rows <= mr) return i;
+    if (rows < rows_min) pick = i, rows_min = rows;
+  }
+  return pick;
+}
+
+// Raises a kernel's dynamic shared memory limit to 227 KB, once.
+template <class Kern>
+static cudaError_t allow_smem(Kern kern) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       tc::SMEM_MAX);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  return e;
+}
+
+// Fills a tensor-core plan: one wave of blocks over the SMs.
+template <class Kern>
+static cudaError_t tc_plan(Kern kern, int threads, int smem, int rows, int bn, int stages,
+                           bool resident, const Args& a, int* plan) {
+  int per_sm = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+  const int row_tiles = (a.M + rows - 1) / rows;
+  plan[P_ROWS] = rows, plan[P_BN] = bn, plan[P_STAGES] = stages;
+  plan[P_SMEM] = smem, plan[P_PER_SM] = per_sm, plan[P_RESIDENT] = resident;
+  split_vocab((a.N + bn - 1) / bn, row_tiles, tc::sm_count() * max(per_sm, 1) / row_tiles, plan);
+  return e;
+}
+
+// Launches one resident-x instance, or (plan != null) only describes it.
+template <typename XT, bool LUT, int BITS, int BN, int WG, int MT>
+static cudaError_t run_gen(const Args& a, int* plan) {
+  using G = Gen<LUT, BITS, BN, WG, MT>;
+  auto kern = topk_tc_kernel<XT, LUT, BITS, BN, WG, MT>;
+  static const cudaError_t attr = allow_smem(kern);
+  if (attr != cudaSuccess) return attr;
+  const int smem = G::smem((a.K + tc::BK - 1) / tc::BK);
+  if (plan) return tc_plan(kern, G::THREADS, smem, G::ROWS, BN, G::STAGES, true, a, plan);
+  // TMA needs 16-byte aligned bases (the wrapper checks them) and row
+  // strides: K * 4 bytes for scale and offset
+  const bool tma = a.K % 4 == 0;
+  const bool vec = reinterpret_cast<uintptr_t>(a.x) % 16 == 0 && a.K * sizeof(XT) % 16 == 0;
+  tc::Maps maps{};
+  if (tma) {
+    const cudaError_t e =
+        tc::weight_maps(&maps, a.packed, a.scale, a.offset, a.K, a.row_bytes, BITS, G::PB);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((a.M + G::ROWS - 1) / G::ROWS, a.splits);
+  kern<<<grid, G::THREADS, smem, a.stream>>>(
+      static_cast<const XT*>(a.x), static_cast<const uint8_t*>(a.packed),
+      static_cast<const float*>(a.scale), static_cast<const float*>(a.offset),
+      static_cast<const float*>(a.points), static_cast<const float*>(a.bias), a.M, a.K, a.N,
+      a.row_bytes, a.tiles_per_split, a.splits, a.k, tma, vec, maps, a.out);
+  return cudaGetLastError();
+}
+
+// The streamed-x instance (K too large for x to stay resident).
+template <typename XT, bool LUT, int BITS>
+static cudaError_t run_stream(const Args& a, int* plan) {
+  using T = tc::Tile<XT, LUT, BITS, 64, 1, 1>;
+  auto kern = topk_tc_stream_kernel<XT, LUT, BITS>;
+  static const cudaError_t attr = allow_smem(kern);
+  if (attr != cudaSuccess) return attr;
+  if (plan) return tc_plan(kern, T::THREADS, T::SMEM, T::ROWS, 64, T::STAGES, false, a, plan);
+  dim3 grid((a.M + T::ROWS - 1) / T::ROWS, a.splits);
+  kern<<<grid, T::THREADS, T::SMEM, a.stream>>>(
+      static_cast<const XT*>(a.x), static_cast<const uint8_t*>(a.packed),
+      static_cast<const float*>(a.scale), static_cast<const float*>(a.offset),
+      static_cast<const float*>(a.points), static_cast<const float*>(a.bias), a.M, a.K, a.N,
+      a.row_bytes, a.tiles_per_split, a.splits, a.k, a.out);
+  return cudaGetLastError();
+}
+
+template <typename XT, bool LUT, int BITS, int I = 0>
+static cudaError_t run_gen_shape(int which, const Args& a, int* plan) {
+  if constexpr (I < NGEN) {
+    constexpr GenShape sh = GEN_SHAPES[I];
+    if (which == I) return run_gen<XT, LUT, BITS, sh.bn, sh.wg, sh.mt>(a, plan);
+    return run_gen_shape<XT, LUT, BITS, I + 1>(which, a, plan);
+  } else {
+    return run_stream<XT, LUT, BITS>(a, plan);  // which == -1
+  }
+}
+
+template <typename XT>
+static cudaError_t run_tc(int bits, const Args& a, int* plan) {
+  const bool lut = a.points != nullptr;
+  const int w = pick_gen(a.M, a.K, lut, bits);
+  switch (bits * 2 + lut) {
+    case 4: return run_gen_shape<XT, false, 2>(w, a, plan);
+    case 5: return run_gen_shape<XT, true, 2>(w, a, plan);
+    case 8: return run_gen_shape<XT, false, 4>(w, a, plan);
+    case 9: return run_gen_shape<XT, true, 4>(w, a, plan);
+    case 16: return run_gen_shape<XT, false, 8>(w, a, plan);
+    case 17: return run_gen_shape<XT, true, 8>(w, a, plan);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// f32 compute: the CUDA-core pass 1, its LUT instance when points are given.
+template <typename XT>
+static cudaError_t run_f32(int bits, const Args& a) {
+  dim3 grid((a.M + BM - 1) / BM, a.splits);
+  auto kern = a.points ? topk_partial_kernel<XT, true> : topk_partial_kernel<XT, false>;
+  kern<<<grid, THREADS, 0, a.stream>>>(
+      static_cast<const XT*>(a.x), static_cast<const uint8_t*>(a.packed),
+      static_cast<const float*>(a.scale), static_cast<const float*>(a.offset),
+      static_cast<const float*>(a.points), static_cast<const float*>(a.bias), a.M, a.K, a.N,
+      bits, a.row_bytes, a.tiles_per_split, a.splits, a.out);
+  return cudaGetLastError();
+}
+
+// The CUDA-core pass 1's split: enough (64-row tile) x split blocks to fill
+// the card a few times over (4 x 132).
+static void f32_plan(const Args& a, int* plan) {
+  const int row_tiles = (a.M + BM - 1) / BM;
+  constexpr int target = 4 * 132;
+  plan[P_ROWS] = BM, plan[P_BN] = BN, plan[P_STAGES] = 1;
+  plan[P_SMEM] = 0, plan[P_PER_SM] = 0, plan[P_RESIDENT] = 0;
+  split_vocab((a.N + BN - 1) / BN, row_tiles, (target + row_tiles - 1) / row_tiles, plan);
 }
 
 }  // namespace qdt
 
-// x: [M, K] f32 or bf16 (x_bf16); packed/scale/offset/points as in
-// qdt_dequant_matmul; bias: f32 [N] (required); scratch part_v/part_i
-// [M, splits, 8] and part_m/part_s [M, splits]; outputs out_v f32 [M, k],
-// out_i int32 [M, k], out_lse f32 [M]. Vocab tile t (64 columns) belongs to
-// split t / tiles_per_split. Returns cudaGetLastError() after both launches.
+// x: [M, K] f32 or bf16 (x_bf16); compute_bf16 selects the compute type (1:
+// tensor cores, 0: f32 on CUDA cores); packed/scale/offset/points as in
+// qdt_dequant_matmul (packed, scale and offset 16-byte aligned at bf16);
+// bias: f32 [N] (required); scratch part_v/part_i [M, splits, 8] and
+// part_m/part_s [M, splits]; outputs out_v f32 [M, k], out_i int32 [M, k],
+// out_lse f32 [M]. Vocab tile t (plan's BN columns) belongs to split
+// t / tiles_per_split; qdt_topk_fused_plan gives both. Returns the CUDA
+// error of the launches, 0 on success.
 extern "C" int qdt_topk_fused(const void* x, int x_bf16, int compute_bf16,
                               const void* packed, const void* scale,
                               const void* offset, const void* points,
@@ -263,26 +806,38 @@ extern "C" int qdt_topk_fused(const void* x, int x_bf16, int compute_bf16,
                               void* out_v, void* out_i, void* out_lse,
                               void* stream) {
   using namespace qdt;
-  const int64_t row_bytes = (int64_t)npad * bits / 8;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_bf16) {
-    if (compute_bf16)
-      launch_partial_lut<__nv_bfloat16, true>(x, packed, scale, offset, points, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, s);
-    else
-      launch_partial_lut<__nv_bfloat16, false>(x, packed, scale, offset, points, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, s);
-  } else {
-    if (compute_bf16)
-      launch_partial_lut<float, true>(x, packed, scale, offset, points, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, s);
-    else
-      launch_partial_lut<float, false>(x, packed, scale, offset, points, bias, M, K, N, bits, row_bytes, tiles_per_split, splits, part_v, part_i, part_m, part_s, s);
-  }
-  cudaError_t err = cudaGetLastError();
+  const Parts parts{static_cast<float*>(part_v), static_cast<int*>(part_i),
+                    static_cast<float*>(part_m), static_cast<float*>(part_s)};
+  const Args a{x, packed, scale, offset, points, bias, M, K, N, (int64_t)npad * bits / 8,
+               tiles_per_split, splits, k, parts, static_cast<cudaStream_t>(stream)};
+  cudaError_t err;
+  if (compute_bf16)
+    err = x_bf16 ? run_tc<__nv_bfloat16>(bits, a, nullptr) : run_tc<float>(bits, a, nullptr);
+  else
+    err = x_bf16 ? run_f32<__nv_bfloat16>(bits, a) : run_f32<float>(bits, a);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = 128;
-  topk_merge_kernel<<<(M + threads - 1) / threads, threads, 0, s>>>(
-      static_cast<const float*>(part_v), static_cast<const int*>(part_i),
-      static_cast<const float*>(part_m), static_cast<const float*>(part_s), M,
-      splits, k, static_cast<float*>(out_v), static_cast<int*>(out_i),
-      static_cast<float*>(out_lse));
+  constexpr int rows_per_block = MERGE_THREADS / 32;
+  topk_merge_kernel<<<(M + rows_per_block - 1) / rows_per_block, MERGE_THREADS, 0, a.stream>>>(
+      parts.v, parts.i, parts.m, parts.s, M, splits, k, static_cast<float*>(out_v),
+      static_cast<int*>(out_i), static_cast<float*>(out_lse));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan qdt_topk_fused uses for these arguments: plan[0..8] = rows per
+// block, columns per vocab tile, copy stages, tiles per split, splits,
+// blocks, dynamic shared memory bytes (0: static only), resident blocks
+// per SM (0: not computed), x resident in shared memory (1) or streamed.
+// Returns the CUDA error of the occupancy query.
+extern "C" int qdt_topk_fused_plan(int M, int K, int N, int x_bf16, int compute_bf16, int lut,
+                                   int bits, int* plan) {
+  using namespace qdt;
+  Args a{};
+  a.M = M, a.K = K, a.N = N;
+  a.points = lut ? plan : nullptr;  // only tested for null
+  if (!compute_bf16) {
+    f32_plan(a, plan);
+    return 0;
+  }
+  const cudaError_t err = x_bf16 ? run_tc<__nv_bfloat16>(bits, a, plan) : run_tc<float>(bits, a, plan);
+  return static_cast<int>(err);
 }

@@ -20,6 +20,7 @@ from .packed import (
 from .topk_fused import (
     KMAX,
     dequant_matmul_topk,
+    dequant_matmul_topk_plan,
     dequant_matmul_topk_reference,
     pick_generator_group,
 )
@@ -35,6 +36,7 @@ __all__ = [
     "dequant_matmul_plan",
     "dequant_matmul_reference",
     "dequant_matmul_topk",
+    "dequant_matmul_topk_plan",
     "dequant_matmul_topk_reference",
     "dequantize_linear",
     "fake_quant_buckets",

@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -73,13 +75,13 @@ def _start(name: str, out: Path):
     return name, out, tmp, start_nvcc(CSRC / f"{name}.cu", tmp)
 
 
-def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
-    """Compile every kernel library that is not built yet, one ``nvcc`` per
-    source, all started together. Returns each compiler log (``-Xptxas -v``
-    prints registers and shared memory per kernel); an empty dict when all
-    were built already."""
+def build_all(names: Iterable[str] = KERNELS, force: bool = False) -> Dict[str, str]:
+    """Compile every kernel library that is not built yet (with ``force``,
+    every one), one ``nvcc`` per source, all started together. Returns each
+    compiler log (``-Xptxas -v`` prints registers, shared memory and spills
+    per kernel); an empty dict when all were built already."""
     with _lock:
-        jobs = [_start(n, _lib_path(n)) for n in names if not _lib_path(n).exists()]
+        jobs = [_start(n, _lib_path(n)) for n in names if force or not _lib_path(n).exists()]
         logs, errors = {}, []
         for name, out, tmp, proc in jobs:
             log, _ = proc.communicate()
@@ -108,13 +110,50 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
-    """C entry point ``symbol`` of kernel library ``name``; every entry point
+def bind(lib: ctypes.CDLL, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """C entry point ``symbol`` of a loaded library; every entry point
     returns the ``cudaError_t`` of its launch."""
-    fn = getattr(load(name), symbol)
+    fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """C entry point ``symbol`` of kernel library ``name``."""
+    return bind(load(name), symbol, argtypes)
+
+
+def build_variants(name: str, variants: Dict[str, list]) -> Dict[str, ctypes.CDLL]:
+    """For the sweeps: one library of kernel ``name`` per variant, each built
+    from a copy of ``csrc/`` edited by the variant's ``(file, old, new)``
+    replacements, into ``_build/sweep/<name>/<variant>/``; every ``nvcc``
+    runs at once. Prints, as a JSON line, each variant's ``ptxas`` warnings
+    and how many of its functions spill.
+    Raises if an edit does not apply or a build fails."""
+    procs = {}
+    for variant, edits in variants.items():
+        src = BUILD_DIR / "sweep" / name / variant
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.copytree(CSRC, src)
+        for fname, old, new in edits:
+            path = src / fname
+            text = path.read_text()
+            if old not in text:
+                raise ValueError(f"{variant}: {fname} has no {old!r}")
+            path.write_text(text.replace(old, new))
+        procs[variant] = (src, start_nvcc(src / f"{name}.cu", src / "lib.so"))
+    libs = {}
+    for variant, (src, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {variant}:\n{log}")
+        warnings = [line for line in log.splitlines() if "warning" in line]
+        spills = [m for m in re.findall(r"(\d+) bytes spill stores", log) if int(m)]
+        print(json.dumps({"variant": variant, "ptxas_warnings": warnings[:5],
+                          "spilling_functions": len(spills)}), flush=True)
+        libs[variant] = ctypes.CDLL(str(src / "lib.so"))
+    return libs
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -5,9 +5,9 @@
 
 Builds variants of ``csrc/dequant_matmul.cu`` that differ from the sources
 in ``csrc/`` by the edits of one preset below, each of which replaces one
-statement of code (one ``nvcc`` per variant, all started together, into
-``_build/sweep/``). Nothing in the package imports this module. Then it times every
-variant at the decode step's three shapes (student_medium, 1280 rows:
+statement of code (``_build.build_variants``: one ``nvcc`` per variant,
+all started together). Nothing in the package imports this module. Then it
+times every variant at the decode step's three shapes (student_medium, 1280 rows:
 ``lstm_0`` and ``lstm_1`` with bf16 x, ``attn_out`` with f32 x; uniform
 grid and codebook) with :func:`graph_ms`, beside bf16 ``torch.matmul`` on
 the dequantized weight. It prints the card's name and power limit, then one
@@ -22,9 +22,7 @@ match). Needs a card and ``nvcc``.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import shutil
 import subprocess
 import sys
 
@@ -36,7 +34,7 @@ from .dequant_matmul import _ARGTYPES, dequant_matmul_reference
 from .packed import dequantize_linear, pack_linear
 
 _SHAPES = "constexpr Shape SHAPES[] = {{2, 2, 64}, {1, 1, 64}, {1, 1, 32}};"
-_RULE = "if (2 * blocks >= sm_count()) return i;"
+_RULE = "if (2 * blocks >= tc::sm_count()) return i;"
 
 
 def _table(shapes: str):
@@ -51,9 +49,10 @@ def _loop(old: str, new: str):
     return ("dequant_tile_tc.cuh", old, new)
 
 
-_NO_DEQUANT = _loop("transform_b(st, s & 1);", ";")
+_NO_DEQUANT = _loop("transform_b<W>(task, p_stage(st), so_stage(st), lut, table, b_tiles + (s & 1) * W::B_BYTES);", ";")
 _NO_MMA = _loop("for (int k16 = 0; k16 < BK / 16; ++k16) {", "for (int k16 = 0; k16 < 0; ++k16) {")
 _NO_COPY = [_loop("const bool one = tid == 0;", "const bool one = tid < 0;"),
+            _loop("const bool lead = tid == 0;", "const bool lead = tid < 0;"),
             _loop("mbar_wait(&full[st], (s / STAGES) & 1);", ";")]
 
 PRESETS = {
@@ -86,37 +85,9 @@ DECODE = (("lstm_0", 768, 1024, torch.bfloat16), ("lstm_1", 512, 1024, torch.bfl
 ROWS = 1280  # B = 256 x beam 5
 
 
-def build(variants: dict) -> dict:
-    """Each variant's ``qdt_dequant_matmul``, built from an edited copy of
-    ``csrc/``; every ``nvcc`` runs at once. Raises if an edit does not apply
-    or a build fails."""
-    procs = {}
-    for name, edits in variants.items():
-        src = _build.BUILD_DIR / "sweep" / name
-        shutil.rmtree(src, ignore_errors=True)
-        shutil.copytree(_build.CSRC, src)
-        for fname, old, new in edits:
-            path = src / fname
-            text = path.read_text()
-            if old not in text:
-                raise ValueError(f"{name}: {fname} has no {old!r}")
-            path.write_text(text.replace(old, new))
-        procs[name] = _build.start_nvcc(src / "dequant_matmul.cu", src / "lib.so")
-    fns = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        warnings = [line for line in log.splitlines() if "warning" in line]
-        print(json.dumps({"variant": name, "ptxas_warnings": warnings[:5]}), flush=True)
-        fn = ctypes.CDLL(str(_build.BUILD_DIR / "sweep" / name / "lib.so")).qdt_dequant_matmul
-        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-        fns[name] = fn
-    return fns
-
-
 def sweep(preset: str, bits_list=(4,), seed: int = 0) -> None:
-    fns = build(PRESETS[preset])
+    fns = {name: _build.bind(lib, "qdt_dequant_matmul", _ARGTYPES)
+           for name, lib in _build.build_variants("dequant_matmul", PRESETS[preset]).items()}
     gen = torch.Generator().manual_seed(seed)
     bf16, ptr = torch.bfloat16, _build.ptr
     for bits in bits_list:

@@ -6,7 +6,10 @@ set), its LUT variant. :func:`dequant_matmul_topk` returns ``(values [M, k]
 f32, indices [M, k] int32, lse [M, 1] f32)`` without writing the [M, N]
 logits: on a CPU tensor through the plain version
 :func:`dequant_matmul_topk_reference`, on a CUDA tensor through the
-hand-written two-pass kernel ``csrc/topk_fused.cu`` (or raises).
+hand-written two-pass kernel ``csrc/topk_fused.cu`` (or raises): pass 1 on
+the tensor cores at bf16 compute, on the CUDA cores at f32. Its plan (rows
+per block, vocab tile, splits) comes from the CUDA library
+(:func:`dequant_matmul_topk_plan`).
 ``dequant_matmul_topk.launches`` counts launches of the uniform kernel,
 ``dequant_matmul_topk.launches_lut`` those of the LUT variant. Columns at
 or past the logical width ``p.shape[1]`` never take part, whatever the
@@ -23,22 +26,25 @@ ones, as the JAX package's exact fallback returns.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from . import _build
-from .dequant_matmul import check_operands, dequant_matmul_reference
+from .dequant_matmul import check_alignment, check_operands, dequant_matmul_reference
 from .packed import BUCKET, PackedLinear
 
 KMAX = 8
-_BM, _BN = 64, 64  # the kernel's row and column tile (csrc/dequant_tile.cuh)
-_TARGET_BLOCKS = 4 * 132  # a few waves of blocks on the H100's 132 SMs
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # qdt_topk_fused(x, x_bf16, compute_bf16, packed, scale, offset, points, bias,
 #                M, K, N, npad, bits, k, tiles_per_split, splits, part_v,
 #                part_i, part_m, part_s, out_v, out_i, out_lse, stream)
 _ARGTYPES = [_P, _I, _I, _P, _P, _P, _P, _P] + [_I] * 8 + [_P] * 8
+# qdt_topk_fused_plan(M, K, N, x_bf16, compute_bf16, lut, bits, plan[9])
+_PLAN_ARGTYPES = [_I] * 7 + [ctypes.POINTER(ctypes.c_int)]
+_PLAN_KEYS = ("BM", "BN", "stages", "tiles_per_split", "splits", "blocks", "smem_bytes",
+              "blocks_per_sm", "x_resident")
 
 
 def topk_sorted(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -73,14 +79,25 @@ def dequant_matmul_topk_reference(
     return vals, idx.to(torch.int32), lse
 
 
-def split_plan(m: int, n: int) -> Tuple[int, int]:
-    """(tiles_per_split, splits) of the vocab for pass 1: enough row-tile x
-    split blocks to fill the card a few times over."""
-    ntiles = -(-n // _BN)
-    row_tiles = -(-m // _BM)
-    splits = max(1, min(ntiles, -(-_TARGET_BLOCKS // row_tiles)))
-    tiles_per_split = -(-ntiles // splits)
-    return tiles_per_split, -(-ntiles // tiles_per_split)
+@functools.lru_cache(maxsize=None)
+def _plan(m: int, k: int, n: int, x_bf16: bool, compute_bf16: bool, lut: bool, bits: int) -> dict:
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
+    fn = _build.function("topk_fused", "qdt_topk_fused_plan", _PLAN_ARGTYPES)
+    _build.check(fn(m, k, n, int(x_bf16), int(compute_bf16), int(lut), bits, plan),
+                 "dequant_matmul_topk_plan")
+    return dict(zip(_PLAN_KEYS, plan))
+
+
+def dequant_matmul_topk_plan(
+    x: torch.Tensor, p: PackedLinear, *, compute_dtype=torch.bfloat16
+) -> dict:
+    """The plan :func:`dequant_matmul_topk` launches for these operands, from
+    the CUDA library (it depends on the card's SM count and occupancy): rows
+    per block, columns per vocab tile, copy stages, vocab tiles per split,
+    splits, pass-1 blocks, dynamic shared memory bytes, resident blocks per
+    SM and whether x stays resident in shared memory."""
+    return dict(_plan(x.shape[0], x.shape[1], p.shape[1], x.dtype == torch.bfloat16,
+                      compute_dtype == torch.bfloat16, p.points is not None, p.bits))
 
 
 def dequant_matmul_topk(
@@ -111,11 +128,15 @@ def dequant_matmul_topk(
 
 def _launch(x, p, k, compute_dtype):
     check_operands(x, p, compute_dtype)
+    if compute_dtype == torch.bfloat16:
+        check_alignment(p)
     m, kk = x.shape
     n = p.shape[1]
     dev = x.device
     bias = p.bias if p.bias is not None else torch.zeros(n, dtype=torch.float32, device=dev)
-    tiles_per_split, splits = split_plan(m, n)
+    plan = _plan(m, kk, n, x.dtype == torch.bfloat16, compute_dtype == torch.bfloat16,
+                 p.points is not None, p.bits)
+    tiles_per_split, splits = plan["tiles_per_split"], plan["splits"]
     part_v = torch.empty((m, splits, KMAX), dtype=torch.float32, device=dev)
     part_i = torch.empty((m, splits, KMAX), dtype=torch.int32, device=dev)
     part_m = torch.empty((m, splits), dtype=torch.float32, device=dev)

@@ -26,6 +26,7 @@ from quantized_distillation_tpu_torch.kernels import (
     dequant_matmul_reference,
     dequant_matmul_topk,
     dequant_matmul_topk_reference,
+    dequantize_linear,
     pack_linear,
 )
 
@@ -147,6 +148,28 @@ class TestFusedTopKPlain:
         np.testing.assert_array_equal(v.numpy(), np.asarray(rv))
         np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
         np.testing.assert_allclose(lse.numpy(), np.asarray(rlse), atol=1e-4)
+
+    @pytest.mark.parametrize("lut", [False, True])
+    @pytest.mark.parametrize("k", [1, 8])
+    def test_ragged_shape_matches_pallas_interpret(self, jx, lut, k):
+        # M = 1, K = 77 (not a multiple of 16), N = 700 (not of 64): the shape
+        # the kernel takes through its element-wise copies and masked tiles
+        rng = np.random.default_rng(60 + k + lut)
+        w = rng.standard_normal((77, 700)).astype(np.float32)
+        bias = rng.standard_normal(700).astype(np.float32)
+        x = rng.standard_normal((1, 77)).astype(np.float32)
+        kw = dict(points=_points(rng, 4), lut_mode="exact", max_group=2) if lut else {}
+        jp, tp = _pair(jx, w, 4, bias, **kw)
+        pv, pi, plse = jx.dequant_matmul_topk(
+            jx.jnp.asarray(x), jp, k, compute_dtype=jx.jnp.float32, interpret=True, slots=8
+        )
+        rv, ri, rlse = jx.dequant_matmul_topk_reference(jx.jnp.asarray(x), jp, k)
+        v, i, lse = dequant_matmul_topk(torch.from_numpy(x), tp, k, compute_dtype=torch.float32)
+        assert v.shape == (1, k) and int(i.max()) < 700
+        for jv, ji, jl in ((pv, pi, plse), (rv, ri, rlse)):
+            np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=1e-4)
+            np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+            np.testing.assert_allclose(lse.numpy(), np.asarray(jl), atol=1e-4)
 
     def test_certificate_is_all_ones(self, jx):
         rng = np.random.default_rng(5)
@@ -270,6 +293,15 @@ class TestDequantMatmulWrapper:
         # still find exactly one place to change
         from quantized_distillation_tpu_torch.kernels import _build
         from quantized_distillation_tpu_torch.kernels.dequant_matmul_sweep import PRESETS
+
+        for name, edits in PRESETS[preset].items():
+            for fname, old, _ in edits:
+                assert (_build.CSRC / fname).read_text().count(old) == 1, (name, fname, old)
+
+    @pytest.mark.parametrize("preset", ["tiles", "ablate"])
+    def test_topk_sweep_edits_each_match_the_sources_once(self, preset):
+        from quantized_distillation_tpu_torch.kernels import _build
+        from quantized_distillation_tpu_torch.kernels.topk_fused_sweep import PRESETS
 
         for name, edits in PRESETS[preset].items():
             for fname, old, _ in edits:
@@ -451,3 +483,101 @@ def test_gpu_topk_fused_lut_matches_plain(cuda, bits, cd):
     assert int(i.max()) < 5000
     if cd == torch.float32:
         assert torch.equal(i, ri)
+
+
+# (M, K, N, k) of the bf16 generator checks: the serving shapes (uniform
+# N = 32768, codebook N = 32000), then shapes that between them take every M
+# in {1, 63, 65, 130, 1280}, K in {8, 77, 256, 512}, N in {31, 700, 5000,
+# 32000, 32768} and k in {1, 5, 8}; K = 2048 leaves x too large to stay
+# resident (the streamed-x instance)
+TOPK_SHAPES = [
+    (1280, 256, 32768, 5), (1280, 256, 32000, 5), (1, 8, 31, 1), (63, 77, 700, 8),
+    (65, 512, 5000, 5), (130, 256, 700, 1), (1280, 77, 31, 8), (63, 512, 32000, 1),
+    (130, 8, 5000, 8), (1, 256, 32768, 5), (65, 2048, 700, 5),
+]
+
+
+def _topk_band_ok(v, i, rv, ri):
+    """Index lists equal, except in rows whose values all lie within the
+    bf16 tie band (4 bf16 ulps of the row's largest |value|), as
+    chip_smoke.py's check_topk_indices allows."""
+    rows_equal = (i == ri).all(dim=1)
+    band = 4 * 2.0 ** -8 * rv.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
+    return bool((rows_equal | ((v - rv).abs() <= band).all(dim=1)).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", TOPK_SHAPES)
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("lut", [False, True])
+def test_gpu_topk_fused_bf16_matches_plain(cuda, shape, bits, lut):
+    """The tensor-core generator against its plain version, x f32 and bf16:
+    both round the operands to bf16 and the products are exact in f32, so
+    only the f32 summation order differs: values and lse at rtol = atol =
+    1e-4, indices equal up to the bf16 tie band, none at or past N."""
+    m, k, n, k_top = shape
+    rng = np.random.default_rng(m + k + n + bits + lut)
+    kw = dict(points=torch.from_numpy(_points(rng, bits)), lut_mode="exact", max_group=16) if lut else {}
+    p = _packed_cuda(rng, k, n, bits, **kw)
+    for xdt in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda, xdt)
+        counts = (dequant_matmul_topk.launches, dequant_matmul_topk.launches_lut)
+        v, i, lse = dequant_matmul_topk(x, p, k_top, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        n0, l0 = counts
+        assert (dequant_matmul_topk.launches, dequant_matmul_topk.launches_lut) == (
+            (n0, l0 + 1) if lut else (n0 + 1, l0))
+        rv, ri, rlse = dequant_matmul_topk_reference(x, p, k_top, compute_dtype=torch.bfloat16)
+        assert v.shape == (m, k_top) and lse.shape == (m, 1)
+        torch.testing.assert_close(v, rv, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
+        assert _topk_band_ok(v, i, rv, ri)
+        assert int(i.max()) < n and int(i.min()) >= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lut", [False, True])
+def test_gpu_topk_fused_bf16_ties_exact(cuda, lut):
+    # zero weights make the logits the bias exactly at bf16 too (a codebook
+    # needs an exact 0 among its points for that): ties must go to the
+    # lower index, bit for bit
+    rng = np.random.default_rng(5)
+    bias = torch.from_numpy(rng.integers(0, 4, 3000).astype(np.float32))
+    pts = _points(rng, 4)
+    pts[3] = 0.0
+    kw = dict(points=torch.from_numpy(pts), lut_mode="exact") if lut else {}
+    p = pack_linear(torch.zeros(32, 3000), 4, bias=bias, **kw).to(cuda)
+    assert not dequantize_linear(p).any()
+    x = torch.from_numpy(rng.standard_normal((70, 32)).astype(np.float32)).to(cuda)
+    got = dequant_matmul_topk(x, p, 8, compute_dtype=torch.bfloat16)
+    want = dequant_matmul_topk_reference(x, p, 8, compute_dtype=torch.bfloat16)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_topk_fused_plan(cuda):
+    """The serving plan: x resident, about one wave of blocks over the SMs;
+    and every plan, at any K, bits, codebook or x type, fits in 227 KB of
+    shared memory and launches at least one block per SM."""
+    from quantized_distillation_tpu_torch.kernels import dequant_matmul_topk_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rng = np.random.default_rng(0)
+    p = _packed_cuda(rng, 256, 32768, 4)
+    plan = dequant_matmul_topk_plan(torch.zeros(1280, 256, device=cuda), p)
+    assert plan["x_resident"] == 1 and plan["BN"] % 64 == 0
+    assert plan["blocks"] == -(-1280 // plan["BM"]) * plan["splits"]
+    assert sms * plan["blocks_per_sm"] // 2 < plan["blocks"] <= sms * plan["blocks_per_sm"]
+    assert plan["splits"] * plan["tiles_per_split"] >= 32768 // plan["BN"]
+    f32 = dequant_matmul_topk_plan(torch.zeros(1280, 256, device=cuda), p, compute_dtype=torch.float32)
+    assert (f32["BM"], f32["BN"], f32["smem_bytes"], f32["x_resident"]) == (64, 64, 0, 0)
+    for k in (8, 77, 256, 512, 1024, 1536, 2048, 4096):
+        for bits in (2, 4, 8):
+            for pts in (None, torch.from_numpy(_points(rng, bits))):
+                q = _packed_cuda(rng, k, 700, bits, points=pts)
+                for xdt in (torch.float32, torch.bfloat16):
+                    for m in (1, 1280):
+                        pl = dequant_matmul_topk_plan(torch.zeros(m, k, device=cuda, dtype=xdt), q)
+                        assert pl["smem_bytes"] <= 232448 and pl["blocks_per_sm"] >= 1, (k, bits, pl)
+                        assert pl["x_resident"] == (k <= 1536), (k, pl)
