@@ -20,20 +20,30 @@ Phases, each printing one JSON line:
    4-bit), holds it against its plain PyTorch version on the same inputs
    (dequant-matmul and the generator also at a ragged 77 x 200 x 700, the
    generator at K = 77 too, for 2/4/8 bits; both at rtol = atol = 1e-4 for
-   bf16 compute as for f32), and times kernel, plain
+   bf16 compute as for f32; the standalone beam combine and the beam
+   advance bit-exact, the advance also at K in {1, 3, 5, 8}, kc = K and kc
+   > K, t first and last, with finished beams, EOS winners, ties and
+   NEG_INF blocks), and times kernel, plain
    version and a one-call PyTorch yardstick on the device: CUDA events
    around a CUDA graph of back-to-back calls, so the host's time to issue
    each call is left out (dequant-matmul and the generator also report
    their plan, TFLOP/s and share of the bound);
 4. main path: ``pack_decoder`` → ``beam_search_packed`` at full width (depth
-   as published: 2 layers), checks the launch counters (3 dequant-matmul,
-   1 fused top-k, 1 combine per decode step), finite scores, and f32 tokens
-   equal to the port's CPU plain path on 16 sentences; then times the packed
-   bf16 path and the dense FP32 ``beam_search`` on the card;
+   as published: 2 layers), which runs the search as one CUDA graph: checks
+   the launch counters on the capturing call and on a replay (3
+   dequant-matmul, 1 fused top-k, 1 beam advance per decode step, no
+   standalone combine), finite scores, and f32 tokens and scores of the
+   graph equal to the eager loop's on the card, the tokens also to the
+   port's CPU plain path, on 16 sentences; then the packed bf16 path and
+   the dense FP32 ``beam_search``, each eager and graphed, in turns: host
+   seconds, tokens/s, device ms, kernels launched and busy share per
+   search (phase eager_vs_graph);
 5. profile: device time by kernel over one packed beam search
-   (``torch.profiler``), the dequant-matmul and generator kernels' device ms
-   in it (the generator's merge pass apart), and the device's busy share of
-   that run;
+   (``torch.profiler``; the graphed search, then the eager loop and the
+   dense legs), the dequant-matmul and generator kernels' device ms in it
+   (the generator's merge pass apart), the kernels launched, and the
+   device's busy share of that run; where the profiler traces no kernel of
+   a graph replay, the device time comes from CUDA events around the call;
 6. train kernel: the fake-quant kernel at the train step's shape (every
    quantizable leaf of student_medium: 105,984 buckets x 256), bit-exact
    against its plain version for 2/4/8 bits x linear/abs-max and on
@@ -63,9 +73,11 @@ Phases, each printing one JSON line:
    ([1280, 256] x [256, 32000] padded to 32768 without a -1e9 bias, 4-bit,
    k=5) against their plain versions, timed like phase 3;
 11. codebook path: ``pack_decoder(points=<the trained generator/kernel
-   codebook>, lut_mode="exact")`` → ``beam_search_packed`` at full width:
-   launch counts (3 LUT dequant-matmul, 1 LUT fused top-k, 1 combine per
-   decode step), finite scores, f32 tokens equal to the CPU plain path on 16
+   codebook>, lut_mode="exact")`` → ``beam_search_packed`` at full width
+   (one CUDA graph): launch counts on the capturing call and a replay (3
+   LUT dequant-matmul, 1 LUT fused top-k, 1 beam advance per decode step),
+   finite scores, f32 tokens and scores of the graph equal to the eager
+   loop's on the card and the tokens to the CPU plain path on 16
    sentences; a ``lut_mode="requant8"`` deploy that must launch only the
    uniform kernels; tokens/s of the exact, requant8 and uniform deploys in
    turns; and a profile of the exact deploy.
@@ -97,7 +109,10 @@ from quantized_distillation_tpu_torch.config import (
 )
 from quantized_distillation_tpu_torch.convert import flax_leaves, params_to_numpy
 from quantized_distillation_tpu_torch.kernels import (
+    LAUNCH_COUNTERS,
     _build,
+    beam_advance,
+    beam_advance_reference,
     beam_combine_topk,
     beam_combine_topk_reference,
     dequant_matmul,
@@ -109,12 +124,15 @@ from quantized_distillation_tpu_torch.kernels import (
     dequantize_linear,
     fake_quant_buckets,
     fake_quant_buckets_reference,
+    launch_counts,
     pack_linear,
     pick_generator_group,
+    set_launch_counts,
 )
 from quantized_distillation_tpu_torch.models import make_seq2seq
 from quantized_distillation_tpu_torch.ops.bucketing import to_buckets
 from quantized_distillation_tpu_torch.serve import beam_search, beam_search_packed, pack_decoder
+from quantized_distillation_tpu_torch.serve.beam import EOS, NEG_INF, PAD
 from quantized_distillation_tpu_torch.train import (
     build_optimizer,
     create_train_state,
@@ -130,6 +148,7 @@ from quantized_distillation_tpu_torch.train.trainer import (
     quantized_params,
     trainable,
 )
+from quantized_distillation_tpu_torch.utils.search_profile import device_profile, span_ms
 from quantized_distillation_tpu_torch.utils.timing import graph_ms
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
@@ -150,30 +169,18 @@ RAGGED_TOPK_K = (200, 77)  # the generator also at K = 77: x rows off 16-byte al
 
 SRC = "quantized_distillation_tpu_torch/csrc/"
 JAXK = "quantized_distillation_tpu/kernels/"
-# launch counter name → (wrapper, attribute it counts in)
-COUNTERS = {
-    "dequant_matmul": (dequant_matmul, "launches"),
-    "dequant_matmul_lut": (dequant_matmul, "launches_lut"),
-    "dequant_matmul_topk": (dequant_matmul_topk, "launches"),
-    "dequant_matmul_topk_lut": (dequant_matmul_topk, "launches_lut"),
-    "beam_combine_topk": (beam_combine_topk, "launches"),
-    "fake_quant_buckets": (fake_quant_buckets, "launches"),
-}
-
-
 def zero_counts() -> None:
-    for fn, attr in COUNTERS.values():
-        setattr(fn, attr, 0)
+    set_launch_counts({name: 0 for name in LAUNCH_COUNTERS})
 
 
 def read_counts() -> dict:
     torch.cuda.synchronize()
-    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+    return launch_counts()
 
 
 def expected(**counts) -> dict:
     """Every counter at 0 except those given."""
-    return {name: counts.get(name, 0) for name in COUNTERS}
+    return {name: counts.get(name, 0) for name in LAUNCH_COUNTERS}
 
 
 def emit(obj) -> None:
@@ -575,8 +582,77 @@ def phase_kernels(checks, dec, rows, gen):
         "replaces": JAXK + "beam_combine.py:41",
         "max_abs_err": float((got[0] - want[0]).abs().max()),
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": lib,
+        "note": "the JAX public function's counterpart; on the main path beam_advance "
+                "does its work",
     })
+    table.append(kernel_beam_advance(checks, b, k_top, gen))
     return table
+
+
+def advance_inputs(b, k, kc, t_max, gen):
+    """A decode step's candidates and a beam state as the beam advance gets
+    them, on the card: values on a coarse grid (exact ties within and across
+    beams; half the sentences share one lse, so whole blocks tie), EOS among
+    the candidates, NEG_INF blocks, a third of the beams finished."""
+    vals = -torch.sort(torch.randint(0, 6, (b * k, kc), generator=gen).float() * 0.5,
+                       dim=1).values
+    vals[torch.rand(b * k, generator=gen) < 0.15] = NEG_INF
+    idx = torch.randint(4, 32000, (b * k, kc), generator=gen, dtype=torch.int32)
+    idx[torch.rand(b * k, kc, generator=gen) < 0.2] = EOS
+    lse = torch.rand(b * k, 1, generator=gen) * 1.5 + 0.5
+    lse[(torch.rand(b, generator=gen) < 0.5).repeat_interleave(k)] = 1.25
+    state = (
+        -torch.randint(0, 8, (b, k), generator=gen).float(),  # scores
+        torch.rand(b, k, generator=gen) < 0.3,  # finished
+        torch.randint(0, 5, (b, k), generator=gen, dtype=torch.int32),  # lengths
+        torch.zeros(b, k, dtype=torch.int64),  # last_token
+        torch.randint(0, 32000, (t_max, b * k), generator=gen, dtype=torch.int32),  # sym
+        torch.zeros(t_max, b * k, dtype=torch.int8),  # parent
+    )
+    return tuple(x.cuda() for x in (vals, idx, lse)), tuple(x.cuda() for x in state)
+
+
+def kernel_beam_advance(checks, b, k, gen) -> dict:
+    """The beam-advance kernel against its plain version, bit-exact in every
+    output (the new beam state, the history rows, the flat parent rows): at
+    the serving shape (b sentences, k beams, k candidates a beam) at the
+    first and last step, and at K in {1, 3, 5, 8} with kc = K and kc > K on
+    37 sentences; timed at the serving shape against the plain version. No
+    single PyTorch call computes a beam advance: no library time."""
+    t_max = 24
+    cases = [(b, k, k, 0), (b, k, k, t_max - 1)] + [
+        (37, kk, kc, t) for kk, kc in ((1, 1), (1, 3), (3, 3), (3, 5), (5, 5), (5, 8), (8, 8))
+        for t in (0, t_max - 1)]
+    exact = {}
+    for bb, kk, kc, t in cases:
+        cand, state = advance_inputs(bb, kk, kc, t_max, gen)
+        mine, ref = [x.clone() for x in state], [x.clone() for x in state]
+        rows = beam_advance(*cand, *mine, t, eos_id=EOS, pad_id=PAD)
+        want = beam_advance_reference(*cand, *ref, t, eos_id=EOS, pad_id=PAD)
+        ok = torch.equal(rows, want) and all(torch.equal(x, y) for x, y in zip(mine, ref))
+        exact[f"B{bb}/K{kk}/kc{kc}/t{t}"] = ok
+        checks.require(ok, f"beam_advance B={bb} K={kk} kc={kc} t={t}: not bit-exact")
+    cand, state = advance_inputs(b, k, k, t_max, gen)
+    mine, ref = [x.clone() for x in state], [x.clone() for x in state]
+    ms = graph_ms(lambda: beam_advance(*cand, *mine, t_max - 1, eos_id=EOS, pad_id=PAD),
+                  calls=100)
+    plain = graph_ms(lambda: beam_advance_reference(*cand, *ref, t_max - 1, eos_id=EOS,
+                                                     pad_id=PAD), calls=100)
+    n = k * k
+    scores, finished, lengths, last = state[:4]
+    flops = float(b * (2 * n + k * n))  # candidate scores, then k rounds of compares
+    byt = nbytes(*cand) + 2 * nbytes(scores, finished, lengths) + nbytes(last) + b * k * (4 + 1 + 8)
+    bms, by = bound(flops, byt, PEAK_F32)
+    emit({"phase": "kernel", "name": "beam_advance", "B": b, "K": k, "kc": k,
+          "bit_exact": exact, "flops": flops, "bytes": byt, "ms": ms, "plain_ms": plain})
+    return {
+        "name": "beam_advance", "route": "cuda", "source": SRC + "beam_combine.cu",
+        "replaces": JAXK + "beam_combine.py:41", "max_abs_err": 0.0 if all(exact.values())
+        else float("inf"), "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+        "library_ms": None, "library": "no single PyTorch call computes a beam advance",
+        "design": "one launch a decode step: candidate scores, top-K and bookkeeping, "
+                  "one warp a sentence",
+    }
 
 
 def timed_runs(fn, reps: int):
@@ -592,6 +668,20 @@ def timed_runs(fn, reps: int):
     return out
 
 
+def searches_in_turns(legs: dict, reps: int) -> dict:
+    """Host seconds of each leg's call (synchronized) over ``reps`` rounds
+    in turns, the order reversed every other round, after one warm-up call
+    of each, so drift on the host hits every leg alike."""
+    for run in legs.values():
+        run()
+    torch.cuda.synchronize()
+    times = {name: [] for name in legs}
+    for i in range(reps):
+        for name in (list(legs) if i % 2 == 0 else list(legs)[::-1]):
+            times[name] += timed_runs(legs[name], 1)
+    return times
+
+
 def phase_main_path(checks, args, model, params, smi):
     dev = torch.device("cuda")
     cfg = BeamConfig(beam_size=args.beam, max_len=args.src_len)
@@ -602,21 +692,26 @@ def phase_main_path(checks, args, model, params, smi):
     dec = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.bfloat16,
                        generator_group=group, device=dev)
 
-    zero_counts()
-    toks, scores = beam_search_packed(model, dec, src, src_len, cfg, device=dev)
-    launches = read_counts()
     steps = cfg.max_len
-    want = expected(dequant_matmul=3 * steps, dequant_matmul_topk=steps, beam_combine_topk=steps)
-    checks.require(launches == want, f"main path launches {launches}, expected {want}")
+    want = expected(dequant_matmul=3 * steps, dequant_matmul_topk=steps, beam_advance=steps)
+    for call in ("capture", "replay"):  # the first call captures the graph, then replays it
+        zero_counts()
+        toks, scores = beam_search_packed(model, dec, src, src_len, cfg, device=dev)
+        launches = read_counts()
+        checks.require(launches == want, f"main path launches ({call}) {launches}, expected {want}")
     checks.require(tuple(toks.shape) == (args.batch, steps), f"tokens shape {tuple(toks.shape)}")
     checks.require(bool(torch.isfinite(scores).all()), "main path scores not finite")
     checks.require(bool(((toks >= 0) & (toks < args.vocab)).all()), "token ids out of range")
 
-    # f32 tokens: the card's kernels against the CPU plain versions
+    # f32: the graph against the eager loop on the card and the CPU plain versions
     ns = args.cpu_sentences
     dec32 = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.float32,
                          generator_group=group, device=dev)
     g_toks, g_scores = beam_search_packed(model, dec32, src[:ns], src_len[:ns], cfg, device=dev)
+    e_toks, e_scores = beam_search_packed(model, dec32, src[:ns], src_len[:ns], cfg, device=dev,
+                                          _eager=True)
+    graph_eq = torch.equal(g_toks, e_toks) and torch.equal(g_scores, e_scores)
+    checks.require(graph_eq, "f32 graphed search differs from the eager loop on the card")
     cpu_model = make_seq2seq(args.preset, args.vocab, args.vocab, device="cpu", seed=args.seed)
     dec_cpu = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.float32,
                            generator_group=group, device="cpu")
@@ -627,62 +722,76 @@ def phase_main_path(checks, args, model, params, smi):
     score_err = float((g_scores.cpu() - c_scores).abs().max())
 
     # throughput: B * max_len tokens per beam search (encode included)
-    t_packed = timed_runs(
-        lambda: beam_search_packed(model, dec, src, src_len, cfg, device=dev), args.reps)
-    t_dense = timed_runs(lambda: beam_search(model, src, src_len, cfg, device=dev), args.reps)
+    legs = {
+        "packed_graph": lambda: beam_search_packed(model, dec, src, src_len, cfg, device=dev),
+        "packed_eager": lambda: beam_search_packed(model, dec, src, src_len, cfg, device=dev,
+                                                   _eager=True),
+        "dense_graph": lambda: beam_search(model, src, src_len, cfg, device=dev),
+        "dense_eager": lambda: beam_search(model, src, src_len, cfg, device=dev, _eager=True),
+    }
+    times = searches_in_turns(legs, args.reps)
     ntok = args.batch * steps
-    med_p, med_d = statistics.median(t_packed), statistics.median(t_dense)
+    med = {name: statistics.median(t) for name, t in times.items()}
     emit({
         "phase": "main_path", "preset": args.preset, "vocab": args.vocab, "batch": args.batch,
         "beam": args.beam, "max_len": steps, "bits": args.bits, "generator_group": group,
-        "launches": launches, "f32_tokens_equal_cpu": tok_equal, "f32_sentences": ns,
+        "launches": launches, "f32_graph_equals_eager": graph_eq,
+        "f32_tokens_equal_cpu": tok_equal, "f32_sentences": ns,
         "f32_score_max_abs_diff": score_err,
-        "packed_bf16_tokens_per_s": ntok / med_p, "packed_seconds": t_packed,
-        "dense_fp32_tokens_per_s": ntok / med_d, "dense_seconds": t_dense,
+        "packed_bf16_tokens_per_s": ntok / med["packed_graph"],
+        "packed_seconds": times["packed_graph"],
+        "dense_fp32_tokens_per_s": ntok / med["dense_graph"], "dense_seconds": times["dense_graph"],
         "card": smi,
     })
-    phase_profile(lambda: beam_search_packed(model, dec, src, src_len, cfg, device=dev), med_p)
-    return launches, {"packed_bf16_tokens_per_s": ntok / med_p,
-                      "dense_fp32_tokens_per_s": ntok / med_d}
+    record = {}
+    for name, run in legs.items():
+        prof = phase_profile(run, med[name], phase="profile" if name == "packed_graph"
+                             else f"profile_{name}")
+        record[name] = {
+            "host_seconds": times[name], "tokens_per_s": ntok / med[name],
+            "device_ms": prof["device_ms"], "span_ms": prof["span_ms"],
+            "kernels_per_search": prof["kernels"],
+            "device_busy_share_of_median_run": prof["device_busy_share_of_median_run"],
+            "profiler_traced_kernels": prof["profiler_traced_kernels"],
+        }
+    emit({"phase": "eager_vs_graph", "preset": args.preset, "batch": args.batch,
+          "beam": args.beam, "max_len": steps, "legs": record, "card": smi})
+    return launches, {"packed_bf16_tokens_per_s": ntok / med["packed_graph"],
+                      "dense_fp32_tokens_per_s": ntok / med["dense_graph"]}
 
 
-def phase_profile(run, median_s: float, phase: str = "profile", focus: str = None) -> None:
+def phase_profile(run, median_s: float, phase: str = "profile", focus: str = None) -> dict:
     """Device time by kernel over one run (a packed beam search, a train
-    step) under torch.profiler, and the device's busy share: of that run's
-    host time (inflated by the profiler's own host overhead) and of the
-    median unprofiled run; the device ms and calls of the dequant-matmul
-    kernels and of the fused generator's. ``focus``: a kernel-name substring
-    whose share of the device time is reported too."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
-        key=lambda r: -r[1],
-    )
-    device_ms = sum(ms for _, ms, _ in kernels)
-    out = {
-        "phase": phase, "wall_ms": wall * 1e3, "device_ms": device_ms,
-        "device_busy_share": device_ms / (wall * 1e3),
-        "device_busy_share_of_median_run": device_ms / (median_s * 1e3),
-        "top": [{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels[:12]],
-    }
+    step) under torch.profiler (``utils.search_profile.device_profile``),
+    the kernels launched, and the device's busy share: of that run's host
+    time (inflated by the profiler's own host overhead) and of the median
+    unprofiled run; the device ms and calls of the dequant-matmul kernels
+    and of the fused generator's; ``span_ms``, CUDA events around one call.
+    Where the profiler traces no kernel (a graph replay it cannot see), the
+    device time is that span and the split by kernel is the eager run's, as
+    the line says. ``focus``: a kernel-name substring whose share of the
+    device time is reported too. Returns the printed line."""
+    prof = device_profile(run, median_s)
+    kernels = prof.pop("by_kernel")
+    out = {"phase": phase, **prof, "span_ms": span_ms(run),
+           "profiler_traced_kernels": bool(kernels)}
+    if not kernels:
+        out["device_ms"] = out["span_ms"]
+        out["device_busy_share"] = out["span_ms"] / prof["wall_ms"]
+        out["device_busy_share_of_median_run"] = out["span_ms"] / (median_s * 1e3)
+        out["kernels"] = None
+        out["note"] = ("the profiler traced no kernel of this run: device_ms is the CUDA-event "
+                       "span of one call; the split by kernel is the eager run's")
+    out["top"] = [{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels[:12]]
     for family, key in (("dequant_matmul", "dequant_matmul"), ("generator", "topk_"),
-                        ("generator_merge", "topk_merge")):
+                        ("generator_merge", "topk_merge"), ("beam_advance", "beam_advance")):
         out[f"{family}_device_ms"] = sum(ms for k, ms, _ in kernels if key in k)
         out[f"{family}_calls"] = sum(n for k, _, n in kernels if key in k)
     if focus:
         focus_ms = sum(ms for k, ms, _ in kernels if focus in k)
-        out.update(focus=focus, focus_ms=focus_ms, focus_share=focus_ms / max(device_ms, 1e-9))
+        out.update(focus=focus, focus_ms=focus_ms, focus_share=focus_ms / max(out["device_ms"], 1e-9))
     emit(out)
+    return out
 
 
 def quantizable_buckets(params, spec: QuantSpec) -> torch.Tensor:
@@ -1044,19 +1153,25 @@ def phase_codebook_path(checks, args, model, params, points, smi, uniform) -> di
                             compute_dtype=cd, generator_group=group, device=device)
 
     dec = deploy("exact")
-    zero_counts()
-    toks, scores = beam_search_packed(model, dec, src, src_len, cfg, device=dev)
-    launches = read_counts()
     want = expected(dequant_matmul_lut=3 * steps, dequant_matmul_topk_lut=steps,
-                    beam_combine_topk=steps)
-    checks.require(launches == want, f"codebook path launches {launches}, expected {want}")
+                    beam_advance=steps)
+    for call in ("capture", "replay"):  # the first call captures the graph, then replays it
+        zero_counts()
+        toks, scores = beam_search_packed(model, dec, src, src_len, cfg, device=dev)
+        launches = read_counts()
+        checks.require(launches == want,
+                       f"codebook path launches ({call}) {launches}, expected {want}")
     checks.require(tuple(toks.shape) == (args.batch, steps), f"tokens shape {tuple(toks.shape)}")
     checks.require(bool(torch.isfinite(scores).all()), "codebook path scores not finite")
     checks.require(bool(((toks >= 0) & (toks < args.vocab)).all()), "token ids out of range")
 
     ns = args.cpu_sentences
-    g_toks, g_scores = beam_search_packed(model, deploy("exact", torch.float32), src[:ns],
-                                          src_len[:ns], cfg, device=dev)
+    dec32 = deploy("exact", torch.float32)
+    g_toks, g_scores = beam_search_packed(model, dec32, src[:ns], src_len[:ns], cfg, device=dev)
+    e_toks, e_scores = beam_search_packed(model, dec32, src[:ns], src_len[:ns], cfg, device=dev,
+                                          _eager=True)
+    graph_eq = torch.equal(g_toks, e_toks) and torch.equal(g_scores, e_scores)
+    checks.require(graph_eq, "codebook f32 graphed search differs from the eager loop on the card")
     cpu_model = make_seq2seq(args.preset, args.vocab, args.vocab, device="cpu", seed=args.seed)
     c_toks, c_scores = beam_search_packed(cpu_model, deploy("exact", torch.float32, "cpu"),
                                           src[:ns], src_len[:ns], cfg, device="cpu")
@@ -1068,18 +1183,14 @@ def phase_codebook_path(checks, args, model, params, points, smi, uniform) -> di
     zero_counts()
     beam_search_packed(model, rq, src, src_len, cfg, device=dev)
     rq_launches = read_counts()
-    rq_want = expected(dequant_matmul=3 * steps, dequant_matmul_topk=steps, beam_combine_topk=steps)
+    rq_want = expected(dequant_matmul=3 * steps, dequant_matmul_topk=steps, beam_advance=steps)
     checks.require(rq_launches == rq_want, f"requant8 launches {rq_launches}, expected {rq_want}")
     uni = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.bfloat16,
                        generator_group=group, device=dev)
 
-    legs = {"exact": dec, "requant8": rq, "uniform": uni}
-    times = {k: [] for k in legs}
-    for i in range(args.reps):  # in turns, so drift on the host hits every leg alike
-        order = list(legs) if i % 2 == 0 else list(legs)[::-1]
-        for k in order:
-            times[k] += timed_runs(
-                lambda: beam_search_packed(model, legs[k], src, src_len, cfg, device=dev), 1)
+    legs = {name: (lambda d=d: beam_search_packed(model, d, src, src_len, cfg, device=dev))
+            for name, d in (("exact", dec), ("requant8", rq), ("uniform", uni))}
+    times = searches_in_turns(legs, args.reps)
     ntok = args.batch * steps
     med = {k: statistics.median(v) for k, v in times.items()}
     emit({
@@ -1088,7 +1199,8 @@ def phase_codebook_path(checks, args, model, params, points, smi, uniform) -> di
         "points": "generator/kernel codebook of the codebook_train phase",
         "generator_group": group, "generator_padded": dec.generator.n_padded,
         "launches": launches, "requant8_launches": rq_launches,
-        "f32_tokens_equal_cpu": tok_equal, "f32_sentences": ns,
+        "f32_graph_equals_eager": graph_eq, "f32_tokens_equal_cpu": tok_equal,
+        "f32_sentences": ns,
         "f32_score_max_abs_diff": score_err,
         "exact_bf16_tokens_per_s": ntok / med["exact"],
         "requant8_bf16_tokens_per_s": ntok / med["requant8"],

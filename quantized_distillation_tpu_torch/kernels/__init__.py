@@ -1,12 +1,20 @@
-"""Packed weight format, the three hand-written serving kernels and the
+"""Packed weight format, the hand-written serving kernels and the
 fake-quant kernel of the train step.
 
 Each kernel wrapper dispatches on its input's device: a CPU tensor runs the
 plain PyTorch version beside it, a CUDA tensor launches the CUDA kernel
-built from ``csrc/`` (see :mod:`._build`) or raises.
+built from ``csrc/`` (see :mod:`._build`) or raises. Each counts its
+launches in an attribute; :data:`LAUNCH_COUNTERS` names them all.
 """
 
-from .beam_combine import beam_combine_topk, beam_combine_topk_reference
+from typing import Dict
+
+from .beam_combine import (
+    beam_advance,
+    beam_advance_reference,
+    beam_combine_topk,
+    beam_combine_topk_reference,
+)
 from .dequant_matmul import dequant_matmul, dequant_matmul_plan, dequant_matmul_reference
 from .fake_quant import fake_quant_buckets, fake_quant_buckets_reference
 from .packed import (
@@ -25,10 +33,38 @@ from .topk_fused import (
     pick_generator_group,
 )
 
+# launch counter name → (wrapper, attribute it counts in)
+LAUNCH_COUNTERS = {
+    "dequant_matmul": (dequant_matmul, "launches"),
+    "dequant_matmul_lut": (dequant_matmul, "launches_lut"),
+    "dequant_matmul_topk": (dequant_matmul_topk, "launches"),
+    "dequant_matmul_topk_lut": (dequant_matmul_topk, "launches_lut"),
+    "beam_combine_topk": (beam_combine_topk, "launches"),
+    "beam_advance": (beam_advance, "launches"),
+    "fake_quant_buckets": (fake_quant_buckets, "launches"),
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every launch counter's value now."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in LAUNCH_COUNTERS.items()}
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    """Set the named launch counters (a replayed CUDA graph adds the
+    launches it captured this way)."""
+    for name, n in counts.items():
+        fn, attr = LAUNCH_COUNTERS[name]
+        setattr(fn, attr, n)
+
+
 __all__ = [
     "BUCKET",
     "KMAX",
+    "LAUNCH_COUNTERS",
     "PackedLinear",
+    "beam_advance",
+    "beam_advance_reference",
     "beam_combine_topk",
     "beam_combine_topk_reference",
     "bucket_group",
@@ -41,7 +77,9 @@ __all__ = [
     "dequantize_linear",
     "fake_quant_buckets",
     "fake_quant_buckets_reference",
+    "launch_counts",
     "pack_linear",
     "pick_generator_group",
     "plane_unpack",
+    "set_launch_counts",
 ]

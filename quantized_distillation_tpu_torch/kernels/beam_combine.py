@@ -1,12 +1,21 @@
-"""Beam combine: per-row top-k of [B, n <= 128] candidates plus their tokens.
+"""Beam combine and beam advance: per-sentence top-k of beam candidates.
 
 PyTorch port of the JAX package's ``kernels/beam_combine.py``.
-:func:`beam_combine_topk` returns ``(scores [B, k] f32, pos [B, k] int32,
-token [B, k] int32)``, exactly ``jax.lax.top_k(cand, k)`` (ties to the lowest
-position) plus the winners' tokens: on a CPU tensor through the plain
-version :func:`beam_combine_topk_reference`, on a CUDA tensor through the
-hand-written one-warp-per-row kernel ``csrc/beam_combine.cu`` (or raises).
-``beam_combine_topk.launches`` counts kernel launches.
+
+- :func:`beam_combine_topk`, the counterpart of the JAX public function,
+  returns ``(scores [B, k] f32, pos [B, k] int32, token [B, k] int32)``,
+  exactly ``jax.lax.top_k(cand, k)`` (ties to the lowest position) plus the
+  winners' tokens.
+- :func:`beam_advance` is the serving main path's form: one decode step's
+  whole beam advance from the fused generator's per-beam candidates (the
+  candidate scores, the per-sentence top-K in the same order, and the beam
+  core's bookkeeping), leaving the beam state advanced in place.
+
+Each runs its plain version (:func:`beam_combine_topk_reference`,
+:func:`beam_advance_reference`) on a CPU tensor and, on a CUDA tensor, its
+entry point of the hand-written one-warp-per-sentence kernel
+``csrc/beam_combine.cu`` (or raises). ``beam_combine_topk.launches`` and
+``beam_advance.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -20,9 +29,14 @@ from . import _build
 from .topk_fused import topk_sorted
 
 LANES = 128
+ADVANCE_LANES = 64  # the advance kernel's K * kc limit (2 candidates a lane)
+NEG_INF = -1e9  # a finished beam's non-EOS continuations
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # qdt_beam_combine(cand, tok, B, n, k, out_v, out_pos, out_tok, stream)
 _ARGTYPES = [_P, _P, _I, _I, _I, _P, _P, _P, _P]
+# qdt_beam_advance(vals, idx, lse, scores, finished, lengths, last_token, sym,
+#                  parent, flat_row, B, K, kc, t, eos, pad, stream)
+_ADVANCE_ARGTYPES = [_P] * 10 + [_I] * 6 + [_P]
 
 
 def beam_combine_topk_reference(
@@ -70,3 +84,126 @@ def beam_combine_topk(
 
 
 beam_combine_topk.launches = 0
+
+
+def record_step(
+    scores, finished, lengths, last_token, sym, parent, new_scores, parent_beam, token,
+    t: int, *, eos_id: int, pad_id: int,
+) -> torch.Tensor:
+    """The beam core's bookkeeping after a step's top-K, in place: each new
+    beam ``j`` of a sentence extends beam ``parent_beam[:, j]`` with
+    ``token[:, j]`` (both [B, K] int64) at score ``new_scores``. Takes
+    ``finished`` and ``lengths`` by parent, writes row ``t`` of the
+    ``sym`` / ``parent`` histories (PAD where the parent had finished),
+    tracks EOS and lengths, and stores the new scores and last tokens.
+    Returns the flat row ``b * K + parent`` [B*K] int64 each new beam reads
+    its decoder state from."""
+    b, k = scores.shape
+    fin = torch.gather(finished, 1, parent_beam)
+    lens = torch.gather(lengths, 1, parent_beam)
+    sym[t] = torch.where(fin, torch.full_like(token, pad_id), token).reshape(-1).to(sym.dtype)
+    parent[t] = parent_beam.reshape(-1).to(parent.dtype)
+    is_eos = token == eos_id
+    lengths.copy_(lens + (~(fin | is_eos)).to(torch.int32))
+    finished.copy_(fin | is_eos)
+    scores.copy_(new_scores)
+    last_token.copy_(token)
+    base = torch.arange(b, device=scores.device)[:, None] * k
+    return (base + parent_beam).reshape(-1)
+
+
+def beam_advance_reference(
+    vals, idx, lse, scores, finished, lengths, last_token, sym, parent, t: int, *,
+    eos_id: int, pad_id: int,
+) -> torch.Tensor:
+    """Plain version of :func:`beam_advance`: the candidate scores as the
+    JAX package's ``step_beams_cand`` builds them, the combine's plain
+    version, then :func:`record_step`."""
+    b, k = scores.shape
+    kc = vals.shape[-1]
+    logp = (vals - lse).reshape(b, k, kc)
+    cand_tok = idx.reshape(b, k, kc).to(torch.int32)
+    # finished beams: a single EOS continuation at zero added score
+    fin_logp = torch.full((kc,), NEG_INF, dtype=torch.float32, device=logp.device)
+    fin_logp.narrow(0, 0, 1).fill_(0.0)  # `fin_logp[0] = 0.0` copies from the host: a sync
+    fin = finished[..., None]
+    logp = torch.where(fin, fin_logp, logp)
+    cand_tok = torch.where(fin, torch.full_like(cand_tok, eos_id), cand_tok)
+    cand = scores[..., None] + logp
+    new_scores, pos, token = beam_combine_topk_reference(
+        cand.reshape(b, k * kc), cand_tok.reshape(b, k * kc), k
+    )
+    return record_step(
+        scores, finished, lengths, last_token, sym, parent, new_scores,
+        pos.to(torch.int64) // kc, token.to(torch.int64), t, eos_id=eos_id, pad_id=pad_id,
+    )
+
+
+def beam_advance(
+    vals: torch.Tensor,
+    idx: torch.Tensor,
+    lse: torch.Tensor,
+    scores: torch.Tensor,
+    finished: torch.Tensor,
+    lengths: torch.Tensor,
+    last_token: torch.Tensor,
+    sym: torch.Tensor,
+    parent: torch.Tensor,
+    t: int,
+    *,
+    eos_id: int,
+    pad_id: int,
+) -> torch.Tensor:
+    """One decode step's beam advance from per-beam candidates ``vals``,
+    ``idx`` [B*K, kc] (f32, int32) and ``lse`` [B*K, 1] f32, in place:
+    ``scores`` [B, K] f32, ``finished`` bool, ``lengths`` int32 and
+    ``last_token`` int64 become the new beams', row ``t`` of ``sym`` [T,
+    B*K] int32 and ``parent`` [T, B*K] int8 holds this step's symbols and
+    backpointers. Returns the flat row ``b * K + parent`` [B*K] int64 each
+    new beam reads its decoder state from. Exactly the JAX package's
+    ``step_beams_cand`` tail (``lax.top_k`` tie order)."""
+    b, k = scores.shape
+    kc = vals.shape[-1]
+    rows = b * k
+    if vals.shape != (rows, kc) or idx.shape != (rows, kc) or lse.shape != (rows, 1):
+        raise ValueError(f"candidates {tuple(vals.shape)}, {tuple(idx.shape)}, lse "
+                         f"{tuple(lse.shape)} do not match {b} x {k} beams")
+    state = (finished, lengths, last_token)
+    if any(x.shape != (b, k) for x in state):
+        raise ValueError("scores, finished, lengths and last_token must all be [B, K]")
+    if sym.shape != parent.shape or sym.dim() != 2 or sym.shape[1] != rows:
+        raise ValueError(f"histories {tuple(sym.shape)}, {tuple(parent.shape)} vs {rows} rows")
+    if not 0 <= t < sym.shape[0]:
+        raise ValueError(f"step {t} outside the history's {sym.shape[0]} rows")
+    if vals.device.type == "cpu":
+        return beam_advance_reference(vals, idx, lse, scores, finished, lengths, last_token,
+                                      sym, parent, t, eos_id=eos_id, pad_id=pad_id)
+    if vals.device.type != "cuda":
+        raise ValueError(f"unsupported device {vals.device}")
+    if not (1 <= k <= 32 and k * kc <= ADVANCE_LANES):
+        raise ValueError(f"the advance kernel takes K <= 32 and K * kc <= {ADVANCE_LANES}, "
+                         f"got K={k}, kc={kc}")
+    dtypes = ((vals, torch.float32), (idx, torch.int32), (lse, torch.float32),
+              (scores, torch.float32), (finished, torch.bool), (lengths, torch.int32),
+              (last_token, torch.int64), (sym, torch.int32), (parent, torch.int8))
+    for x, dt in dtypes:
+        if x.dtype != dt:
+            raise ValueError(f"beam_advance operand of dtype {x.dtype}, expected {dt}")
+        if x.device != vals.device:
+            raise ValueError(f"operands on {x.device} and {vals.device}")
+        if not x.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+    flat_row = torch.empty(rows, dtype=torch.int64, device=vals.device)
+    fn = _build.function("beam_combine", "qdt_beam_advance", _ADVANCE_ARGTYPES)
+    ptr = _build.ptr
+    _build.check(
+        fn(ptr(vals), ptr(idx), ptr(lse), ptr(scores), ptr(finished), ptr(lengths),
+           ptr(last_token), ptr(sym), ptr(parent), ptr(flat_row), b, k, kc, t, eos_id,
+           pad_id, _build.stream()),
+        "beam_advance",
+    )
+    beam_advance.launches += 1
+    return flat_row
+
+
+beam_advance.launches = 0

@@ -10,9 +10,15 @@ reconstructed once at finalization.
 
 Every top-k here has ``jax.lax.top_k``'s order (values descending, equal
 values by ascending index), which beam results depend on: the candidate
-path goes through the combine kernel, the logits path through a stable
-descending sort. The coverage penalty and per-hypothesis attention are not
-ported yet.
+path goes through the beam-advance kernel, the logits path through a
+stable descending sort. A step advances the beam state in place (the
+histories gain row ``t``; scores, flags, lengths and last tokens are
+overwritten), where the JAX package returns a new state.
+
+On the card a search runs as one captured CUDA graph (encode, every step,
+finalization), the counterpart of the JAX package's ``lax.scan`` under
+``jit``; see :mod:`..utils.graphs`. The coverage penalty and
+per-hypothesis attention are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,14 +30,16 @@ import torch
 
 from .._device import resolve_device
 from ..config import BeamConfig
-from ..kernels.beam_combine import beam_combine_topk
+from ..kernels.beam_combine import NEG_INF, beam_advance, record_step
 from ..kernels.topk_fused import topk_sorted
+from ..utils.graphs import GraphCache, signature
 
 # Token ids of the JAX package's data/translation.py vocabulary.
 PAD, BOS, EOS, UNK = 0, 1, 2, 3
 
-NEG_INF = -1e9
 PARENT_DTYPE = torch.int8
+# captured searches on the card (beam_search and infer.beam_search_packed)
+SEARCH_GRAPHS = GraphCache()
 
 
 class BeamState(NamedTuple):
@@ -97,11 +105,10 @@ def reconstruct_tokens(sym: torch.Tensor, parent: torch.Tensor, beam_size: int) 
     return torch.stack(toks[::-1], dim=2)
 
 
-def _gather_beams(tree, parent: torch.Tensor, batch: int, k: int):
-    """Reorder a [B*K, ...] state tree by per-sentence parent beams [B, K]."""
-    base = torch.arange(batch, device=parent.device)[:, None] * k
-    flat_idx = (base + parent).reshape(-1)
-    return tree_map(lambda t: t.index_select(0, flat_idx), tree)
+def _gather_rows(tree, flat_row: torch.Tensor):
+    """Reorder a [B*K, ...] state tree: new row ``i`` is old row
+    ``flat_row[i]``."""
+    return tree_map(lambda t: t.index_select(0, flat_row), tree)
 
 
 def length_penalty(lengths: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -111,48 +118,27 @@ def length_penalty(lengths: torch.Tensor, alpha: float) -> torch.Tensor:
     return torch.pow((5.0 + lengths.to(torch.float32)) / 6.0, alpha)
 
 
-def _advance(
-    state: BeamState, new_dec, new_scores, parent, token, t: int, *,
-    eos_id: int, pad_id: int,
-) -> BeamState:
-    """Shared beam-advance tail: reorder by parent, record the step's symbol
-    and backpointer in row ``t``, track EOS and lengths."""
-    b, k = state.scores.shape
-    new_dec = _gather_beams(new_dec, parent, b, k)
-    finished = torch.gather(state.finished, 1, parent)
-    lengths = torch.gather(state.lengths, 1, parent)
-    emit = torch.where(finished, torch.full_like(token, pad_id), token)
-    sym = state.sym.clone()
-    sym[t] = emit.reshape(-1).to(torch.int32)
-    par = state.parent.clone()
-    par[t] = parent.reshape(-1).to(PARENT_DTYPE)
-    is_eos = token == eos_id
-    lengths = lengths + (~(finished | is_eos)).to(torch.int32)
-    return BeamState(
-        decoder_state=new_dec, sym=sym, parent=par, last_token=token,
-        scores=new_scores, finished=finished | is_eos, lengths=lengths,
-    )
-
-
 def step_beams(
     decode_step: Callable, state: BeamState, t: int, *,
     beam_size: int, eos_id: int = EOS, pad_id: int = PAD,
 ) -> BeamState:
-    """Advance every sentence's beams one step from full logits.
+    """Advance every sentence's beams one step from full logits, in place
+    (see the module docstring).
     ``decode_step(state [B*K,...], tokens [B*K]) -> (state, logits [B*K, V])``."""
     b, k = state.scores.shape
     new_dec, logits = decode_step(state.decoder_state, state.last_token.reshape(-1))
     v = logits.shape[-1]
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1).reshape(b, k, v)
     eos_row = torch.full((v,), NEG_INF, dtype=torch.float32, device=logp.device)
-    eos_row[eos_id] = 0.0
+    eos_row.narrow(0, eos_id, 1).fill_(0.0)  # `eos_row[eos_id] = 0.0` would sync (a host copy)
     logp = torch.where(state.finished[..., None], eos_row, logp)
     cand = state.scores[..., None] + logp
     new_scores, flat_idx = topk_sorted(cand.reshape(b, k * v), beam_size)
-    return _advance(
-        state, new_dec, new_scores, flat_idx // v, flat_idx % v, t,
-        eos_id=eos_id, pad_id=pad_id,
+    flat_row = record_step(
+        state.scores, state.finished, state.lengths, state.last_token, state.sym,
+        state.parent, new_scores, flat_idx // v, flat_idx % v, t, eos_id=eos_id, pad_id=pad_id,
     )
+    return state._replace(decoder_state=_gather_rows(new_dec, flat_row))
 
 
 def step_beams_cand(
@@ -161,28 +147,18 @@ def step_beams_cand(
 ) -> BeamState:
     """Beam advance from per-beam top-k candidates
     ``decode_cand(state, tokens [B*K]) -> (state, (vals [B*K, kc],
-    idx [B*K, kc], lse [B*K, 1]))`` (the fused generator's contract). The
-    per-sentence top-k over the [B, K*kc] candidates is the combine kernel.
-    Equivalent to :func:`step_beams` whenever kc >= beam_size."""
-    b, k = state.scores.shape
+    idx [B*K, kc], lse [B*K, 1]))`` (the fused generator's contract), in
+    place (see the module docstring). Candidate scores, the per-sentence
+    top-k over the [B, K*kc] candidates and the bookkeeping are one launch
+    of the beam-advance kernel on the card (its plain version on the CPU);
+    then the decoder state is reordered. Equivalent to :func:`step_beams`
+    whenever kc >= beam_size."""
     new_dec, (vals, idx, lse) = decode_cand(state.decoder_state, state.last_token.reshape(-1))
-    kc = vals.shape[-1]
-    logp = (vals - lse).reshape(b, k, kc)
-    cand_tok = idx.reshape(b, k, kc).to(torch.int32)
-    # finished beams: a single EOS continuation at zero added score
-    fin_logp = torch.full((kc,), NEG_INF, dtype=torch.float32, device=logp.device)
-    fin_logp[0] = 0.0
-    fin = state.finished[..., None]
-    logp = torch.where(fin, fin_logp, logp)
-    cand_tok = torch.where(fin, torch.full_like(cand_tok, eos_id), cand_tok)
-    cand = state.scores[..., None] + logp
-    new_scores, pos, token = beam_combine_topk(
-        cand.reshape(b, k * kc), cand_tok.reshape(b, k * kc), beam_size
+    flat_row = beam_advance(
+        vals, idx, lse, state.scores, state.finished, state.lengths, state.last_token,
+        state.sym, state.parent, t, eos_id=eos_id, pad_id=pad_id,
     )
-    return _advance(
-        state, new_dec, new_scores, pos.to(torch.int64) // kc, token.to(torch.int64), t,
-        eos_id=eos_id, pad_id=pad_id,
-    )
+    return state._replace(decoder_state=_gather_rows(new_dec, flat_row))
 
 
 def expand_to_beams(tree, beam_size: int):
@@ -243,6 +219,17 @@ def beam_decode(
     return tokens[rows[:, None], order], top_scores
 
 
+def run_search(search: Callable, inputs, dev: torch.device, eager: bool, key):
+    """``search(*inputs)`` with the inputs moved to ``dev``: called as it is
+    on the CPU or when ``eager``, else replayed from the CUDA graph cached
+    under ``key`` (captured at the first call; ``key`` must name everything
+    besides the inputs' shapes that fixes the search's work)."""
+    inputs = tuple(x.to(dev) for x in inputs)
+    if dev.type == "cpu" or eager:
+        return search(*inputs)
+    return SEARCH_GRAPHS.run(key, search, inputs)
+
+
 def beam_search(
     model,
     src: torch.Tensor,
@@ -254,25 +241,32 @@ def beam_search(
     eos_id: int = EOS,
     pad_id: int = PAD,
     return_attention: bool = False,
+    _eager: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Translate a batch with the dense model: → (best tokens [B, max_len],
     best scores [B]) (or the n-best lists). ``model`` and the work live on
-    ``device``."""
+    ``device``. On the card the search runs as one CUDA graph, captured at
+    the first call for this model, batch, source length and config
+    (``_eager=True``: the eager step loop, for comparisons)."""
     _check_cfg(cfg, return_attention)
     dev = resolve_device(device)
     if model.device != dev:
         raise ValueError(f"model is on {model.device}, not {dev}")
-    src, src_len = src.to(dev), src_len.to(dev)
-    b, k = src.shape[0], cfg.beam_size
-    with torch.no_grad():
-        enc_out, enc_mask, dec_state = model.encode(src, src_len)
-        enc_out_b = enc_out.repeat_interleave(k, dim=0)
-        enc_mask_b = enc_mask.repeat_interleave(k, dim=0)
+    k = cfg.beam_size
 
-        def decode_step(state, tokens):
-            return model.decode_step(state, tokens, enc_out_b, enc_mask_b)
+    def search(src, src_len):
+        with torch.no_grad():
+            enc_out, enc_mask, dec_state = model.encode(src, src_len)
+            enc_out_b = enc_out.repeat_interleave(k, dim=0)
+            enc_mask_b = enc_mask.repeat_interleave(k, dim=0)
 
-        return beam_decode(
-            decode_step, expand_to_beams(dec_state, k), b, cfg,
-            bos_id=bos_id, eos_id=eos_id, pad_id=pad_id,
-        )
+            def decode_step(state, tokens):
+                return model.decode_step(state, tokens, enc_out_b, enc_mask_b)
+
+            return beam_decode(
+                decode_step, expand_to_beams(dec_state, k), src.shape[0], cfg,
+                bos_id=bos_id, eos_id=eos_id, pad_id=pad_id,
+            )
+
+    key = ("beam_search", signature(model), cfg, bos_id, eos_id, pad_id)
+    return run_search(search, (src, src_len), dev, _eager, key)

@@ -8,7 +8,9 @@ the dense encoder and precomputes the attention keys, and
 Per decode step the path launches the dequant-matmul kernel once per LSTM
 layer (the four gates of input and recurrent weights fused into one
 [E_in + H, 4H] matrix) and once for the attention output, the fused
-generator kernel once, and the beam-combine kernel once.
+generator kernel once, and the beam-advance kernel once. On the card the
+whole search (encode, every step, finalization) runs as one captured CUDA
+graph, cached per decoder and shape (see ``beam.run_search``).
 
 Dtype placement mirrors the JAX package: ``enc_out``, the keys, ``h`` and
 the input feed are stored in the compute dtype; the cell state ``c`` and
@@ -44,7 +46,8 @@ from ..kernels.dequant_matmul import dequant_matmul
 from ..kernels.packed import PackedLinear, pack_linear
 from ..kernels.topk_fused import KMAX, dequant_matmul_topk
 from ..models.seq2seq import DecoderState, Seq2SeqConfig
-from .beam import _check_cfg, beam_decode, expand_to_beams
+from ..utils.graphs import signature
+from .beam import _check_cfg, beam_decode, expand_to_beams, run_search
 from .sharded import pack_generator_sharded
 
 
@@ -258,34 +261,42 @@ def beam_search_packed(
     fused_topk: Optional[bool] = None,
     return_attention: bool = False,
     device="cuda",
+    _eager: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Beam search on the packed decoder (the serving entry point) →
     ``(tokens [B, max_len], scores [B])`` or the n-best lists.
 
     ``fused_topk`` (default: on when ``beam_size <= 8``) feeds the beam core
-    from the fused generator kernel's per-beam candidates and combines them
-    with the beam-combine kernel; off, it takes full logits from the
-    dequant-matmul kernel."""
+    from the fused generator kernel's per-beam candidates and advances the
+    beams with the beam-advance kernel; off, it takes full logits from the
+    dequant-matmul kernel. On the card the search runs as one CUDA graph,
+    captured at the first call for this model, decoder, batch, source
+    length and config (``_eager=True``: the eager step loop, for
+    comparisons)."""
     _check_cfg(cfg, return_attention)
     dev = resolve_device(device)
     if model.device != dev or dec.device != dev:
         raise ValueError(f"model on {model.device} and decoder on {dec.device}, not {dev}")
-    src, src_len = src.to(dev), src_len.to(dev)
-    b, k = src.shape[0], cfg.beam_size
+    k = cfg.beam_size
     if fused_topk is None:
         fused_topk = k <= KMAX
-    with torch.no_grad():
-        # encoder tensors stay per sentence; _decode_body folds the beams
-        keys, enc_out, enc_mask, state = encode_packed(model, dec, src, src_len)
-        state_b = expand_to_beams(state, k)
-        if fused_topk:
 
-            def decode_cand(s, tokens):
-                return packed_decode_step_topk(dec, s, tokens, keys, enc_out, enc_mask, k)
+    def search(src, src_len):
+        with torch.no_grad():
+            # encoder tensors stay per sentence; _decode_body folds the beams
+            keys, enc_out, enc_mask, state = encode_packed(model, dec, src, src_len)
+            state_b = expand_to_beams(state, k)
+            if fused_topk:
 
-            return beam_decode(decode_cand, state_b, b, cfg, candidates=True)
+                def decode_cand(s, tokens):
+                    return packed_decode_step_topk(dec, s, tokens, keys, enc_out, enc_mask, k)
 
-        def decode_step(s, tokens):
-            return packed_decode_step(dec, s, tokens, keys, enc_out, enc_mask)
+                return beam_decode(decode_cand, state_b, src.shape[0], cfg, candidates=True)
 
-        return beam_decode(decode_step, state_b, b, cfg)
+            def decode_step(s, tokens):
+                return packed_decode_step(dec, s, tokens, keys, enc_out, enc_mask)
+
+            return beam_decode(decode_step, state_b, src.shape[0], cfg)
+
+    key = ("beam_search_packed", signature(model), signature(dec), cfg, fused_topk)
+    return run_search(search, (src, src_len), dev, _eager, key)
