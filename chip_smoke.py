@@ -23,7 +23,8 @@ Phases, each printing one JSON line:
    bf16 compute as for f32; the standalone beam combine and the beam
    advance bit-exact, the advance also at K in {1, 3, 5, 8}, kc = K and kc
    > K, t first and last, with finished beams, EOS winners, ties and
-   NEG_INF blocks), and times kernel, plain
+   NEG_INF blocks, and in the engine's form: the ring row read from device
+   memory, some, no or all sentences active), and times kernel, plain
    version and a one-call PyTorch yardstick on the device: CUDA events
    around a CUDA graph of back-to-back calls, so the host's time to issue
    each call is left out (dequant-matmul and the generator also report
@@ -80,7 +81,27 @@ Phases, each printing one JSON line:
    loop's on the card and the tokens to the CPU plain path on 16
    sentences; a ``lut_mode="requant8"`` deploy that must launch only the
    uniform kernels; tokens/s of the exact, requant8 and uniform deploys in
-   turns; and a profile of the exact deploy.
+   turns; and a profile of the exact deploy;
+12. engine: the continuous-batching ``TranslationEngine`` at ``bench.py
+   --engine``'s shape (student_medium, V=32000, S=256 slots x beam 5,
+   source length 24, admit_batch 16; phase 4's bf16 decoder): f32 parity,
+   32 sentences through an 8-slot engine with staggered arrivals
+   (max_tgt_len 24) against the offline graphed ``beam_search_packed`` on
+   the card, plain and with ``length_penalty=0.6, coverage_penalty=0.4``
+   (tokens equal, scores rtol 1e-5); the launches of a driven chunk of 8
+   steps (3 dequant-matmul, 1 fused top-k, 1 beam advance a step, through
+   graph replays, no standalone combine; the replays run under
+   ``set_sync_debug_mode("error")``); full occupancy at max_tgt_len 256,
+   bench.py's two-point estimate (chunks of 4 and 32 steps, 6 a drive,
+   median of ``--reps``) in turns with the offline graphed search at B=256,
+   length 24: engine tokens/s = S / t_step and ``vs_offline_same_process``;
+   a profile of one 32-step chunk (device ms a step by kernel, kernels a
+   step, busy share); churn, 3 S requests with seeded Poisson arrivals at
+   0.9 offered load (max_tgt_len 64, chunk_steps 4, busy 1, stage_ahead 2):
+   every request completes with a finite score, occupancy, steady-state
+   occupancy, idle shares and host seconds as bench.py defines them; after
+   phase 11, 16 requests through an engine on the exact-LUT deploy, which
+   must launch only the LUT kernels (3 + 1) and the advance a step.
 
 Then the kernel table as one JSON object, then the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
@@ -105,6 +126,7 @@ from quantized_distillation_tpu_torch.config import (
     BeamConfig,
     DistillSpec,
     QuantSpec,
+    ServeConfig,
     TrainConfig,
 )
 from quantized_distillation_tpu_torch.convert import flax_leaves, params_to_numpy
@@ -131,7 +153,12 @@ from quantized_distillation_tpu_torch.kernels import (
 )
 from quantized_distillation_tpu_torch.models import make_seq2seq
 from quantized_distillation_tpu_torch.ops.bucketing import to_buckets
-from quantized_distillation_tpu_torch.serve import beam_search, beam_search_packed, pack_decoder
+from quantized_distillation_tpu_torch.serve import (
+    TranslationEngine,
+    beam_search,
+    beam_search_packed,
+    pack_decoder,
+)
 from quantized_distillation_tpu_torch.serve.beam import EOS, NEG_INF, PAD
 from quantized_distillation_tpu_torch.train import (
     build_optimizer,
@@ -168,6 +195,8 @@ RAGGED = (77, 200, 700)  # M, K, N: K not a multiple of 16, N of 64
 RAGGED_TOPK_K = (200, 77)  # the generator also at K = 77: x rows off 16-byte alignment
 
 SRC = "quantized_distillation_tpu_torch/csrc/"
+ADMIT_BATCH = 16  # bench.py --engine's admission width
+ENGINE_T_MAX = 256  # bench.py --engine's max_tgt_len at full occupancy
 JAXK = "quantized_distillation_tpu/kernels/"
 def zero_counts() -> None:
     set_launch_counts({name: 0 for name in LAUNCH_COUNTERS})
@@ -617,8 +646,10 @@ def kernel_beam_advance(checks, b, k, gen) -> dict:
     output (the new beam state, the history rows, the flat parent rows): at
     the serving shape (b sentences, k beams, k candidates a beam) at the
     first and last step, and at K in {1, 3, 5, 8} with kc = K and kc > K on
-    37 sentences; timed at the serving shape against the plain version. No
-    single PyTorch call computes a beam advance: no library time."""
+    37 sentences; in the engine's form (``pos`` on the device, an
+    ``active`` mask) at the serving shape; timed at the serving shape
+    against the plain version, in both forms. No single PyTorch call
+    computes a beam advance: no library time."""
     t_max = 24
     cases = [(b, k, k, 0), (b, k, k, t_max - 1)] + [
         (37, kk, kc, t) for kk, kc in ((1, 1), (1, 3), (3, 3), (3, 5), (5, 5), (5, 8), (8, 8))
@@ -632,10 +663,23 @@ def kernel_beam_advance(checks, b, k, gen) -> dict:
         ok = torch.equal(rows, want) and all(torch.equal(x, y) for x, y in zip(mine, ref))
         exact[f"B{bb}/K{kk}/kc{kc}/t{t}"] = ok
         checks.require(ok, f"beam_advance B={bb} K={kk} kc={kc} t={t}: not bit-exact")
+    # the engine's form: the ring row in device memory and an active mask
+    for pos, share in ((0, 0.5), (t_max - 1, 0.5), (t_max - 1, 0.0), (0, 1.0)):
+        cand, state = advance_inputs(b, k, k, t_max, gen)
+        mine, ref = [x.clone() for x in state], [x.clone() for x in state]
+        eng = dict(pos=torch.tensor([pos], dtype=torch.int32, device="cuda"),
+                   active=(torch.rand(b, generator=gen) < share).cuda())
+        rows = beam_advance(*cand, *mine, eos_id=EOS, pad_id=PAD, **eng)
+        want = beam_advance_reference(*cand, *ref, eos_id=EOS, pad_id=PAD, **eng)
+        ok = torch.equal(rows, want) and all(torch.equal(x, y) for x, y in zip(mine, ref))
+        exact[f"B{b}/K{k}/kc{k}/pos{pos}/active{share}"] = ok
+        checks.require(ok, f"beam_advance engine form pos={pos} active={share}: not bit-exact")
     cand, state = advance_inputs(b, k, k, t_max, gen)
     mine, ref = [x.clone() for x in state], [x.clone() for x in state]
     ms = graph_ms(lambda: beam_advance(*cand, *mine, t_max - 1, eos_id=EOS, pad_id=PAD),
                   calls=100)
+    engine_ms = graph_ms(lambda: beam_advance(*cand, *mine, eos_id=EOS, pad_id=PAD, **eng),
+                         calls=100)
     plain = graph_ms(lambda: beam_advance_reference(*cand, *ref, t_max - 1, eos_id=EOS,
                                                      pad_id=PAD), calls=100)
     n = k * k
@@ -644,11 +688,13 @@ def kernel_beam_advance(checks, b, k, gen) -> dict:
     byt = nbytes(*cand) + 2 * nbytes(scores, finished, lengths) + nbytes(last) + b * k * (4 + 1 + 8)
     bms, by = bound(flops, byt, PEAK_F32)
     emit({"phase": "kernel", "name": "beam_advance", "B": b, "K": k, "kc": k,
-          "bit_exact": exact, "flops": flops, "bytes": byt, "ms": ms, "plain_ms": plain})
+          "bit_exact": exact, "flops": flops, "bytes": byt, "ms": ms, "plain_ms": plain,
+          "engine_form_ms": engine_ms})
     return {
         "name": "beam_advance", "route": "cuda", "source": SRC + "beam_combine.cu",
         "replaces": JAXK + "beam_combine.py:41", "max_abs_err": 0.0 if all(exact.values())
         else float("inf"), "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+        "engine_form_ms": engine_ms,
         "library_ms": None, "library": "no single PyTorch call computes a beam advance",
         "design": "one launch a decode step: candidate scores, top-K and bookkeeping, "
                   "one warp a sentence",
@@ -1213,6 +1259,234 @@ def phase_codebook_path(checks, args, model, params, points, smi, uniform) -> di
     return launches
 
 
+def engine_sentences(n: int, args, gen, min_len: int = 6):
+    """``n`` seeded source sentences of ``min_len`` to ``args.src_len`` tokens."""
+    lens = torch.randint(min_len, args.src_len + 1, (n,), generator=gen)
+    return [torch.randint(4, args.vocab, (int(ln),), generator=gen).tolist() for ln in lens]
+
+
+def serve_arrivals(eng, sents, arrival) -> dict:
+    """Submit ``sents[i]`` at the ``step()`` call ``arrival`` gives it; step
+    until every one completes → {sentence index: completion}."""
+    res, rids, call = {}, {}, 0
+    total = sum(len(v) for v in arrival.values())
+    while len(res) < total:
+        for i in arrival.get(call, []):
+            rids[eng.submit(sents[i])] = i
+        for c in eng.step():
+            res[rids[c.request_id]] = c
+        call += 1
+        if call > 10000:
+            raise RuntimeError("engine did not drain")
+    return res
+
+
+def engine_parity(checks, args, model, dec32, gen) -> dict:
+    """f32 on the card: 32 sentences through an 8-slot engine with
+    staggered arrivals (max_tgt_len 24) against the offline graphed
+    ``beam_search_packed`` on the same sentences, plain and with the
+    coverage penalty: tokens equal, scores within rtol 1e-5. A sentence that
+    differs is reported with its score gap."""
+    n, t_max = 32, 24
+    sents = engine_sentences(n, args, gen)
+    src = torch.zeros((n, args.src_len), dtype=torch.int64)
+    for i, s in enumerate(sents):
+        src[i, : len(s)] = torch.tensor(s)
+    src_len = torch.tensor([len(s) for s in sents])
+    arrival = {0: list(range(8)), 2: list(range(8, 14)), 5: list(range(14, 20)),
+               9: list(range(20, 32))}
+    out = {}
+    for name, beam in (("plain", BeamConfig(beam_size=args.beam, max_len=t_max)),
+                       ("coverage", BeamConfig(beam_size=args.beam, max_len=t_max,
+                                               length_penalty=0.6, coverage_penalty=0.4))):
+        toks, scores = beam_search_packed(model, dec32, src, src_len, beam, device="cuda")
+        cfg = ServeConfig(max_slots=8, max_src_len=args.src_len, max_tgt_len=t_max, beam=beam,
+                          admit_batch=ADMIT_BATCH, chunk_steps=4)
+        res = serve_arrivals(TranslationEngine(model, cfg, dec32, device="cuda"), sents,
+                             arrival)
+        differ = []
+        worst = 0.0
+        for i in range(n):
+            want_t, want_s = toks[i].cpu().numpy(), float(scores[i])
+            rel = abs(res[i].score - want_s) / max(abs(want_s), 1e-30)
+            worst = max(worst, rel)
+            if not (res[i].tokens == want_t).all() or rel > 1e-5:
+                differ.append({"sentence": i, "engine_score": res[i].score,
+                               "offline_score": want_s, "score_gap": res[i].score - want_s,
+                               "tokens_equal": bool((res[i].tokens == want_t).all())})
+        checks.require(not differ, f"engine f32 ({name}) differs from the offline search: "
+                                   f"{differ[:3]}")
+        out[name] = {"sentences": n, "differing": differ, "score_max_rel_diff": worst}
+    return out
+
+
+def phase_engine(checks, args, model, params, dec, smi) -> dict:
+    """The continuous-batching engine at ``bench.py --engine``'s shape (see
+    the module docstring, phase 12). Returns the launches of one driven
+    chunk, by counter."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(args.seed + 5)
+    s_slots, k = args.batch, args.beam
+    group = pick_generator_group(s_slots * k)
+    dec32 = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.float32,
+                         generator_group=group, device=dev)
+    parity = engine_parity(checks, args, model, dec32, gen)
+    del dec32
+
+    # full occupancy: every slot live, max_tgt_len 256, two-point estimate
+    t_big = ENGINE_T_MAX
+    cfg = ServeConfig(max_slots=s_slots, max_src_len=args.src_len, max_tgt_len=t_big,
+                      beam=BeamConfig(beam_size=k, max_len=t_big),
+                      admit_batch=ADMIT_BATCH, chunk_steps=4)
+    eng = TranslationEngine(model, cfg, dec, device=dev)
+    sents = [torch.randint(4, args.vocab, (args.src_len,), generator=gen).tolist()
+             for _ in range(s_slots)]
+    for s in sents:
+        eng.submit(s)
+    eng.step()  # admits every slot
+    checks.require(eng.active_slots == s_slots, f"engine admitted {eng.active_slots} slots")
+    n_launch = 8
+    zero_counts()
+    eng.drive_chunks(1, chunk_steps=n_launch)  # replays run under sync-debug "error"
+    launches = read_counts()
+    want = expected(dequant_matmul=3 * n_launch, dequant_matmul_topk=n_launch,
+                    beam_advance=n_launch)
+    checks.require(launches == want, f"engine chunk launches {launches}, expected {want}")
+
+    lo, hi, iters = 4, 32, 6
+    src = torch.tensor(sents, dtype=torch.int64)
+    src_len = torch.full((s_slots,), args.src_len, dtype=torch.int64)
+    ocfg = BeamConfig(beam_size=k, max_len=args.src_len)
+    legs = {
+        f"engine_{lo}": lambda: eng.drive_chunks(iters, chunk_steps=lo),
+        f"engine_{hi}": lambda: eng.drive_chunks(iters, chunk_steps=hi),
+        "offline": lambda: beam_search_packed(model, dec, src, src_len, ocfg, device=dev),
+    }
+    times = searches_in_turns(legs, args.reps)
+    med = {name: statistics.median(t) for name, t in times.items()}
+    t_step = max((med[f"engine_{hi}"] - med[f"engine_{lo}"]) / (iters * (hi - lo)), 1e-12)
+    engine_tok_s = s_slots / t_step
+    offline_tok_s = s_slots * args.src_len / med["offline"]
+    prof = device_profile(lambda: eng.drive_chunks(1, chunk_steps=32), None)
+    kernels = prof.pop("by_kernel")
+    per_step = {name[:90]: ms / 32 for name, ms, _ in kernels[:12]}
+    for family, key in (("dequant_matmul", "dequant_matmul"), ("generator", "topk_"),
+                        ("beam_advance", "beam_advance")):
+        per_step[f"{family}_family"] = sum(ms for n_, ms, _ in kernels if key in n_) / 32
+    emit({"phase": "engine_profile", "steps": 32, "device_ms": prof["device_ms"],
+          "device_ms_per_step": prof["device_ms"] / 32, "kernels_per_step": prof["kernels"] / 32,
+          "wall_ms": prof["wall_ms"], "device_busy_share": prof["device_busy_share"],
+          "ms_per_step_by_kernel": per_step, "profiler_traced_kernels": bool(kernels),
+          "card": smi})
+
+    churn = engine_churn(checks, args, model, dec)
+    emit({
+        "phase": "engine", "preset": args.preset, "vocab": args.vocab, "slots": s_slots,
+        "beam": k, "src_len": args.src_len, "admit_batch": ADMIT_BATCH, "bits": args.bits,
+        "f32_parity": parity, "launches_per_chunk": {"steps": n_launch, **launches},
+        "chunk_sync_free": True,  # the replays ran under sync-debug "error"
+        "max_tgt_len": t_big, "two_point": {"lo": lo, "hi": hi, "iters": iters},
+        "seconds": times, "t_step_ms": t_step * 1e3,
+        "engine_tokens_per_s": engine_tok_s, "offline_tokens_per_s": offline_tok_s,
+        "vs_offline_same_process": engine_tok_s / offline_tok_s,
+        "churn": churn, "card": smi,
+    })
+    return launches
+
+
+def engine_churn(checks, args, model, dec) -> dict:
+    """``bench.py --engine``'s churn: 3 S requests, seeded Poisson arrivals
+    at 0.9 offered load, max_tgt_len 64, chunk_steps 4 (1 while requests
+    wait), stage_ahead 2. Every request must complete with a finite score.
+    Occupancy, steady-state occupancy and idle shares as bench.py defines
+    them, and the host seconds of the loop."""
+    dev = torch.device("cuda")
+    s_slots, t_churn = args.batch, 64
+    cfg = ServeConfig(max_slots=s_slots, max_src_len=args.src_len, max_tgt_len=t_churn,
+                      beam=BeamConfig(beam_size=args.beam, max_len=t_churn),
+                      admit_batch=ADMIT_BATCH, chunk_steps=4, chunk_steps_busy=1,
+                      stage_ahead=2)
+    eng = TranslationEngine(model, cfg, dec, device=dev)
+    gen = torch.Generator().manual_seed(args.seed + 6)
+    sents = [torch.randint(4, args.vocab, (args.src_len,), generator=gen).tolist()
+             for _ in range(s_slots)]
+    n_req = 3 * s_slots
+    lam = 0.9 * s_slots * cfg.chunk_steps / t_churn
+    arrivals = torch.poisson(torch.full((10 * n_req,), lam), generator=gen).long().tolist()
+    submitted = completed = it = 0
+    ss_start = ss_end = None
+    idle_queue_empty = idle_midchunk = 0
+    scores = []
+    t0 = time.perf_counter()
+    while completed < n_req:
+        if submitted < n_req:
+            for _ in range(arrivals[min(it, len(arrivals) - 1)]):
+                if submitted < n_req:
+                    eng.submit(sents[submitted % s_slots])
+                    submitted += 1
+            if submitted >= n_req and ss_end is None:
+                ss_end = (eng.steps_run, eng.tokens_emitted)
+        if eng.pending or eng.active_slots:
+            pend, act = eng.pending, eng.active_slots
+            admitted = min(pend, s_slots - act)
+            before = eng.steps_run
+            done = eng.step()
+            chunk = eng.steps_run - before
+            idle_queue_empty += (s_slots - act - admitted) * chunk
+            idle_midchunk += len(done) * max(chunk - 1, 0) // 2
+            completed += len(done)
+            scores += [c.score for c in done]
+        if completed and ss_start is None:
+            ss_start = (eng.steps_run, eng.tokens_emitted)
+        it += 1
+        if it > 100000:
+            break
+    host_s = time.perf_counter() - t0
+    checks.require(completed == n_req, f"churn: {completed} of {n_req} requests completed")
+    checks.require(all(map(math.isfinite, scores)), "churn: a score is not finite")
+    occ = eng.tokens_emitted / max(eng.steps_run * s_slots, 1)
+    ss_occ = occ
+    if ss_start and ss_end and ss_end[0] > ss_start[0]:
+        ss_occ = (ss_end[1] - ss_start[1]) / ((ss_end[0] - ss_start[0]) * s_slots)
+    denom = max(eng.steps_run * s_slots, 1)
+    return {"requests": n_req, "completed": completed, "offered_load": 0.9,
+            "arrival": "poisson", "max_tgt_len": t_churn, "chunk_steps": 4,
+            "chunk_steps_busy": 1, "stage_ahead": 2, "occupancy": occ,
+            "steady_state_occupancy": ss_occ, "steps_run": eng.steps_run,
+            "tokens_emitted": eng.tokens_emitted,
+            "idle_frac_queue_empty": idle_queue_empty / denom,
+            "idle_frac_midchunk_est": idle_midchunk / denom, "host_seconds": host_s,
+            "host_ms_per_step": host_s * 1e3 / max(eng.steps_run, 1)}
+
+
+def phase_engine_lut(checks, args, model, params, points, smi) -> dict:
+    """16 requests through an engine on the exact-LUT deploy (bf16): only
+    the LUT kernels launch, 3 dequant-matmul, 1 fused top-k and 1 advance
+    a step; finite scores."""
+    dev = torch.device("cuda")
+    group = pick_generator_group(args.batch * args.beam)
+    dec = pack_decoder(params, model.cfg, args.bits, points=points, lut_mode="exact",
+                       compute_dtype=torch.bfloat16, generator_group=group, device=dev)
+    cfg = ServeConfig(max_slots=16, max_src_len=args.src_len, max_tgt_len=args.src_len,
+                      beam=BeamConfig(beam_size=args.beam, max_len=args.src_len),
+                      admit_batch=ADMIT_BATCH, chunk_steps=4)
+    eng = TranslationEngine(model, cfg, dec, device=dev)
+    gen = torch.Generator().manual_seed(args.seed + 7)
+    for s in engine_sentences(16, args, gen):
+        eng.submit(s)
+    zero_counts()
+    res = eng.run_until_drained()
+    launches = read_counts()
+    n = eng.steps_run
+    want = expected(dequant_matmul_lut=3 * n, dequant_matmul_topk_lut=n, beam_advance=n)
+    checks.require(launches == want, f"exact-LUT engine launches {launches}, expected {want}")
+    checks.require(len(res) == 16 and all(math.isfinite(c.score) for c in res),
+                   "exact-LUT engine: a request did not complete with a finite score")
+    emit({"phase": "engine_lut", "requests": len(res), "steps_run": n, "launches": launches,
+          "card": smi})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", default="student_medium")
@@ -1244,8 +1518,10 @@ def main(argv=None) -> int:
                        generator_group=group, device="cuda")
     table = phase_kernels(checks, dec, rows, torch.Generator().manual_seed(args.seed + 2))
     launches, uniform = phase_main_path(checks, args, model, params, smi)
+    engine_launches = phase_engine(checks, args, model, params, dec, smi)
     for row in table:
         row["launches"] = launches[row["name"]]
+        row["engine_chunk_launches"] = engine_launches[row["name"]]
     del dec
     table.append(phase_train(checks, args, smi))
 
@@ -1256,8 +1532,10 @@ def main(argv=None) -> int:
     lut_rows = phase_lut_kernels(checks, dec, rows, torch.Generator().manual_seed(args.seed + 4))
     del dec
     launches = phase_codebook_path(checks, args, model, params, points, smi, uniform)
+    engine_launches = phase_engine_lut(checks, args, model, params, points, smi)
     for row in lut_rows:
         row["launches"] = launches[row["name"]]
+        row["engine_launches"] = engine_launches[row["name"]]
     table += lut_rows
     if checks.failed:
         print(f"{len(checks.failed)} check(s) failed", file=sys.stderr)

@@ -85,8 +85,11 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class ServeConfig:
-    """Continuous-batching serving engine configuration (the engine itself
-    is not ported yet; the fields mirror the JAX package)."""
+    """Configuration of the continuous-batching engine
+    (``serve.engine.TranslationEngine``): slot grid, source and target
+    lengths, beam, admission width, chunk lengths and staging depth; the
+    fields mirror the JAX package's. ``mesh`` is kept for the JAX package's
+    field list; the engine serves one device."""
 
     max_slots: int = 64
     max_src_len: int = 64

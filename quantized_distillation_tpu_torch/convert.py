@@ -17,6 +17,11 @@ are kept as flax has them:
 - ``Dense`` kernels are ``[in, out]`` (the port multiplies ``x @ kernel``);
 - an ``OptimizedLSTMCell`` holds input kernels ``ii, if, ig, io`` (no bias)
   and recurrent kernels ``hi, hf, hg, ho`` with biases, gate order i, f, g, o;
+- the encoder's cells are ``OptimizedLSTMCell_{n}`` in creation order: the
+  bidirectional encoder's layer ``i`` has its forward cell at ``2i`` and its
+  backward cell at ``2i + 1`` (flax names the cells, not the ``lstm_fw_{i}``
+  / ``lstm_bw_{i}`` RNNs around them), which is the port's
+  ``encoder.cells`` order, so one mapping serves both encoders;
 - ``embedding`` tables are ``[vocab, embed]``.
 """
 

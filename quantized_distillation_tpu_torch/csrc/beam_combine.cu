@@ -18,7 +18,14 @@
 //   the bookkeeping the plain beam core does after it: parent and token,
 //   finished and lengths gathered by parent, row t of the sym / parent
 //   histories written in place, EOS and length tracking, and the flat row
-//   b * K + parent each new beam reads its decoder state from.
+//   b * K + parent each new beam reads its decoder state from. The
+//   continuous-batching engine's form takes two more operands from device
+//   memory, so a captured CUDA graph can replay it step after step: the
+//   history row `pos` (the ring position, which advances inside the graph)
+//   in place of `t`, and an `active` flag per sentence. An inactive
+//   sentence keeps its scores, flags, lengths and last tokens as they were
+//   and gets the identity flat row; its history row holds the stepped
+//   values, which no extraction reads (the JAX engine's merge in one_step).
 //
 // What bounds them on an H100: at the serving shape (256 sentences x 5
 // beams x 5 candidates) the advance moves ~0.1 MB and does a few thousand
@@ -122,11 +129,14 @@ __global__ void __launch_bounds__(WARP * ROWS_PER_BLOCK)
                         const float* __restrict__ lse, float* scores,
                         uint8_t* finished, int* lengths, int64_t* last_token,
                         int* __restrict__ sym, int8_t* __restrict__ parent,
-                        int64_t* __restrict__ flat_row, int B, int K, int kc,
-                        int t, int eos, int pad) {
+                        int64_t* __restrict__ flat_row,
+                        const int* __restrict__ pos,
+                        const uint8_t* __restrict__ active, int B, int K,
+                        int kc, int t, int eos, int pad) {
   const int b = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / WARP;
   const int lane = threadIdx.x % WARP;
   if (b >= B) return;  // the whole warp leaves together
+  const bool stepping = active == nullptr || active[b] != 0;
   const int n = K * kc;
   const int64_t beam0 = (int64_t)b * K;
 
@@ -186,15 +196,17 @@ __global__ void __launch_bounds__(WARP * ROWS_PER_BLOCK)
   const int par_len = __shfl_sync(FULL, len, par);
   if (lane < K) {
     const int64_t row = beam0 + lane;
-    const int64_t hist = (int64_t)t * B * K + row;
+    const int64_t hist = (int64_t)(pos == nullptr ? t : *pos) * B * K + row;
     const int done = par_fin || my_tok == eos;
     sym[hist] = par_fin ? pad : my_tok;
     parent[hist] = static_cast<int8_t>(par);
-    scores[row] = my_v;
-    finished[row] = static_cast<uint8_t>(done);
-    lengths[row] = par_len + (done ? 0 : 1);
-    last_token[row] = my_tok;
-    flat_row[row] = beam0 + par;
+    if (stepping) {
+      scores[row] = my_v;
+      finished[row] = static_cast<uint8_t>(done);
+      lengths[row] = par_len + (done ? 0 : 1);
+      last_token[row] = my_tok;
+    }
+    flat_row[row] = stepping ? beam0 + par : row;
   }
 }
 
@@ -218,13 +230,16 @@ extern "C" int qdt_beam_combine(const void* cand, const void* tok, int B, int n,
 // vals: f32 [B*K, kc]; idx: int32 [B*K, kc]; lse: f32 [B*K]; in place:
 // scores f32, finished bool (one byte), lengths int32, last_token int64, all
 // [B, K]; row t of sym int32 / parent int8 [T, B*K]; out: flat_row int64
-// [B*K]. Requires 1 <= K <= 32, 1 <= K * kc <= 64, 0 <= t < T. Returns
+// [B*K]. pos: null, or int32 [1] on the device, the history row read in
+// place of t; active: null (every sentence steps), or bool (one byte) [B].
+// Requires 1 <= K <= 32, 1 <= K * kc <= 64, 0 <= t (or *pos) < T. Returns
 // cudaGetLastError() after the launch.
 extern "C" int qdt_beam_advance(const void* vals, const void* idx,
                                 const void* lse, void* scores, void* finished,
                                 void* lengths, void* last_token, void* sym,
-                                void* parent, void* flat_row, int B, int K,
-                                int kc, int t, int eos, int pad, void* stream) {
+                                void* parent, void* flat_row, const void* pos,
+                                const void* active, int B, int K, int kc,
+                                int t, int eos, int pad, void* stream) {
   using namespace qdt;
   const int blocks = (B + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
   beam_advance_kernel<<<blocks, WARP * ROWS_PER_BLOCK, 0,
@@ -233,7 +248,8 @@ extern "C" int qdt_beam_advance(const void* vals, const void* idx,
       static_cast<const float*>(lse), static_cast<float*>(scores),
       static_cast<uint8_t*>(finished), static_cast<int*>(lengths),
       static_cast<int64_t*>(last_token), static_cast<int*>(sym),
-      static_cast<int8_t*>(parent), static_cast<int64_t*>(flat_row), B, K, kc,
-      t, eos, pad);
+      static_cast<int8_t*>(parent), static_cast<int64_t*>(flat_row),
+      static_cast<const int*>(pos), static_cast<const uint8_t*>(active), B, K,
+      kc, t, eos, pad);
   return static_cast<int>(cudaGetLastError());
 }

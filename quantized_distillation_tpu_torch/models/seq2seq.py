@@ -1,8 +1,9 @@
 """OpenNMT-style LSTM seq2seq with Luong global attention + input feeding.
 
-PyTorch port of the JAX package's ``models/seq2seq.py``: an LSTM encoder, a
-stacked-LSTM decoder with Luong attention ("general" or "dot") and input
-feeding, and a linear generator. Parameters keep the flax layouts
+PyTorch port of the JAX package's ``models/seq2seq.py``: an LSTM encoder
+(optionally bidirectional), a stacked-LSTM decoder with Luong attention
+("general" or "dot") and input feeding, and a linear generator. Parameters
+keep the flax layouts
 (``[in, out]`` kernels, the fused i, f, g, o gate blocks of
 ``OptimizedLSTMCell``) so :meth:`Seq2Seq.load_params` reads a flax tree as
 it is (see :mod:`..convert`).
@@ -15,7 +16,7 @@ model on substituted, fake-quantized weights through :meth:`Seq2Seq.forward_with
 encoder layers, after each decoder LSTM layer, after the attention output):
 inverted dropout drawn from an explicit ``torch.Generator`` when
 ``train=True``, the identity otherwise. Time loops are explicit Python
-loops. The bidirectional encoder is not ported yet.
+loops.
 """
 
 from __future__ import annotations
@@ -95,37 +96,67 @@ class Encoder(nn.Module):
     """Embedding + stacked LSTM over the source. The final carry of each
     layer is the one at position ``src_len - 1``, as flax
     ``nn.RNN(seq_lengths=...)`` returns it; outputs at padded positions are
-    computed and left to the attention mask."""
+    computed and left to the attention mask.
+
+    Bidirectional: each layer runs a forward and a backward LSTM of
+    ``hidden / 2``; outputs and final carries are their concatenation. The
+    backward one runs over each sentence's own length, as flax
+    ``nn.RNN(reverse=True, keep_order=True, seq_lengths=...)`` does: the
+    valid part of the sentence reversed, then its padding reversed
+    (``flip_sequences``), with the outputs flipped back. ``cells`` holds the
+    cells in flax's creation order, so cell ``2i`` is layer ``i``'s forward
+    one and ``2i + 1`` its backward one (flax names them
+    ``OptimizedLSTMCell_{2i}`` and ``_{2i+1}``)."""
 
     def __init__(self, cfg: Seq2SeqConfig):
         super().__init__()
-        if cfg.bidirectional:
-            raise NotImplementedError("bidirectional encoder: later slice")
+        if cfg.bidirectional and cfg.hidden % 2:
+            raise ValueError("bidirectional needs even hidden size")
+        self.bidirectional = cfg.bidirectional
+        width = cfg.hidden // 2 if cfg.bidirectional else cfg.hidden
+        per_layer = 2 if cfg.bidirectional else 1
         self.embedding = nn.Parameter(torch.empty(cfg.src_vocab, cfg.embed_dim))
         self.cells = nn.ModuleList(
-            LSTMCell(cfg.embed_dim if i == 0 else cfg.hidden, cfg.hidden)
-            for i in range(cfg.num_layers)
+            LSTMCell(cfg.embed_dim if i < per_layer else cfg.hidden, width)
+            for i in range(per_layer * cfg.num_layers)
         )
-        self.hidden = cfg.hidden
+        self.width = width
         self.dropout = cfg.dropout
+
+    def _run(self, cell, x, last, rows):
+        """One LSTM over time → (outputs [B, T, width], final (c, h))."""
+        c = h = x.new_zeros((x.shape[0], self.width))
+        cs, hs = [], []
+        for step in range(x.shape[1]):
+            c, h = cell((c, h), x[:, step])
+            cs.append(c)
+            hs.append(h)
+        out = torch.stack(hs, dim=1)
+        return out, (torch.stack(cs)[last, rows], out[rows, last])
 
     def forward(self, src: torch.Tensor, src_len: torch.Tensor, *, train=False, generator=None):
         b, t = src.shape
         x = self.embedding[src]
         last = (src_len.long() - 1) % t  # flax indexes seq_len - 1 the same way
         rows = torch.arange(b, device=src.device)
+        if self.bidirectional:  # flax flip_sequences: position i reads (len - 1 - i) mod T
+            flip = (torch.arange(t - 1, -1, -1, device=src.device)[None, :]
+                    + src_len.long()[:, None]) % t
+            flip = flip[:, :, None]
         finals = []
-        for i, cell in enumerate(self.cells):
+        per_layer = 2 if self.bidirectional else 1
+        for i in range(len(self.cells) // per_layer):
             if i > 0:  # flax drops out between layers, not after the last
                 x = dropout(x, self.dropout, train, generator)
-            c = h = x.new_zeros((b, self.hidden))
-            cs, hs = [], []
-            for step in range(t):
-                c, h = cell((c, h), x[:, step])
-                cs.append(c)
-                hs.append(h)
-            x = torch.stack(hs, dim=1)
-            finals.append((torch.stack(cs)[last, rows], x[rows, last]))
+            out, (c, h) = self._run(self.cells[per_layer * i], x, last, rows)
+            if self.bidirectional:
+                idx = flip.expand(b, t, x.shape[-1])
+                bw, (cb, hb) = self._run(self.cells[2 * i + 1], torch.gather(x, 1, idx), last, rows)
+                bw = torch.gather(bw, 1, flip.expand(b, t, self.width))
+                out = torch.cat([out, bw], dim=-1)
+                c, h = torch.cat([c, cb], dim=-1), torch.cat([h, hb], dim=-1)
+            x = out
+            finals.append((c, h))
         return x, tuple(finals)
 
 
@@ -259,6 +290,13 @@ class Seq2Seq(nn.Module):
         """One serving step → (state, logits [B, V])."""
         state, (attn_h, _) = self.decoder(state, self.tgt_embed[token], enc_out, enc_mask)
         return state, self.generator(attn_h)
+
+    def decode_step_attn(self, state: DecoderState, token, enc_out, enc_mask):
+        """:meth:`decode_step` that also returns the attention alignment →
+        (state, logits [B, V], align [B, T_src]) (the coverage penalty and
+        per-hypothesis attention read it)."""
+        state, (attn_h, align) = self.decoder(state, self.tgt_embed[token], enc_out, enc_mask)
+        return state, self.generator(attn_h), align
 
     def forward(self, src, src_len, tgt_in, *, train: bool = False,
                 generator: Optional[torch.Generator] = None):

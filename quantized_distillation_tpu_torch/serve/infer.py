@@ -21,8 +21,9 @@ The TPU generator kernel's tuning knobs ``topk_slots``, ``topk_lse_shift``,
 ``topk_fold`` and ``topk_pair`` are accepted by :func:`pack_decoder` and
 ignored: the port's top-k is exact, so they have nothing to tune.
 ``generator_group`` is kept because it fixes the generator's padded width,
-and so the packed bytes. The coverage penalty and per-hypothesis attention
-are not ported yet.
+and so the packed bytes. The decode steps return the attention alignment
+too when asked (``with_align``), which the coverage penalty and
+per-hypothesis attention read.
 
 A learned-codebook deploy (``pack_decoder(points=...)``) packs every matrix
 with the codebook: ``lut_mode="exact"`` keeps each weight's point index
@@ -234,21 +235,26 @@ def _decode_body(dec: PackedDecoder, state, token, enc_keys, enc_out, enc_mask):
     return new_state, attn_h, align.reshape(rows, -1)
 
 
-def packed_decode_step(dec: PackedDecoder, state, token, enc_keys, enc_out, enc_mask):
-    """One decode step on packed weights → (state, logits [B, V_tgt])."""
-    new_state, attn_h, _ = _decode_body(dec, state, token, enc_keys, enc_out, enc_mask)
+def packed_decode_step(dec: PackedDecoder, state, token, enc_keys, enc_out, enc_mask, *,
+                       with_align: bool = False):
+    """One decode step on packed weights → (state, logits [B, V_tgt]), plus
+    ``align [B, T_src]`` with ``with_align``."""
+    new_state, attn_h, align = _decode_body(dec, state, token, enc_keys, enc_out, enc_mask)
     logits = dequant_matmul(attn_h, dec.generator, compute_dtype=dec.compute_dtype)
-    return new_state, logits[:, : dec.tgt_embed.shape[0]]
+    out = (new_state, logits[:, : dec.tgt_embed.shape[0]])
+    return out + (align,) if with_align else out
 
 
 def packed_decode_step_topk(
-    dec: PackedDecoder, state, token, enc_keys, enc_out, enc_mask, k: int
+    dec: PackedDecoder, state, token, enc_keys, enc_out, enc_mask, k: int, *,
+    with_align: bool = False,
 ):
     """Decode step returning per-row top-k candidates ``(vals, idx, lse)``
-    from the fused generator kernel (the logits never reach memory)."""
-    new_state, attn_h, _ = _decode_body(dec, state, token, enc_keys, enc_out, enc_mask)
+    from the fused generator kernel (the logits never reach memory), plus
+    ``align [B, T_src]`` with ``with_align``."""
+    new_state, attn_h, align = _decode_body(dec, state, token, enc_keys, enc_out, enc_mask)
     cand = dequant_matmul_topk(attn_h, dec.generator, k, compute_dtype=dec.compute_dtype)
-    return new_state, cand
+    return (new_state, cand, align) if with_align else (new_state, cand)
 
 
 def beam_search_packed(
@@ -262,9 +268,12 @@ def beam_search_packed(
     return_attention: bool = False,
     device="cuda",
     _eager: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, ...]:
     """Beam search on the packed decoder (the serving entry point) →
-    ``(tokens [B, max_len], scores [B])`` or the n-best lists.
+    ``(tokens [B, max_len], scores [B])`` or the n-best lists;
+    ``return_attention`` appends each hypothesis' per-step attention (see
+    ``beam.beam_decode``), and ``cfg.coverage_penalty`` scores with the
+    coverage the decode steps' alignments accrue.
 
     ``fused_topk`` (default: on when ``beam_size <= 8``) feeds the beam core
     from the fused generator kernel's per-beam candidates and advances the
@@ -273,30 +282,32 @@ def beam_search_packed(
     captured at the first call for this model, decoder, batch, source
     length and config (``_eager=True``: the eager step loop, for
     comparisons)."""
-    _check_cfg(cfg, return_attention)
+    _check_cfg(cfg)
     dev = resolve_device(device)
     if model.device != dev or dec.device != dev:
         raise ValueError(f"model on {model.device} and decoder on {dec.device}, not {dev}")
     k = cfg.beam_size
     if fused_topk is None:
         fused_topk = k <= KMAX
+    with_align = cfg.coverage_penalty != 0.0 or return_attention
 
     def search(src, src_len):
         with torch.no_grad():
             # encoder tensors stay per sentence; _decode_body folds the beams
             keys, enc_out, enc_mask, state = encode_packed(model, dec, src, src_len)
-            state_b = expand_to_beams(state, k)
-            if fused_topk:
-
-                def decode_cand(s, tokens):
-                    return packed_decode_step_topk(dec, s, tokens, keys, enc_out, enc_mask, k)
-
-                return beam_decode(decode_cand, state_b, src.shape[0], cfg, candidates=True)
+            step = packed_decode_step_topk if fused_topk else packed_decode_step
+            extra = (k,) if fused_topk else ()
 
             def decode_step(s, tokens):
-                return packed_decode_step(dec, s, tokens, keys, enc_out, enc_mask)
+                return step(dec, s, tokens, keys, enc_out, enc_mask, *extra,
+                            with_align=with_align)
 
-            return beam_decode(decode_step, state_b, src.shape[0], cfg)
+            return beam_decode(
+                decode_step, expand_to_beams(state, k), src.shape[0], cfg,
+                candidates=fused_topk, coverage_len=enc_out.shape[1],
+                return_attention=return_attention,
+            )
 
-    key = ("beam_search_packed", signature(model), signature(dec), cfg, fused_topk)
+    key = ("beam_search_packed", signature(model), signature(dec), cfg, fused_topk,
+           return_attention)
     return run_search(search, (src, src_len), dev, _eager, key)

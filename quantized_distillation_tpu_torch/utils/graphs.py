@@ -6,17 +6,22 @@ card as one graph each, so one replay launches every kernel of a search,
 and the host makes one call where it made hundreds.
 
 A :class:`CapturedCall` copies its inputs into static buffers, replays, and
-returns clones of the graph's outputs. The kernel wrappers' launch counters
+returns clones of the graph's outputs. A :class:`CapturedStep` is the
+continuous-batching engine's form: a function with no inputs or outputs
+that updates persistent buffers in place (one decode step of the slot
+grid), replayed as often as asked. The kernel wrappers' launch counters
 count Python calls, so a replay would count nothing: the capture measures
 the launches it recorded, puts the counters back as they were before the
-warm-up and the capture, and every call adds the captured launches again.
+warm-up and the capture, and every replay adds the captured launches again.
 A :class:`GraphCache` keeps a few captured calls, keyed by everything that
 fixes the captured work (see :func:`signature`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, Sequence
 
@@ -27,11 +32,14 @@ from ..kernels import launch_counts, set_launch_counts
 
 
 def _map(fn: Callable, tree):
-    """Apply ``fn`` to every tensor of a tuple tree."""
+    """Apply ``fn`` to every tensor of a tuple or dataclass tree."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, tuple):
         return tuple(_map(fn, t) for t in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(
+            tree, **{f.name: _map(fn, getattr(tree, f.name)) for f in dataclasses.fields(tree)})
     raise TypeError(f"unsupported output node {type(tree)}")
 
 
@@ -39,51 +47,93 @@ def _delta(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
     return {name: after[name] - before[name] for name in after}
 
 
-class CapturedCall:
-    """``fn(*inputs)`` (CUDA tensors in, a tuple tree of tensors out)
-    captured once as a CUDA graph.
+@contextlib.contextmanager
+def host_syncs_raise():
+    """Inside the block a host sync on the card raises
+    (``torch.cuda.set_sync_debug_mode("error")``; the mode is restored
+    after)."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
 
-    Capture: one warm-up call on a side stream, under
+
+def _capture(fn: Callable, args: Sequence[torch.Tensor] = ()):
+    """``fn(*args)`` captured as a CUDA graph → (graph, outputs, launches a
+    replay adds). One warm-up call on a side stream, under
     ``torch.cuda.set_sync_debug_mode("error")`` so that any host sync in
     ``fn`` raises (a graph cannot hold one), then ``torch.cuda.graph``. A
     failed capture raises; nothing falls back to eager calls. The warm-up
     and the capture must launch the same kernels, or the work depends on
-    more than the inputs' shapes and the capture raises too."""
+    more than the inputs' shapes and the capture raises too. The launch
+    counters end as they were before the warm-up."""
+    before = launch_counts()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with host_syncs_raise(), torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    warm = launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    # An unreachable graph that the cyclic garbage collector frees during the
+    # capture (its reset) invalidates the capture: collect first, then hold
+    # the collector off until the capture ends.
+    gc.collect()
+    gc_was_on = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            outputs = fn(*args)
+        launches = _delta(launch_counts(), warm)
+    finally:
+        if gc_was_on:
+            gc.enable()
+        set_launch_counts(before)
+    if launches != _delta(warm, before):
+        raise RuntimeError(
+            f"capture launched {launches}, its warm-up {_delta(warm, before)}: "
+            "the captured work depends on more than the inputs' shapes"
+        )
+    return graph, outputs, launches
+
+
+def _count(launches: Dict[str, int], times: int) -> None:
+    counts = launch_counts()
+    set_launch_counts({n: counts[n] + times * d for n, d in launches.items()})
+
+
+class CapturedCall:
+    """``fn(*inputs)`` (CUDA tensors in, a tuple or dataclass tree of
+    tensors out) captured once as a CUDA graph (see :func:`_capture`)."""
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor]):
         self.inputs = tuple(x.clone() for x in inputs)
-        before = launch_counts()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            with torch.cuda.stream(side):
-                fn(*self.inputs)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.current_stream().wait_stream(side)
-        warm = launch_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.outputs = fn(*self.inputs)
-            self.launches = _delta(launch_counts(), warm)
-        finally:
-            set_launch_counts(before)
-        if self.launches != _delta(warm, before):
-            raise RuntimeError(
-                f"capture launched {self.launches}, its warm-up {_delta(warm, before)}: "
-                "the captured work depends on more than the inputs' shapes"
-            )
+        self.graph, self.outputs, self.launches = _capture(fn, self.inputs)
 
     def __call__(self, *inputs: torch.Tensor):
         for static, x in zip(self.inputs, inputs):
             static.copy_(x)
         self.graph.replay()
-        counts = launch_counts()
-        set_launch_counts({n: counts[n] + d for n, d in self.launches.items()})
+        _count(self.launches, 1)
         return _map(torch.clone, self.outputs)
+
+
+class CapturedStep:
+    """``fn()``, which updates tensors that outlive it in place (inputs and
+    outputs are those tensors), captured once as a CUDA graph (see
+    :func:`_capture`; the warm-up runs ``fn`` once for real, so capture it
+    where one more call changes nothing that matters). ``replay(n)`` runs
+    it ``n`` times and adds ``n`` times its launches to the counters."""
+
+    def __init__(self, fn: Callable[[], None]):
+        self.graph, _, self.launches = _capture(fn)
+
+    def replay(self, n: int = 1) -> None:
+        for _ in range(n):
+            self.graph.replay()
+        _count(self.launches, n)
 
 
 def signature(obj) -> Hashable:

@@ -92,6 +92,10 @@ def test_seeded_init_is_device_independent_and_reproducible():
 
 
 def test_bidirectional_not_ported():
+    # ported now (tests/test_torch_beam_extras.py holds it to JAX): two
+    # half-width cells a layer, and an odd width raises as in the JAX package
     cfg = Seq2SeqConfig(src_vocab=10, tgt_vocab=10, hidden=8, embed_dim=4, bidirectional=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Seq2Seq(cfg, device="cpu")
+    m = Seq2Seq(cfg, device="cpu")
+    assert len(m.encoder.cells) == 2 * cfg.num_layers and m.encoder.cells[0].wh.shape == (4, 16)
+    with pytest.raises(ValueError, match="even hidden"):
+        Seq2Seq(dataclasses.replace(cfg, hidden=7), device="cpu")

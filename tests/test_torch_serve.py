@@ -200,10 +200,18 @@ def test_fused_step_equals_nested_step(twin):
 
 
 def test_unported_options_raise(twin):
+    # the coverage penalty and return_attention are ported; the engine's
+    # multi-device form is what still raises
+    from quantized_distillation_tpu_torch.config import ServeConfig
+    from quantized_distillation_tpu_torch.serve import TranslationEngine
+
     _, _, tm, _, src, sl = twin
     _, tdec = _decoders(twin, 4)
     s, sl_t = torch.from_numpy(src).long(), torch.from_numpy(sl)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        infer.beam_search_packed(tm, tdec, s, sl_t, BeamConfig(coverage_penalty=0.2), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        infer.beam_search_packed(tm, tdec, s, sl_t, BeamConfig(), return_attention=True, device="cpu")
+    cfg = BeamConfig(beam_size=3, max_len=5, coverage_penalty=0.2)
+    toks, scores = infer.beam_search_packed(tm, tdec, s, sl_t, cfg, device="cpu")
+    assert toks.shape == (3, 5) and torch.isfinite(scores).all()
+    *_, attn = infer.beam_search_packed(tm, tdec, s, sl_t, cfg, return_attention=True, device="cpu")
+    assert attn.shape == (3, 5, 6)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        TranslationEngine(tm, ServeConfig(), tdec, device="cpu", mesh=object())
