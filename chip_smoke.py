@@ -101,9 +101,42 @@ Phases, each printing one JSON line:
    every request completes with a finite score, occupancy, steady-state
    occupancy, idle shares and host seconds as bench.py defines them; after
    phase 11, 16 requests through an engine on the exact-LUT deploy, which
-   must launch only the LUT kernels (3 + 1) and the advance a step.
+   must launch only the LUT kernels (3 + 1) and the advance a step;
+13. vision train: 4-bit STE KD of the WideResNet family at ``bench.py
+   --train --family wrn``'s shape (WRN-28-10 teacher, 36,536,884
+   parameters → WRN-16-4 student, CIFAR-100, B = 256, 32×32×3, Adam 1e-3,
+   clip 5, ``DistillSpec()``): ``vision_task`` → ``create_train_state(
+   batch_stats=...)`` → 10 steps on one seeded batch → ``make_eval_step``;
+   checks one fake-quant launch a step over 10,814 buckets (and one for the
+   eval step; the kernel at that shape bit-exact against its plain
+   version), finite loss and gradient norm, a falling loss, running
+   statistics that moved, and one step at B = 8 on the card against the
+   CPU plain path from the trained weights and statistics (the new
+   statistics at W_RTOL / W_ATOL); 2 steps in mode ``joint`` (learned
+   codebooks, as ``examples/cifar100_wrn_diffquant.py`` trains) that launch
+   no kernel; the 4-bit and FP32 steps in turns (images/s, ``vs_baseline``
+   = FP32 / 4-bit seconds), a stage breakdown and a profile;
+14. LM train: the 2x650 teacher → ``student_medium`` LSTM LM at ``bench.py
+   --train --family lm``'s shape (V = 10000, bptt 35, B = 256) with
+   ``lm_task(thread_carry=True)``: on the card each step's input carry is
+   the last step's output carry, with no gradient history; then the checks
+   of phase 13 (24,096 buckets, no statistics), the B = 8 parity over two
+   threaded steps (carries at W_RTOL / W_ATOL), tokens/s 4-bit and FP32 in
+   turns, a stage breakdown and a profile;
+15. vision families: the CNN (``teacher`` → ``student_small``, CIFAR-10, B
+   = 128, ``examples/cifar10_distill.py``) and the ResNet (``resnet18`` →
+   ``resnet18_half``, ImageNet stem at 224×224, 1000 classes, B = 64):
+   3 STE steps each with the launch, finite and statistics checks, and a
+   B = 4 step on the card against the CPU.
 
-Then the kernel table as one JSON object, then the result line
+TF32 is off for matmul and cuDNN throughout, so every f32 product on the
+card is a true f32 product, as on the CPU. The card-vs-CPU steps (phases
+7, 9, 13-15) run the CPU on the card's ReLU sign patterns
+(:func:`relu_masks`).
+
+Then the kernel table as one JSON object (the fake-quant row also holds
+its launches, bucket count and times on each path of phases 13-15), then
+the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. Weights are random, made from a seed. Imports nothing of JAX.
 """
@@ -111,6 +144,8 @@ that line. Weights are random, made from a seed. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import re
@@ -129,7 +164,11 @@ from quantized_distillation_tpu_torch.config import (
     ServeConfig,
     TrainConfig,
 )
-from quantized_distillation_tpu_torch.convert import flax_leaves, params_to_numpy
+from quantized_distillation_tpu_torch.convert import (
+    batch_stats_to_numpy,
+    flax_leaves,
+    params_to_numpy,
+)
 from quantized_distillation_tpu_torch.kernels import (
     LAUNCH_COUNTERS,
     _build,
@@ -151,7 +190,15 @@ from quantized_distillation_tpu_torch.kernels import (
     pick_generator_group,
     set_launch_counts,
 )
-from quantized_distillation_tpu_torch.models import make_seq2seq
+from quantized_distillation_tpu_torch.models import (
+    CNN_PRESETS,
+    ConvForwardNet,
+    make_cnn,
+    make_lm,
+    make_resnet,
+    make_seq2seq,
+    make_wrn,
+)
 from quantized_distillation_tpu_torch.ops.bucketing import to_buckets
 from quantized_distillation_tpu_torch.serve import (
     TranslationEngine,
@@ -163,15 +210,20 @@ from quantized_distillation_tpu_torch.serve.beam import EOS, NEG_INF, PAD
 from quantized_distillation_tpu_torch.train import (
     build_optimizer,
     create_train_state,
+    lm_initial_carry,
+    lm_task,
     make_eval_step,
     make_train_step,
     nmt_task,
+    vision_task,
 )
 from quantized_distillation_tpu_torch.train.quantize_tree import is_quantizable
 from quantized_distillation_tpu_torch.train.optim import apply_updates, global_norm
 from quantized_distillation_tpu_torch.train.trainer import (
+    Task,
     as_batch,
     loss_and_grads,
+    map_tensors,
     quantized_params,
     trainable,
 )
@@ -903,59 +955,147 @@ def kd_setup(args, device, batch_size, seed):
 
 
 def train_parity(checks, args, quant, distill, cfg, mode: str = "weights") -> dict:
-    """One full-width step at B = 8 on the card and on the CPU (plain
-    versions) from the same weights (and codebooks), with the body of
-    ``make_train_step`` written out so its gradients can be compared: loss,
-    metrics, grad_norm and every gradient card against CPU; then the card's
-    updated tensors against the CPU optimizer applied to the card's
-    gradients. (Adam's first step is lr * g / (|g| + eps), which turns
-    gradient differences at the level of rounding into whole steps where |g|
-    is near 0, so the two devices' own updated tensors are compared and
-    reported, not held.)"""
-    runs = {}
-    for dev in ("cuda", "cpu"):
+    """One full-width seq2seq step at B = 8 on the card and on the CPU (see
+    :func:`step_parity`)."""
+
+    def setup(dev):
         student, task, batch = kd_setup(args, dev, args.parity_batch, args.seed + 20)
         tx = build_optimizer(cfg)
-        state = create_train_state(dict(student.named_parameters()), tx, quant=quant,
-                                   mode=mode, device=dev)
-        wrt = trainable(state.params, state.codebooks, mode)
-        before = {n: p.detach().clone() for n, p in wrt.items()}
-        loss, metrics, grads = loss_and_grads(
-            task, state.params, as_batch(batch, torch.device(dev)), quant=quant,
-            distill=distill, codebooks=state.codebooks, mode=mode)
-        updates, _ = tx.update(grads, state.opt_state, wrt)
-        apply_updates(wrt, updates)
-        metrics = dict(metrics, loss=loss, grad_norm=global_norm(grads))
-        runs[dev] = (metrics, grads, before, wrt, tx)
-    (gm, gg, _, gwrt, _), (cm, cg, cbefore, cwrt, ctx) = runs["cuda"], runs["cpu"]
-    out = {"batch": args.parity_batch, "mode": mode}
-    for k, v in cm.items():
-        err = abs(float(gm[k]) - float(v))
-        out[f"{k}_abs_diff"] = err
-        checks.require(err <= LOSS_RTOL * abs(float(v)),
-                       f"train parity ({mode}) {k}: card {float(gm[k])} vs cpu {float(v)}")
-    g_card = {n: g.detach().cpu() for n, g in gg.items()}
-    updates, _ = ctx.update(g_card, ctx.init(cbefore), cbefore)  # the CPU optimizer's step
-    grad_rel = opt_err = own_err = 0.0
-    own_over = 0
-    for n, g_c in cg.items():
-        scale = max(float(g_c.abs().max()), 1e-30)
-        e = float((g_card[n] - g_c).abs().max())
-        grad_rel = max(grad_rel, e / scale)
-        checks.require(e <= GRAD_TOL * scale, f"train parity ({mode}) grad {n}: max abs diff {e}")
-        w_card = gwrt[n].detach().cpu()
-        tol = W_ATOL + W_RTOL * cbefore[n].abs()
-        d_opt = (w_card - (cbefore[n] + updates[n])).abs()
-        opt_err = max(opt_err, float(d_opt.max()))
-        checks.require(bool((d_opt <= tol).all()), f"train parity ({mode}) optimizer step {n}")
-        d_own = (w_card - cwrt[n].detach()).abs()
-        own_err = max(own_err, float(d_own.max()))
-        own_over += int((d_own > tol).sum())
+        return task, create_train_state(dict(student.named_parameters()), tx, quant=quant,
+                                        mode=mode, device=dev), tx
+
+    batch = kd_setup(args, "cpu", args.parity_batch, args.seed + 20)[2]
+    return step_parity(checks, f"train parity ({mode})", setup, [batch], quant, distill, mode)
+
+
+def _leaves(tree) -> list:
+    out = []
+    map_tensors(out.append, tree)
+    return out
+
+
+@contextlib.contextmanager
+def relu_masks(masks: list, replay: bool):
+    """Inside, ``F.relu`` records the sign pattern of each output in
+    ``masks`` (``replay`` False), or applies the recorded patterns in call
+    order in place of its own (``replay`` True; the yielded list then
+    counts the elements whose own sign differs). A ReLU network's gradient
+    jumps where a pre-activation crosses 0: in the WRN step at B = 8 on an
+    H100, a few outputs that rounded to the other side of 0 than on the CPU
+    put the gradients 0.031 of a tensor's largest value apart, which no
+    tolerance on rounding can hold (PERF.md). Replayed, the CPU
+    differentiates the same piecewise-linear function the card did."""
+    relu = torch.nn.functional.relu
+    it, flips = iter(masks), [0]
+
+    def recording(x, inplace=False):
+        y = relu(x)
+        masks.append((y > 0).cpu())
+        return y
+
+    def replaying(x, inplace=False):
+        m = next(it).to(x.device)
+        flips[0] += int(((x > 0) != m).sum())
+        return torch.where(m, x, torch.zeros_like(x))
+
+    torch.nn.functional.relu = replaying if replay else recording
+    try:
+        yield flips
+    finally:
+        torch.nn.functional.relu = relu
+
+
+def step_parity(checks, label, setup, batches, quant, distill, mode: str = "weights") -> dict:
+    """Train steps at a small batch on the card and on the CPU (plain
+    versions) from the same weights (and codebooks, running statistics,
+    carry), with the body of ``make_train_step`` written out so its
+    gradients can be compared: loss, metrics, grad_norm and every gradient
+    card against CPU; the new running statistics and carry card against CPU
+    at W_RTOL / W_ATOL; then the card's updated tensors against the CPU
+    optimizer applied to the card's gradients. (Adam's first step is lr * g
+    / (|g| + eps), which turns gradient differences at the level of rounding
+    into whole steps where |g| is near 0, so the two devices' own updated
+    tensors are compared and reported, not held.) A later step starts both
+    devices from the card's updated tensors, each with its own running
+    statistics and carry, so the carry the card threads is held to the one
+    the CPU threads. The CPU step takes the card's ReLU sign patterns
+    (:func:`relu_masks`; ``relu_sign_flips`` counts where its own differ).
+    ``setup(device) -> (task, state, tx)``; ``batches``: one batch a step."""
+    runs = {dev: setup(torch.device(dev)) for dev in ("cuda", "cpu")}
+    out = {"batch": next(iter(batches[0].values())).shape[0], "mode": mode,
+           "steps": len(batches)}
+    grad_rel = opt_err = own_err = stats_err = carry_err = 0.0
+    own_over = flips = 0
+    for i, batch in enumerate(batches):
+        res, masks = {}, []
+        for dev, (task, state, _) in runs.items():
+            b = as_batch(batch, torch.device(dev))
+            if state.carry is not None:
+                b["carry"] = state.carry
+            wrt = trainable(state.params, state.codebooks, mode)
+            before = {n: p.detach().clone() for n, p in wrt.items()}
+            with relu_masks(masks, replay=dev == "cpu") as flipped:
+                loss, metrics, grads, upd = loss_and_grads(
+                    task, state.params, b, quant=quant, distill=distill,
+                    codebooks=state.codebooks, mode=mode, batch_stats=state.batch_stats)
+            flips += flipped[0]
+            res[dev] = (dict(metrics, loss=loss, grad_norm=global_norm(grads)), grads, before, upd)
+        (gm, gg, _, gupd), (cm, cg, cbefore, cupd) = res["cuda"], res["cpu"]
+        for k, v in cm.items():
+            err = abs(float(gm[k]) - float(v))
+            out[f"{k}_abs_diff"] = max(err, out.get(f"{k}_abs_diff", 0.0))
+            checks.require(err <= LOSS_RTOL * abs(float(v)),
+                           f"{label} step {i} {k}: card {float(gm[k])} vs cpu {float(v)}")
+        (_, gstate, gtx), (_, cstate, ctx) = runs["cuda"], runs["cpu"]
+        gwrt = trainable(gstate.params, gstate.codebooks, mode)
+        cwrt = trainable(cstate.params, cstate.codebooks, mode)
+        updates, gstate.opt_state = gtx.update(gg, gstate.opt_state, gwrt)
+        apply_updates(gwrt, updates)
+        g_card = {n: g.detach().cpu() for n, g in gg.items()}
+        on_card, _ = ctx.update(g_card, cstate.opt_state, cbefore)  # the CPU optimizer's step
+        own, cstate.opt_state = ctx.update(cg, cstate.opt_state, cbefore)
+        for n, g_c in cg.items():
+            scale = max(float(g_c.abs().max()), 1e-30)
+            e = float((g_card[n] - g_c).abs().max())
+            grad_rel = max(grad_rel, e / scale)
+            checks.require(e <= GRAD_TOL * scale, f"{label} step {i} grad {n}: max abs diff {e}")
+            w_card = gwrt[n].detach().cpu()
+            tol = W_ATOL + W_RTOL * cbefore[n].abs()
+            d_opt = (w_card - (cbefore[n] + on_card[n])).abs()
+            opt_err = max(opt_err, float(d_opt.max()))
+            checks.require(bool((d_opt <= tol).all()), f"{label} step {i} optimizer step {n}")
+            d_own = (w_card - (cbefore[n] + own[n])).abs()
+            own_err = max(own_err, float(d_own.max()))
+            own_over += int((d_own > tol).sum())
+            with torch.no_grad():
+                cwrt[n].copy_(w_card)  # the next step starts from the card's tensors
+        for key in ("batch_stats", "carry"):
+            if key not in cupd:
+                continue
+            for g_t, c_t in zip(_leaves(gupd[key]), _leaves(cupd[key]), strict=True):
+                d = (g_t.detach().cpu() - c_t.detach()).abs()
+                if key == "batch_stats":
+                    stats_err = max(stats_err, float(d.max()))
+                else:
+                    carry_err = max(carry_err, float(d.max()))
+                checks.require(bool((d <= W_ATOL + W_RTOL * c_t.detach().abs()).all()),
+                               f"{label} step {i}: {key} card vs cpu, max abs diff {float(d.max())}")
+        for (_, state, _), upd in ((runs["cuda"], gupd), (runs["cpu"], cupd)):
+            if "batch_stats" in upd:
+                with torch.no_grad():
+                    for n, t in state.batch_stats.items():
+                        t.copy_(upd["batch_stats"][n])
+            if "carry" in upd:
+                state.carry = map_tensors(torch.Tensor.detach, upd["carry"])
     out.update(
         grad_max_rel_diff=grad_rel, optimizer_step_max_abs_diff=opt_err,
         weights_max_abs_diff=own_err, weights_over_tolerance=own_over,
-        weights=sum(t.numel() for t in cbefore.values()),
+        weights=sum(t.numel() for t in cbefore.values()), relu_sign_flips=flips,
     )
+    if runs["cpu"][1].batch_stats is not None:
+        out["batch_stats_max_abs_diff"] = stats_err
+    if runs["cpu"][1].carry is not None:
+        out["carry_max_abs_diff"] = carry_err
     return out
 
 
@@ -974,11 +1114,15 @@ def step_breakdown(task, state, batch, quant, distill, tx, reps, mode: str = "we
 
     tree = "codebook_tree" if quant.method == "codebook" else "fake_quant_tree"
     wrt = trainable(state.params, state.codebooks, mode)
+    stats = state.batch_stats or {}
+    drop = torch.Generator(device="cuda").manual_seed(0)
     for _ in range(reps + 1):
         torch.cuda.synchronize()
         qp = stage(tree, lambda: quantized_params(state.params, quant, state.codebooks))
-        logits, _ = stage("student_forward", lambda: task.student_forward(qp, batch, True, None))
-        t_logits = stage("teacher_forward", lambda: task.teacher_forward(batch))
+        logits, _ = stage("student_forward",
+                          lambda: task.student_forward({**qp, **stats}, batch, True, drop))
+        t_logits = (stage("teacher_forward", lambda: task.teacher_forward(batch))
+                    if task.teacher_forward else None)
         loss, _ = stage("loss", lambda: task.loss_and_metrics(logits, t_logits, batch, distill))
         grads = stage("backward", lambda: torch.autograd.grad(loss, list(wrt.values())))
         grads = dict(zip(wrt, grads))
@@ -1487,6 +1631,286 @@ def phase_engine_lut(checks, args, model, params, points, smi) -> dict:
     return launches
 
 
+WRN_BUCKETS = 10814  # WRN-16-4's 17 quantizable leaves in buckets of 256
+LM_BUCKETS = 24096  # the LM student_medium's 18, V = 10000
+
+
+def fake_quant_at(checks, label, params, quant) -> dict:
+    """The fake-quant kernel on the buckets one STE step of ``params`` hands
+    it (every quantizable leaf), bit-exact against its plain version, and
+    timed like phase 6. Its launches are outside any counted run."""
+    buckets = quantizable_buckets(params, quant)
+    ok = torch.equal(fake_quant_buckets(buckets, quant.bits),
+                     fake_quant_buckets_reference(buckets, quant.bits))
+    checks.require(ok, f"{label}: fake_quant at {buckets.shape[0]} buckets not bit-exact")
+    ms = graph_ms(lambda: fake_quant_buckets(buckets, quant.bits))
+    plain = graph_ms(lambda: fake_quant_buckets_reference(buckets, quant.bits))
+    bms, by = bound(8.0 * buckets.numel(), 2 * nbytes(buckets), PEAK_F32)
+    return {"n_buckets": buckets.shape[0], "bit_exact": ok, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by}
+
+
+def kd_steps(checks, label, task, state, batch, quant, distill, tx, steps, seed,
+             check_falling=True) -> tuple:
+    """``steps`` 4-bit STE KD steps on one batch, then the eval step, with
+    the launch counters zeroed before and read after: one fake-quant launch
+    a step and one for the eval step, finite losses and gradient norms,
+    (``check_falling``) a falling loss, and running statistics that moved.
+    Returns (state, the step, a record for the phase's line)."""
+    step = make_train_step(task, tx, quant=quant, distill=distill, device="cuda")
+    eval_step = make_eval_step(task, quant=quant, device="cuda")
+    stats0 = {n: t.clone() for n, t in (state.batch_stats or {}).items()}
+    zero_counts()
+    metrics, seconds = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, seed)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        metrics.append(m)
+    ev = eval_step(state, batch)
+    launches = read_counts()
+    loss = [float(m["loss"]) for m in metrics]
+    gnorm = [float(m["grad_norm"]) for m in metrics]
+    want = expected(fake_quant_buckets=steps + 1)
+    checks.require(launches == want, f"{label} launches {launches}, expected {want}")
+    checks.require(all(map(math.isfinite, loss + gnorm)), f"{label} loss or grad_norm not finite")
+    if check_falling:
+        checks.require(loss[-1] < loss[0], f"{label} loss did not fall: {loss[0]} -> {loss[-1]}")
+    moved = sum(not torch.equal(t, stats0[n]) for n, t in (state.batch_stats or {}).items())
+    if stats0:
+        checks.require(moved == len(stats0), f"{label}: {moved} of {len(stats0)} statistics moved")
+    ev = {k: float(v) for k, v in ev.items() if k != "carry"}
+    checks.require(all(map(math.isfinite, ev.values())), f"{label} eval metrics not finite")
+    return state, step, {"steps": steps, "launches": launches, "loss": loss, "grad_norm": gnorm,
+                         "step_seconds": seconds, "statistics_moved": moved, "eval": ev}
+
+
+def legs_in_turns(legs: dict, state, batch, seed, reps) -> tuple:
+    """Host seconds of each train step in ``legs`` (name → step), one
+    synchronized call at a time in turns, the order reversed every other
+    round, after one warm-up of each; the state runs on through all."""
+    holder = {"state": state}
+
+    def run(fn):
+        holder["state"], m = fn(holder["state"], batch, seed)
+        float(m["loss"])
+
+    times = searches_in_turns({k: (lambda fn=fn: run(fn)) for k, fn in legs.items()}, reps)
+    return holder["state"], times, {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_vision_train(checks, args, smi) -> dict:
+    """WRN-28-10 → WRN-16-4 on CIFAR-100 (see the module docstring)."""
+    dev = torch.device("cuda")
+    quant, distill = QuantSpec(bits=args.bits), DistillSpec()
+    cfg = TrainConfig(learning_rate=1e-3, clip_norm=5.0)
+
+    def models(device, seed):
+        teacher = make_wrn("teacher", 100, device=device, seed=seed)
+        return make_wrn("student_medium", 100, device=device, seed=seed + 1), teacher
+
+    student, teacher = models(dev, args.seed + 40)
+    task = vision_task(student, teacher, device=dev)
+    batch = vision_batch(args.vision_batch, 32, 100, args.seed + 42, dev)
+    tx = build_optimizer(cfg)
+    state = create_train_state(dict(student.named_parameters()), tx,
+                               batch_stats=dict(student.named_buffers()), quant=quant, device=dev)
+    fq = fake_quant_at(checks, "vision_train", state.params, quant)
+    checks.require(fq["n_buckets"] == WRN_BUCKETS, f"vision_train: {fq['n_buckets']} buckets")
+    state, step, record = kd_steps(checks, "vision_train", task, state, batch, quant, distill, tx,
+                                   args.train_steps, args.seed)
+
+    def setup(device):
+        s, t = models(device, args.seed + 40)
+        s.load_params(params_to_numpy(state.params)).load_batch_stats(
+            batch_stats_to_numpy(state.batch_stats))  # the trained weights and statistics
+        tx_ = build_optimizer(cfg)
+        return vision_task(s, t, device=device), create_train_state(
+            dict(s.named_parameters()), tx_, batch_stats=dict(s.named_buffers()), quant=quant,
+            device=device), tx_
+
+    parity = step_parity(checks, "vision_train parity", setup,
+                         [vision_batch(args.parity_batch, 32, 100, args.seed + 43, "cpu")],
+                         quant, distill)
+    fp_step = make_train_step(task, tx, quant=None, distill=distill, device=dev)
+    state, times, med = legs_in_turns({"4bit": step, "fp32": fp_step}, state, batch, args.seed,
+                                      args.reps)
+    stages = step_breakdown(task, state, batch, quant, distill, tx, args.reps)
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch, args.seed)
+    peak = torch.cuda.max_memory_allocated()
+    prof = phase_profile(lambda: step(state, batch, args.seed), med["4bit"],
+                         phase="vision_train_profile", focus="fake_quant_kernel")
+
+    # differentiable quantization, as examples/cifar100_wrn_diffquant.py trains
+    cb_quant = QuantSpec(bits=args.bits, method="codebook")
+    cb_tx = build_optimizer(cfg)
+    cb_state = create_train_state(state.params, cb_tx, batch_stats=state.batch_stats,
+                                  quant=cb_quant, mode="joint", device=dev)
+    cb_step = make_train_step(task, cb_tx, quant=cb_quant, distill=distill, mode="joint",
+                              device=dev)
+    zero_counts()
+    cb_loss = []
+    for _ in range(2):
+        cb_state, m = cb_step(cb_state, batch, args.seed)
+        cb_loss.append(float(m["loss"]))
+    cb_launches = read_counts()
+    checks.require(cb_launches == expected(), f"vision joint launches {cb_launches}, expected none")
+    checks.require(all(map(math.isfinite, cb_loss)), "vision joint loss not finite")
+    emit({
+        "phase": "vision_train", "teacher": "wrn_28_10", "student": "wrn_16_4", "classes": 100,
+        "batch": args.vision_batch, "image": [32, 32, 3], "bits": args.bits, **record,
+        "teacher_params": sum(p.numel() for p in teacher.parameters()),
+        "student_params": sum(p.numel() for p in student.parameters()),
+        "fake_quant": fq, "parity_cuda_vs_cpu": parity,
+        "step_seconds_4bit": times["4bit"], "step_seconds_fp32": times["fp32"],
+        "images_per_s_4bit": args.vision_batch / med["4bit"],
+        "images_per_s_fp32": args.vision_batch / med["fp32"],
+        "vs_baseline": med["fp32"] / med["4bit"], "peak_device_bytes": peak,
+        "stage_seconds_4bit": stages, "device_busy_share": prof["device_busy_share"],
+        "joint": {"steps": 2, "loss": cb_loss, "launches": cb_launches}, "card": smi,
+    })
+    return {"launches": record["launches"]["fake_quant_buckets"], **fq}
+
+
+def phase_lm_train(checks, args, smi) -> dict:
+    """2x650 → student_medium LSTM LM with the carry threaded (see the
+    module docstring)."""
+    dev = torch.device("cuda")
+    quant, distill = QuantSpec(bits=args.bits), DistillSpec()
+    cfg = TrainConfig(learning_rate=1e-3, clip_norm=5.0)
+    v, b = args.lm_vocab, args.lm_batch
+
+    def models(device, seed, **kw):
+        teacher = make_lm("teacher", v, device=device, seed=seed)
+        return make_lm("student_medium", v, device=device, seed=seed + 1, **kw), teacher
+
+    student, teacher = models(dev, args.seed + 50)
+    task = lm_task(student, teacher, thread_carry=True, device=dev)
+    seen = []  # the carry each train step reads
+
+    def recording(params, batch_, train, generator):
+        if train:
+            seen.append(batch_["carry"])
+        return task.student_forward(params, batch_, train, generator)
+
+    rec_task = Task(recording, task.loss_and_metrics, task.teacher_forward)
+    batch = lm_batch(b, v, args.lm_bptt, args.seed + 52, dev)
+    tx = build_optimizer(cfg)
+    state = create_train_state(dict(student.named_parameters()), tx, quant=quant,
+                               carry=lm_initial_carry(student, b, teacher), device=dev)
+    fq = fake_quant_at(checks, "lm_train", state.params, quant)
+    checks.require(fq["n_buckets"] == LM_BUCKETS, f"lm_train: {fq['n_buckets']} buckets")
+    outs = []
+    step = make_train_step(rec_task, tx, quant=quant, distill=distill, device=dev)
+    for _ in range(2):  # the carry handed from step to step, on the card
+        state, _ = step(state, batch, args.seed)
+        outs.append(state.carry)
+    threaded = all(
+        torch.equal(a, c) and c.grad_fn is None and not c.requires_grad
+        for a, c in zip(_leaves(outs[0]), _leaves(seen[1]), strict=True))
+    checks.require(threaded, "lm_train: a step's input carry is not the last step's output")
+    checks.require(all(t.grad_fn is None for t in _leaves(outs[1])),
+                   "lm_train: the state's carry has gradient history")
+    moved = not torch.equal(_leaves(outs[0])[1], _leaves(outs[1])[1])
+    checks.require(moved, "lm_train: the carry did not move")
+    state, step, record = kd_steps(checks, "lm_train", task, state, batch, quant, distill, tx,
+                                   args.train_steps, args.seed)
+
+    def setup(device):
+        s, t = models(device, args.seed + 50, dropout=0.0)
+        tx_ = build_optimizer(cfg)
+        return lm_task(s, t, thread_carry=True, device=device), create_train_state(
+            dict(s.named_parameters()), tx_, quant=quant,
+            carry=lm_initial_carry(s, args.parity_batch, t), device=device), tx_
+
+    parity = step_parity(checks, "lm_train parity", setup,
+                         [lm_batch(args.parity_batch, v, args.lm_bptt, args.seed + 53 + i, "cpu")
+                          for i in range(2)], quant, distill)
+    fp_step = make_train_step(task, tx, quant=None, distill=distill, device=dev)
+    state, times, med = legs_in_turns({"4bit": step, "fp32": fp_step}, state, batch, args.seed,
+                                      args.reps)
+    stages = step_breakdown(task, state, batch, quant, distill, tx, args.reps)
+    prof = phase_profile(lambda: step(state, batch, args.seed), med["4bit"],
+                         phase="lm_train_profile", focus="fake_quant_kernel")
+    ntok = b * args.lm_bptt
+    emit({
+        "phase": "lm_train", "teacher": "lm_2x650", "student": "student_medium", "vocab": v,
+        "batch": b, "bptt": args.lm_bptt, "bits": args.bits, "thread_carry": True, **record,
+        "carry_threaded_on_card": threaded, "fake_quant": fq, "parity_cuda_vs_cpu": parity,
+        "step_seconds_4bit": times["4bit"], "step_seconds_fp32": times["fp32"],
+        "tokens_per_s_4bit": ntok / med["4bit"], "tokens_per_s_fp32": ntok / med["fp32"],
+        "vs_baseline": med["fp32"] / med["4bit"], "stage_seconds_4bit": stages,
+        "device_busy_share": prof["device_busy_share"], "card": smi,
+    })
+    return {"launches": record["launches"]["fake_quant_buckets"], **fq}
+
+
+def phase_vision_families(checks, args, smi) -> dict:
+    """The CNN and the ImageNet ResNet at the widths of their examples (see
+    the module docstring)."""
+    dev = torch.device("cuda")
+    quant, distill = QuantSpec(bits=args.bits), DistillSpec()
+    cfg = TrainConfig(learning_rate=1e-3, clip_norm=5.0)
+    cnn_small = dataclasses.replace(CNN_PRESETS["student_small"], dropout=0.0)
+    families = {
+        "cnn": (lambda device, seed, parity: (
+            ConvForwardNet(cnn_small, device=device, seed=seed + 1) if parity
+            else make_cnn("student_small", device=device, seed=seed + 1),
+            make_cnn("teacher", device=device, seed=seed)), 32, 10, args.cnn_batch),
+        "resnet": (lambda device, seed, parity: (
+            make_resnet("resnet18_half", device=device, seed=seed + 1),
+            make_resnet("resnet18", device=device, seed=seed)), 224, 1000, args.resnet_batch),
+    }
+    rows, record = {}, {}
+    for i, (name, (models, size, classes, b)) in enumerate(families.items()):
+        seed = args.seed + 60 + 10 * i
+        student, teacher = models(dev, seed, False)
+        task = vision_task(student, teacher, device=dev)
+        batch = vision_batch(b, size, classes, seed + 2, dev)
+        tx = build_optimizer(cfg)
+        state = create_train_state(dict(student.named_parameters()), tx,
+                                   batch_stats=dict(student.named_buffers()), quant=quant,
+                                   device=dev)
+        fq = fake_quant_at(checks, name, state.params, quant)
+        state, _, rec = kd_steps(checks, name, task, state, batch, quant, distill, tx, 3,
+                                 args.seed, check_falling=False)
+
+        def setup(device, models=models, seed=seed):
+            s, t = models(device, seed, True)
+            tx_ = build_optimizer(cfg)
+            return vision_task(s, t, device=device), create_train_state(
+                dict(s.named_parameters()), tx_, batch_stats=dict(s.named_buffers()),
+                quant=quant, device=device), tx_
+
+        parity = step_parity(checks, f"{name} parity", setup,
+                             [vision_batch(args.family_parity_batch, size, classes, seed + 3,
+                                           "cpu")], quant, distill)
+        record[name] = {"batch": b, "image": [size, size, 3], "classes": classes, **rec,
+                        "images_per_s_4bit": b / statistics.median(rec["step_seconds"][1:]),
+                        "fake_quant": fq, "parity_cuda_vs_cpu": parity}
+        rows[name] = {"launches": rec["launches"]["fake_quant_buckets"], **fq}
+        del student, teacher, task, state
+    emit({"phase": "vision_families", "bits": args.bits,
+          "cnn": {"teacher": "teacher", "student": "student_small", **record["cnn"]},
+          "resnet": {"teacher": "resnet18", "student": "resnet18_half", **record["resnet"]},
+          "card": smi})
+    return rows
+
+
+def vision_batch(n, size, classes, seed, device) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    return {"image": torch.randn(n, size, size, 3, generator=g).to(device),
+            "label": torch.randint(0, classes, (n,), generator=g).to(device)}
+
+
+def lm_batch(n, vocab, bptt, seed, device) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    return {"input": torch.randint(0, vocab, (n, bptt), generator=g).to(device),
+            "target": torch.randint(0, vocab, (n, bptt), generator=g).to(device)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", default="student_medium")
@@ -1501,6 +1925,13 @@ def main(argv=None) -> int:
     ap.add_argument("--train-batch", type=int, default=128)
     ap.add_argument("--train-steps", type=int, default=10)
     ap.add_argument("--parity-batch", type=int, default=8)
+    ap.add_argument("--vision-batch", type=int, default=256)
+    ap.add_argument("--lm-batch", type=int, default=256)
+    ap.add_argument("--lm-vocab", type=int, default=10000)
+    ap.add_argument("--lm-bptt", type=int, default=35)
+    ap.add_argument("--cnn-batch", type=int, default=128)
+    ap.add_argument("--resnet-batch", type=int, default=64)
+    ap.add_argument("--family-parity-batch", type=int, default=4)
     args = ap.parse_args(argv)
 
     dev, smi = phase_device()
@@ -1523,7 +1954,8 @@ def main(argv=None) -> int:
         row["launches"] = launches[row["name"]]
         row["engine_chunk_launches"] = engine_launches[row["name"]]
     del dec
-    table.append(phase_train(checks, args, smi))
+    fq_row = phase_train(checks, args, smi)
+    table.append(fq_row)
 
     books = phase_codebook_train(checks, args, smi)
     points = books["generator/kernel"].cpu()
@@ -1537,6 +1969,11 @@ def main(argv=None) -> int:
         row["launches"] = launches[row["name"]]
         row["engine_launches"] = engine_launches[row["name"]]
     table += lut_rows
+    fq_row["paths"] = {
+        "vision_train": phase_vision_train(checks, args, smi),
+        "lm_train": phase_lm_train(checks, args, smi),
+        **phase_vision_families(checks, args, smi),
+    }
     if checks.failed:
         print(f"{len(checks.failed)} check(s) failed", file=sys.stderr)
         return 1

@@ -13,9 +13,30 @@ continuous-batching engine over it (``serve.engine.TranslationEngine``),
 the coverage penalty and per-hypothesis attention on every beam path, and
 4-bit STE and learned-codebook knowledge-distillation training of it
 (``train/``: ``nmt_task`` → ``create_train_state`` → ``make_train_step``)
-with a hand-written CUDA fake-quant kernel (``kernels/``).
+with a hand-written CUDA fake-quant kernel (``kernels/``), and the same
+training of the other model families with their tasks: the CIFAR CNN, the
+WideResNet and the ImageNet ResNets (``vision_task``, with BatchNorm
+running statistics in the train state) and the LSTM language model
+(``lm_task``, with the truncated-BPTT carry threaded across steps).
 """
 
 from .config import BeamConfig, DistillSpec, QuantSpec, ServeConfig, TrainConfig
+from .models import make_cnn, make_lm, make_resnet, make_seq2seq, make_wrn
+from .train import lm_initial_carry, lm_task, nmt_task, vision_task
 
-__all__ = ["BeamConfig", "DistillSpec", "QuantSpec", "ServeConfig", "TrainConfig"]
+__all__ = [
+    "BeamConfig",
+    "DistillSpec",
+    "QuantSpec",
+    "ServeConfig",
+    "TrainConfig",
+    "lm_initial_carry",
+    "lm_task",
+    "make_cnn",
+    "make_lm",
+    "make_resnet",
+    "make_seq2seq",
+    "make_wrn",
+    "nmt_task",
+    "vision_task",
+]

@@ -79,8 +79,13 @@ class LSTMCell(nn.Module):
         self.bh = nn.Parameter(torch.empty(4 * hidden))
 
     def forward(self, carry, x):
+        return self.step(carry, x @ self.wi)
+
+    def step(self, carry, xw):
+        """One step on ``xw = x @ wi``, computed beforehand (for a whole
+        window at once, say)."""
         c, h = carry
-        z = (h @ self.wh + self.bh) + x @ self.wi
+        z = (h @ self.wh + self.bh) + xw
         zi, zf, zg, zo = z.chunk(4, dim=-1)
         c = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zg)
         return c, torch.sigmoid(zo) * torch.tanh(c)

@@ -70,7 +70,12 @@ def linspace01(s: int, device=None) -> torch.Tensor:
 def quantile_linear(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     """``jnp.quantile(x.reshape(-1), qs)`` (linear interpolation) with its
     f32 arithmetic, by one sort: ``torch.quantile`` refuses inputs of more
-    than 2^24 elements."""
+    than 2^24 elements. XLA fuses the interpolation ``low * low_w + high *
+    high_w`` into ``fma(high, high_w, low * low_w)``; the last product and
+    the sum are taken in f64 here and rounded once, which gives its bits.
+    (Rounded twice, two quantiles that fall on a run of equal weights, as
+    a leaf's edge padding makes, came out one ulp apart and out of order,
+    so codebook training moved the other of the two points.)"""
     a = torch.sort(x.reshape(-1).to(torch.float32)).values
     n = torch.tensor(a.numel(), dtype=torch.float32, device=a.device)
     q = qs.to(a.device, torch.float32) * (n - 1)
@@ -79,7 +84,7 @@ def quantile_linear(x: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     low_w = 1 - high_w
     low = torch.clamp(low, min=0, max=n - 1).long()
     high = torch.clamp(high, min=0, max=n - 1).long()
-    return a[low] * low_w + a[high] * high_w
+    return (a[high].double() * high_w.double() + (a[low] * low_w).double()).float()
 
 
 def init_points(bits: int, mode: str = "uniform", x01: Optional[torch.Tensor] = None,

@@ -1,18 +1,19 @@
 """Training (PyTorch port of the JAX package's ``train/``): the KD trainer
-with STE fake-quant weights or learned codebooks, its losses, the NMT task,
-the loops and automatic bit assignment.
+with STE fake-quant weights or learned codebooks, its losses, the vision,
+NMT and LM tasks, the loops and automatic bit assignment.
 
-Ported for the seq2seq family: modes ``weights`` (quantized distillation),
-``codebooks`` and ``joint`` (differentiable quantization), and ``bits.py``.
-Still to come: the experiment manager, the vision and LM tasks, and
-multi-GPU training.
+Ported for every model family (seq2seq, CNN, WideResNet, ResNet, LSTM LM):
+modes ``weights`` (quantized distillation), ``codebooks`` and ``joint``
+(differentiable quantization), the BatchNorm running statistics and the
+truncated-BPTT carry of the train state, and ``bits.py``. Still to come:
+the experiment manager and multi-GPU training.
 """
 
 from . import bits, losses, quantize_tree, tasks, trainer
 from .bits import assign_bits, gradient_sensitivities
 from .loops import evaluate, fit
 from .losses import accuracy, cross_entropy, distillation_loss, kd_kl
-from .tasks import nmt_task
+from .tasks import lm_initial_carry, lm_task, nmt_task, vision_task
 from .trainer import (
     Task,
     TrainState,
@@ -36,7 +37,10 @@ __all__ = [
     "cross_entropy",
     "distillation_loss",
     "kd_kl",
+    "lm_initial_carry",
+    "lm_task",
     "nmt_task",
+    "vision_task",
     "Task",
     "TrainState",
     "build_optimizer",

@@ -1,10 +1,12 @@
 """High-level training loops (PyTorch port of the JAX package's
 ``train/loops.py``): ``fit`` runs the epoch loop around the train step,
 with periodic evaluation on hard-quantized weights and metrics logging;
-``evaluate`` aggregates eval metrics over a dataset.
+``evaluate`` aggregates eval metrics over a dataset. Both thread a
+recurrent carry for stateful tasks (contiguous-BPTT LM,
+``tasks.lm_task(thread_carry=True)``).
 
 Checkpointing through an experiment manager comes with the artifacts
-slice; carry threading (contiguous-BPTT LM) with the LM family.
+slice.
 """
 
 from __future__ import annotations
@@ -13,24 +15,43 @@ import math
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
+import torch
 
 from ..config import TrainConfig
 from ..utils.metrics import MetricsLogger, Throughput
-from .trainer import Task, TrainState, build_optimizer, make_eval_step, make_train_step
+from .trainer import (
+    Task,
+    TrainState,
+    build_optimizer,
+    make_eval_step,
+    make_train_step,
+    map_tensors,
+)
 
 Batch = Dict[str, np.ndarray]
 
 
-def evaluate(eval_step, state: TrainState, batches: Iterable[Batch]) -> Dict[str, float]:
+def evaluate(eval_step, state: TrainState, batches: Iterable[Batch],
+             initial_carry=None) -> Dict[str, float]:
     """Aggregate eval metrics over a dataset: means weighted by batch size;
-    ``nll_sum``/``n_tokens`` pairs (NMT) summed and reported as perplexity,
-    as the reference evaluates perplexity."""
+    ``nll_sum``/``n_tokens`` pairs (NMT, LM) summed and reported as
+    perplexity, as the reference evaluates perplexity.
+
+    ``initial_carry``: recurrent state threaded across batches for stateful
+    tasks (contiguous-BPTT LM eval), handed in as ``batch["carry"]`` and
+    replaced by the ``"carry"`` the eval step returns in its metrics."""
     sums: Dict[str, float] = {}
     weights: Dict[str, float] = {}
+    carry = initial_carry
     for batch in batches:
         batch = {k: v for k, v in batch.items() if k != "index"}
-        m = eval_step(state, batch)
         bs = next(iter(batch.values())).shape[0]
+        if carry is not None:
+            batch["carry"] = carry
+        m = dict(eval_step(state, batch))
+        new_carry = m.pop("carry", None)
+        if initial_carry is not None and new_carry is not None:
+            carry = new_carry
         for k, v in m.items():
             v = float(v)
             if k in ("nll_sum", "n_tokens"):
@@ -60,11 +81,17 @@ def fit(
     manager=None,
     model_name: Optional[str] = None,
     item_count: Callable[[Batch], int] = lambda b: next(iter(b.values())).shape[0],
+    carry_reset=None,
     device="cuda",
 ) -> TrainState:
     """Epoch loop: ``train_batches(epoch)`` yields numpy batches; evaluate
     on hard-quantized weights every ``cfg.eval_every`` steps and after each
-    epoch; log train metrics every ``cfg.log_every`` steps."""
+    epoch; log train metrics every ``cfg.log_every`` steps.
+
+    ``carry_reset``: for stateful (carry-threading) tasks, the zero carry
+    installed afresh at each epoch's start (the data stream restarts) and
+    the initial carry of every eval pass. It is copied once, so the
+    caller's tensors stay as they are."""
     if manager is not None:
         raise NotImplementedError("checkpointing (manager) comes with the artifacts slice")
     logger = logger or MetricsLogger(echo=False)
@@ -74,8 +101,12 @@ def fit(
         device=device,
     )
     eval_fn = make_eval_step(task, quant=cfg.quant, bits_map=bits_map, device=device)
+    if carry_reset is not None:
+        carry_reset = map_tensors(lambda t: t.detach().clone(), carry_reset)
     thr = Throughput()
     for epoch in range(cfg.epochs):
+        if carry_reset is not None:
+            state = state.replace(carry=map_tensors(torch.Tensor.clone, carry_reset))
         losses = []
         for batch in train_batches(epoch):
             batch = {k: v for k, v in batch.items() if k != "index"}
@@ -89,9 +120,9 @@ def fit(
                            **{k: float(v) for k, v in metrics.items()})
             if cfg.eval_every and eval_batches is not None and step % cfg.eval_every == 0:
                 logger.log("eval", step=step, epoch=epoch,
-                           **evaluate(eval_fn, state, eval_batches()))
+                           **evaluate(eval_fn, state, eval_batches(), carry_reset))
         epoch_metrics: Dict[str, float] = {"loss": float(np.mean(losses))}
         if eval_batches is not None:
-            epoch_metrics.update(evaluate(eval_fn, state, eval_batches()))
+            epoch_metrics.update(evaluate(eval_fn, state, eval_batches(), carry_reset))
         logger.log("epoch", step=state.step, epoch=epoch, **epoch_metrics)
     return state

@@ -26,6 +26,18 @@ optimizer state. The optimizer sees one name → tensor dict; a codebook's
 name is ``CODEBOOK_PREFIX`` + its flax path, which no parameter name can
 be (those have no ``/``).
 
+Two more channels carry state from step to step, as in the JAX package:
+``TrainState.batch_stats`` (the BatchNorm running statistics of the vision
+families, buffer name → tensor) and ``TrainState.carry`` (the LSTM
+language model's truncated-BPTT carry). The student runs on the quantized
+weights with the state's running statistics (in the mapping handed to
+``Task.student_forward``); the statistics the task returns in
+``updates["batch_stats"]`` are copied into the state's tensors in place,
+as the master weights are updated in place, in every mode (mode
+``codebooks`` freezes the weights, not the statistics). The carry goes in
+as ``batch["carry"]``, detached, and the task's ``updates["carry"]`` comes
+back detached, so no step holds on to the graph of the one before.
+
 Not ported yet: ``mesh``/``grad_reduce_dtype`` (multi-GPU, last).
 """
 
@@ -64,7 +76,9 @@ class TrainState:
     step: int
     params: Params  # parameter name → full-precision master tensor
     opt_state: OptState
+    batch_stats: Optional[Dict[str, torch.Tensor]] = None  # buffer name → running statistic
     codebooks: Optional[Dict[str, torch.Tensor]] = None  # flax path → [2^bits] points
+    carry: Any = None  # recurrent state threaded across steps (detached)
 
     def replace(self, **kw) -> "TrainState":
         return dataclasses.replace(self, **kw)
@@ -75,7 +89,10 @@ class Task:
     """What the trainer needs to know about a workload.
 
     ``student_forward(params, batch, train, generator) -> (logits, updates)``
-    runs the student on ``params`` (``updates`` is ``{}`` for seq2seq);
+    runs the student on ``params`` (parameter names → tensors, with the
+    running statistics under their buffer names where the state has them);
+    ``updates`` may hold new ``batch_stats`` and a new ``carry``, and is
+    ``{}`` for seq2seq;
     ``teacher_forward(batch) -> logits`` runs the teacher without gradients;
     ``loss_and_metrics(student_logits, teacher_logits, batch, distill)``
     returns ``(scalar loss, metrics dict)``."""
@@ -122,34 +139,57 @@ def trainable(params: Params, codebooks: Optional[Dict[str, torch.Tensor]],
     return {**params, **books}
 
 
+def map_tensors(fn, tree):
+    """``fn`` on every tensor of a tree of dicts, tuples and lists (None and
+    other leaves kept)."""
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _on(dev: torch.device, t: torch.Tensor, what: str) -> torch.Tensor:
+    if t.device != dev:
+        raise ValueError(f"{what} is on {t.device}, not {dev}")
+    return t
+
+
 def create_train_state(
     params: Mapping[str, torch.Tensor],
     tx: Optimizer,
     *,
+    batch_stats: Optional[Mapping[str, torch.Tensor]] = None,
     quant: Optional[QuantSpec] = None,
     codebook_init: str = "uniform",
     mode: str = "weights",
+    carry: Any = None,
     device="cuda",
 ) -> TrainState:
     """Train state over ``params`` (``dict(model.named_parameters())``),
     trained in place, so the model that owns them is the one trained: their
-    gradients are turned on, or off in mode ``codebooks``. A codebook
-    ``quant`` adds one codebook per quantizable leaf (``codebook_init``:
-    ``uniform`` or ``quantile``). Every tensor must be on ``device``."""
+    gradients are turned on, or off in mode ``codebooks``. ``batch_stats``
+    (``dict(model.named_buffers())``: the running statistics) are updated in
+    place too. ``carry`` (a tree of tensors, e.g. from
+    :func:`.tasks.lm_initial_carry`) is copied, so the caller's stays as it
+    is. A codebook ``quant`` adds one codebook per quantizable leaf
+    (``codebook_init``: ``uniform`` or ``quantile``). Every tensor must be
+    on ``device``."""
     dev = resolve_device(device)
     _check_mode(mode, quant)
     params = dict(params)
     for name, p in params.items():
-        if p.device != dev:
-            raise ValueError(f"parameter {name} is on {p.device}, not {dev}")
-        p.requires_grad_(mode != "codebooks")
+        _on(dev, p, f"parameter {name}").requires_grad_(mode != "codebooks")
+    if batch_stats is not None:
+        batch_stats = {n: _on(dev, t, f"running statistic {n}") for n, t in batch_stats.items()}
+    carry = map_tensors(lambda t: _on(dev, t, "a carry tensor").detach().clone(), carry)
     codebooks = None
     if quant is not None and quant.method == "codebook":
         codebooks = qt.init_codebook_tree(params, quant, codebook_init)
         for t in codebooks.values():
             t.requires_grad_(mode != "weights")
-    return TrainState(step=0, params=params, codebooks=codebooks,
-                      opt_state=tx.init(trainable(params, codebooks, mode)))
+    return TrainState(step=0, params=params, batch_stats=batch_stats, codebooks=codebooks,
+                      carry=carry, opt_state=tx.init(trainable(params, codebooks, mode)))
 
 
 def quantized_params(
@@ -172,9 +212,13 @@ def quantized_params(
 
 def as_batch(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
     """numpy arrays or tensors → tensors on ``device``: integers as int64
-    (they index embeddings and gather labels), floats as f32."""
+    (they index embeddings and gather labels), floats as f32. A ``carry``
+    (a tree of tensors) passes through as it is."""
     out = {}
     for k, v in batch.items():
+        if k == "carry":
+            out[k] = v
+            continue
         t = torch.as_tensor(v)
         t = t.to(torch.float32) if t.is_floating_point() else t.to(torch.int64)
         out[k] = t.to(device, non_blocking=True)
@@ -199,23 +243,26 @@ def loss_and_grads(
     dropout_generator: Optional[torch.Generator] = None,
     codebooks: Optional[Dict[str, torch.Tensor]] = None,
     mode: str = "weights",
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Params]:
+    batch_stats: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Params, Dict[str, Any]]:
     """The JAX step's ``value_and_grad`` of its loss: ``(loss, metrics,
-    grads)`` with ``grads`` keyed like :func:`trainable` (zeros where the
-    loss does not reach a tensor, as ``jax.grad`` gives). In mode
-    ``codebooks`` the weights are detached, as the JAX step stops their
-    gradient."""
+    grads, updates)`` with ``grads`` keyed like :func:`trainable` (zeros
+    where the loss does not reach a tensor, as ``jax.grad`` gives) and
+    ``updates`` the task's (new ``batch_stats``, ``carry``). The student
+    runs with the running statistics ``batch_stats``. In mode ``codebooks``
+    the weights are detached, as the JAX step stops their gradient."""
     if mode == "codebooks":
         params = {n: t.detach() for n, t in params.items()}
     q_params = quantized_params(params, quant, codebooks, quant_generator, bits_map)
-    logits, _ = task.student_forward(q_params, batch, True, dropout_generator)
+    logits, updates = task.student_forward({**q_params, **(batch_stats or {})}, batch, True,
+                                           dropout_generator)
     teacher_logits = task.teacher_forward(batch) if task.teacher_forward else None
     loss, metrics = task.loss_and_metrics(logits, teacher_logits, batch, distill)
     wrt = trainable(params, codebooks, mode)
     names = list(wrt)
     grads = torch.autograd.grad(loss, [wrt[n] for n in names], allow_unused=True)
     grads = {n: torch.zeros_like(wrt[n]) if g is None else g for n, g in zip(names, grads)}
-    return loss.detach(), metrics, grads
+    return loss.detach(), metrics, grads, updates
 
 
 def make_train_step(
@@ -235,7 +282,8 @@ def make_train_step(
     ``metrics`` holds the task's metrics, ``loss`` and ``grad_norm`` (the
     global norm of the trained tensors' gradients before clipping), as 0-dim
     tensors on the device. What ``mode`` trains (the master weights, the
-    codebooks or both) is updated in place."""
+    codebooks or both) and the running statistics are updated in place; the
+    returned state holds the new carry."""
     dev = resolve_device(device)
     _check_mode(mode, quant)
     if mesh is not None or grad_reduce_dtype is not None:
@@ -243,17 +291,26 @@ def make_train_step(
 
     def step_fn(state: TrainState, batch: Batch, rng: int = 0):
         batch = as_batch(batch, dev)
+        if state.carry is not None:
+            batch["carry"] = map_tensors(torch.Tensor.detach, state.carry)
         q_gen, drop_gen = step_generators(dev, rng, state.step)
-        loss, metrics, grads = loss_and_grads(
+        loss, metrics, grads, updates = loss_and_grads(
             task, state.params, batch, quant=quant, distill=distill, bits_map=bits_map,
             quant_generator=q_gen, dropout_generator=drop_gen, codebooks=state.codebooks,
-            mode=mode,
+            mode=mode, batch_stats=state.batch_stats,
         )
         wrt = trainable(state.params, state.codebooks, mode)
-        updates, opt_state = tx.update(grads, state.opt_state, wrt)
-        apply_updates(wrt, updates)
+        opt_updates, opt_state = tx.update(grads, state.opt_state, wrt)
+        apply_updates(wrt, opt_updates)
         metrics = dict(metrics, loss=loss, grad_norm=global_norm(grads))
-        return state.replace(step=state.step + 1, opt_state=opt_state), metrics
+        if state.batch_stats is not None and "batch_stats" in updates:
+            with torch.no_grad():
+                for name, t in state.batch_stats.items():
+                    t.copy_(updates["batch_stats"][name])
+        carry = state.carry
+        if "carry" in updates:
+            carry = map_tensors(torch.Tensor.detach, updates["carry"])
+        return state.replace(step=state.step + 1, opt_state=opt_state, carry=carry), metrics
 
     return step_fn
 
@@ -268,18 +325,23 @@ def make_eval_step(
 ):
     """Eval step ``(state, batch) -> metrics`` on the deployment
     (hard-quantized, with the state's codebooks for a codebook ``quant``)
-    weights, as the reference evaluates the quantized model, not the
-    full-precision master copy."""
+    weights and the state's running statistics, as the reference evaluates
+    the quantized model, not the full-precision master copy. A task that
+    threads a carry returns it as ``metrics["carry"]`` (``loops.evaluate``
+    feeds it to the next batch)."""
     dev = resolve_device(device)
 
-    def eval_fn(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+    def eval_fn(state: TrainState, batch: Batch) -> Dict[str, Any]:
         batch = as_batch(batch, dev)
         with torch.no_grad():
             params = state.params
             if quant is not None and quantized_eval:
                 params = qt.quantize_tree_hard(params, quant, state.codebooks, bits_map)
-            logits, _ = task.student_forward(params, batch, False, None)
+            logits, updates = task.student_forward({**params, **(state.batch_stats or {})},
+                                                   batch, False, None)
             _, metrics = task.loss_and_metrics(logits, None, batch, None)
+        if "carry" in updates:
+            metrics = dict(metrics, carry=updates["carry"])
         return metrics
 
     return eval_fn

@@ -3,8 +3,8 @@ against the JAX package's, on the same inputs (numpy, from seeds).
 
 Tolerances (f32 on the CPU): nearest-point indices exactly, for sorted,
 unsorted, colliding and out-of-[0, 1] points and exact midpoints; the
-uniform and quantile initial points exactly (the quantile within 1 ulp:
-XLA may fuse its interpolation); fake-quant values within 2e-6 (as
+uniform and quantile initial points exactly (the quantile also over a run
+of equal values, as a leaf's edge padding makes); fake-quant values within 2e-6 (as
 tests/test_kernels.py states for the uniform fake-quant); gradients to the
 points within 1e-5 of their largest |gradient| (a scatter-add over 256-wide
 buckets, summed in another order).
@@ -58,9 +58,12 @@ def test_init_points_match_jax(bits):
     np.testing.assert_array_equal(tcb.init_points(bits).numpy(),
                                   np.asarray(jcb.init_points(bits)))
     x01 = rng.random((37, 256)).astype(np.float32) ** 2
-    want = np.asarray(jcb.init_points(bits, "quantile", jnp.asarray(x01)))
-    got = tcb.init_points(bits, "quantile", torch.from_numpy(x01)).numpy()
-    np.testing.assert_allclose(got, want, rtol=0, atol=np.spacing(np.float32(1)))
+    padded = x01.copy()
+    padded[-1, 64:] = padded[-1, 63]  # the edge padding of a 9,280-weight leaf
+    for x in (x01, padded):
+        want = np.asarray(jcb.init_points(bits, "quantile", jnp.asarray(x)))
+        got = tcb.init_points(bits, "quantile", torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="x01"):
         tcb.init_points(bits, "quantile")
     with pytest.raises(ValueError, match="init mode"):

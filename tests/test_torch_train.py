@@ -305,7 +305,7 @@ class TestKDStep:
         jloss, jmetrics, jgrads = _jax_loss_and_grads(jx, twin, batch, jquant, jx.Distill(0.5, 2.0))
         task = nmt_task(twin.student, twin.teacher, device="cpu")
         params = {n: p.requires_grad_(True) for n, p in _port_params(twin).items()}
-        loss, metrics, grads = loss_and_grads(
+        loss, metrics, grads, _ = loss_and_grads(
             task, params, as_batch(batch, torch.device("cpu")), quant=quant,
             distill=DistillSpec(0.5, 2.0))
         np.testing.assert_allclose(float(loss), jloss, rtol=LOSS_RTOL)
@@ -435,7 +435,7 @@ class TestCodebookKDStep:
                  for p, t in codebooks_from_numpy(jx.jax.tree.map(np.asarray, jbooks)).items()}
         params = {n: p.requires_grad_(mode == "joint") for n, p in _port_params(twin).items()}
         task = nmt_task(twin.student, twin.teacher, device="cpu")
-        loss, metrics, grads = loss_and_grads(
+        loss, metrics, grads, _ = loss_and_grads(
             task, params, as_batch(batch, torch.device("cpu")),
             quant=QuantSpec(bits=4, method="codebook"), distill=DistillSpec(0.5, 2.0),
             codebooks=books, mode=mode)
@@ -695,7 +695,7 @@ def test_gpu_joint_codebook_step_matches_cpu(cuda):
         tx = build_optimizer(TrainConfig(optimizer="sgd", learning_rate=0.5, clip_norm=5.0))
         state = create_train_state(dict(student.named_parameters()), tx, quant=quant,
                                    mode="joint", codebook_init="quantile", device=dev)
-        loss, metrics, grads = loss_and_grads(
+        loss, metrics, grads, _ = loss_and_grads(
             nmt_task(student, teacher, device=dev), state.params,
             as_batch(batch, torch.device(dev)), quant=quant, distill=DistillSpec(0.5, 2.0),
             codebooks=state.codebooks, mode="joint")
