@@ -127,7 +127,28 @@ Phases, each printing one JSON line:
    = 128, ``examples/cifar10_distill.py``) and the ResNet (``resnet18`` →
    ``resnet18_half``, ImageNet stem at 224×224, 1000 classes, B = 64):
    3 STE steps each with the launch, finite and statistics checks, and a
-   B = 4 step on the card against the CPU.
+   B = 4 step on the card against the CPU;
+16. artifact: the deploy loop from disk at full width. Phase 4's seeded
+   student is written as a 4-bit uniform ``.qdt`` (``save_artifact``:
+   Huffman-coded levels through the host codec, ``csrc/qdt_native.cpp``,
+   built with ``g++`` in phase 2) and as a codebook ``.qdt`` (phase 9's
+   trained codebooks), read back onto the card (``load_artifact``),
+   packed (``pack_decoder``; the codebook file as the exact-LUT deploy on
+   its ``generator/kernel`` codebook) and served by the graphed
+   ``beam_search_packed``: launch counts on the capturing call and a
+   replay (3 dequant-matmul, 1 fused top-k, 1 beam advance a step, the
+   LUT variants for the codebook file), finite scores, f32 tokens of the
+   file on the card equal to the CPU plain path's on the same file (16
+   sentences); file bytes, fp32 bytes and compression ratio beside the
+   ``model_size_report`` estimate from the measured index streams; save,
+   load, encode and decode seconds; device ms a search from disk and from
+   memory, in turns. Then phase 7's train state (student_medium with its
+   Adam moments) saved and restored through ``ExperimentManager`` on the
+   card, bit-equal, and the port's WMT driver (``python -m
+   quantized_distillation_tpu_torch.examples.wmt_distill --device cuda``,
+   toy corpus of 1,000 pairs, one epoch each) as a subprocess that must
+   exit 0 with its ``final`` event. Files go to a temporary directory
+   under ``runs/``, removed at the end.
 
 TF32 is off for matmul and cuDNN throughout, so every f32 product on the
 card is a true f32 product, as on the CPU. The card-vs-CPU steps (phases
@@ -135,7 +156,8 @@ card is a true f32 product, as on the CPU. The card-vs-CPU steps (phases
 (:func:`relu_masks`).
 
 Then the kernel table as one JSON object (the fake-quant row also holds
-its launches, bucket count and times on each path of phases 13-15), then
+its launches, bucket count and times on each path of phases 13-15; every
+row its ``artifact_launches`` in phase 16's two searches from disk), then
 the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. Weights are random, made from a seed. Imports nothing of JAX.
@@ -149,12 +171,15 @@ import dataclasses
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from quantized_distillation_tpu_torch.config import (
@@ -193,13 +218,16 @@ from quantized_distillation_tpu_torch.kernels import (
 from quantized_distillation_tpu_torch.models import (
     CNN_PRESETS,
     ConvForwardNet,
+    Seq2Seq,
     make_cnn,
     make_lm,
     make_resnet,
     make_seq2seq,
     make_wrn,
 )
+from quantized_distillation_tpu_torch import native
 from quantized_distillation_tpu_torch.ops.bucketing import to_buckets
+from quantized_distillation_tpu_torch.ops.sizes import model_size_report
 from quantized_distillation_tpu_torch.serve import (
     TranslationEngine,
     beam_search,
@@ -217,7 +245,12 @@ from quantized_distillation_tpu_torch.train import (
     nmt_task,
     vision_task,
 )
-from quantized_distillation_tpu_torch.train.quantize_tree import is_quantizable
+from quantized_distillation_tpu_torch.train.manager import ExperimentManager
+from quantized_distillation_tpu_torch.train.quantize_tree import (
+    index_streams,
+    is_quantizable,
+    param_sizes,
+)
 from quantized_distillation_tpu_torch.train.optim import apply_updates, global_norm
 from quantized_distillation_tpu_torch.train.trainer import (
     Task,
@@ -227,12 +260,14 @@ from quantized_distillation_tpu_torch.train.trainer import (
     quantized_params,
     trainable,
 )
+from quantized_distillation_tpu_torch.utils.artifact import load_artifact, save_artifact
 from quantized_distillation_tpu_torch.utils.search_profile import device_profile, span_ms
-from quantized_distillation_tpu_torch.utils.timing import graph_ms
+from quantized_distillation_tpu_torch.utils.profiling import CHIP_PEAKS, graph_ms
 
-PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (NVIDIA data sheet)
-PEAK_F32 = 67e12  # H100 SXM f32 FLOP/s outside the tensor cores (NVIDIA data sheet)
-HBM = 3.35e12  # H100 SXM device memory, bytes/s
+# the card's data-sheet peaks, one definition (utils/profiling.CHIP_PEAKS)
+PEAK_BF16 = CHIP_PEAKS["H100"]["bf16_tflops"] * 1e12  # dense bf16 tensor-core FLOP/s
+PEAK_F32 = CHIP_PEAKS["H100"]["f32_tflops"] * 1e12  # f32 FLOP/s outside the tensor cores
+HBM = CHIP_PEAKS["H100"]["hbm_gbs"] * 1e9  # device memory, bytes/s
 F32_TOL = 1e-4  # rtol = atol, as tests/test_kernels.py states for f32 compute
 # train-step parity, as tests/test_torch_train.py states it for f32: loss and
 # metrics rtol 1e-5; gradients within 1e-4 of the tensor's largest |gradient|;
@@ -350,10 +385,14 @@ def ptxas_faults(log: str) -> tuple:
 
 def phase_build(checks):
     """Builds every library (anew, so that each compiler log is read) and
-    fails on a serialized wgmma or a spilling tensor-core instance."""
+    fails on a serialized wgmma or a spilling tensor-core instance; then
+    the host codec (``csrc/qdt_native.cpp``, ``g++``)."""
     t0 = time.perf_counter()
     logs = _build.build_all(force=True)
     secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _build.load_host("qdt_native")
+    host_secs = time.perf_counter() - t0
     ptxas = [
         f"{name}: {line.split('ptxas info    : ')[-1]}"
         for name, log in logs.items()
@@ -368,7 +407,7 @@ def phase_build(checks):
         checks.require(not spills, f"build: spill stores in tensor-core instances: {spills[:4]}")
         faults[name] = {"wgmma_serialized": len(serialized), "tc_spilling": len(spills)}
     emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(logs), "faults": faults,
-          "ptxas": ptxas})
+          "host_codec_seconds": round(host_secs, 2), "ptxas": ptxas})
 
 
 def cuobjdump() -> str:
@@ -1188,7 +1227,7 @@ def phase_train(checks, args, smi) -> dict:
     })
     phase_profile(lambda: run(step), med_q, phase="train_profile", focus="fake_quant_kernel")
     row["launches"] = launches["fake_quant_buckets"]
-    return row
+    return row, holder["state"]
 
 
 def gather_backward_ms(points, w) -> dict:
@@ -1631,6 +1670,208 @@ def phase_engine_lut(checks, args, model, params, points, smi) -> dict:
     return launches
 
 
+def deploy_from_disk(checks, args, label, path, model, points, want, src, src_len, cfg):
+    """Load the artifact ``path`` onto the card, pack it (with ``points``:
+    the exact-LUT deploy), run the graphed packed search twice (capture,
+    replay) checking the launch counts ``want``, then hold f32 tokens of
+    the file on the card to the CPU plain path on the same file. Returns
+    (launches, load seconds, the bf16 search from disk, f32 results)."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    restored, meta = load_artifact(str(path), model, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    tree = params_to_numpy(restored)
+    disk = Seq2Seq(model.cfg, device=dev).load_params(tree)
+    group = pick_generator_group(args.batch * args.beam)
+    lut = dict(points=points, lut_mode="exact") if points is not None else {}
+
+    def pack(cd, device):
+        return pack_decoder(tree, model.cfg, args.bits, compute_dtype=cd, generator_group=group,
+                            device=device, **lut)
+
+    dec = pack(torch.bfloat16, dev)
+    for call in ("capture", "replay"):
+        zero_counts()
+        toks, scores = beam_search_packed(disk, dec, src, src_len, cfg, device=dev)
+        launches = read_counts()
+        checks.require(launches == want, f"{label} from disk launches ({call}) {launches}, "
+                                         f"expected {want}")
+    checks.require(bool(torch.isfinite(scores).all()), f"{label} from disk: scores not finite")
+    ns = args.cpu_sentences
+    g_toks, g_scores = beam_search_packed(disk, pack(torch.float32, dev), src[:ns],
+                                          src_len[:ns], cfg, device=dev)
+    on_cpu, _ = load_artifact(str(path), model, device="cpu")
+    c_toks, c_scores = beam_search_packed(
+        Seq2Seq(model.cfg, device="cpu").load_params(params_to_numpy(on_cpu)),
+        pack(torch.float32, "cpu"), src[:ns], src_len[:ns], cfg, device="cpu")
+    equal = torch.equal(g_toks.cpu(), c_toks)
+    checks.require(equal, f"{label}: f32 tokens from disk on the card differ from the CPU path")
+    search = (lambda: beam_search_packed(disk, dec, src, src_len, cfg, device=dev))
+    return launches, load_s, search, meta, {
+        "f32_tokens_equal_cpu": equal, "f32_sentences": ns,
+        "f32_score_max_abs_diff": float((g_scores.cpu() - c_scores).abs().max())}
+
+
+def manager_round_trip(checks, args, state, root) -> dict:
+    """Save the train phase's state (full-width student, Adam moments) with
+    the experiment manager and restore it into a fresh state on the card:
+    every tensor bit-equal, step and optimizer count kept."""
+    dev = torch.device("cuda")
+    mgr = ExperimentManager(str(root))
+    mgr.add_new_model("train_phase", {"preset": args.preset, "vocab": args.vocab})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save("train_phase", state, state.step)
+    save_s = time.perf_counter() - t0
+    fresh_model = make_seq2seq(args.preset, args.vocab, args.vocab, dropout=0.0, device=dev,
+                               seed=args.seed + 99)
+    tx = build_optimizer(TrainConfig(learning_rate=1e-3, clip_norm=5.0))
+    fresh = create_train_state(dict(fresh_model.named_parameters()), tx,
+                               quant=QuantSpec(bits=args.bits), device=dev)
+    t0 = time.perf_counter()
+    restored = mgr.restore("train_phase", fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    pairs = list(zip(_leaves(state.params) + _leaves(state.opt_state.mu)
+                     + _leaves(state.opt_state.nu),
+                     _leaves(restored.params) + _leaves(restored.opt_state.mu)
+                     + _leaves(restored.opt_state.nu)))
+    equal = all(a.device == b.device and torch.equal(a, b) for a, b in pairs)
+    equal = equal and restored.step == state.step and \
+        restored.opt_state.count == state.opt_state.count
+    checks.require(equal, "manager round trip: the restored train state differs")
+    path = root / "train_phase" / "checkpoints" / f"{state.step}.pt"
+    return {"bit_equal": equal, "tensors": len(pairs), "step": restored.step,
+            "checkpoint_bytes": path.stat().st_size, "save_seconds": save_s,
+            "restore_seconds": restore_s}
+
+
+def driver_run(checks, root) -> dict:
+    """The port's WMT driver once, briefly, on the card, as a subprocess:
+    toy corpus, one epoch for the teacher and one for the 4-bit student."""
+    workdir = root / "wmt"
+    cmd = [sys.executable, "-m", "quantized_distillation_tpu_torch.examples.wmt_distill",
+           "--device", "cuda", "--workdir", str(workdir), "--epochs", "1",
+           "--teacher-epochs", "1", "--toy-size", "1000"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    events = []
+    if (workdir / "metrics.jsonl").exists():
+        events = [json.loads(line) for line in (workdir / "metrics.jsonl").read_text().splitlines()]
+    final = events[-1] if events and events[-1]["event"] == "final" else None
+    ok = proc.returncode == 0 and final is not None
+    checks.require(ok, f"WMT driver on the card: rc {proc.returncode}, final event "
+                       f"{final is not None}; stderr tail: {proc.stderr[-2000:]}")
+    return {"rc": proc.returncode, "seconds": seconds, "events": [e["event"] for e in events],
+            "final": final}
+
+
+def phase_artifact(checks, args, model, params, books, train_state, smi) -> dict:
+    """The deploy loop from disk at full width: the seeded student written
+    as a 4-bit uniform ``.qdt`` and as a codebook ``.qdt`` (the codebook
+    train phase's codebooks), read back onto the card, packed and served by
+    the graphed packed search (launch counts, f32 tokens of the file on the
+    card equal to the CPU path's); the size report beside the file's size;
+    the codec's seconds; device ms a search from disk and from memory. Then
+    the train phase's state through the experiment manager, and the WMT
+    driver once. Returns the launches of each search from disk."""
+    dev = torch.device("cuda")
+    root = Path(__file__).resolve().parent / "runs"
+    root.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_artifact_", dir=root))
+    cfg = BeamConfig(beam_size=args.beam, max_len=args.src_len)
+    gen = torch.Generator().manual_seed(args.seed + 1)  # phase_main_path's sources
+    src = torch.randint(4, args.vocab, (args.batch, args.src_len), generator=gen)
+    src_len = torch.full((args.batch,), args.src_len, dtype=torch.int64)
+    steps = cfg.max_len
+    try:
+        spec = QuantSpec(bits=args.bits)
+        t0 = time.perf_counter()
+        stats = save_artifact(str(root / "uniform.qdt"), model, spec,
+                              meta={"preset": args.preset, "seed": args.seed})
+        save_s = time.perf_counter() - t0
+        weights = dict(model.named_parameters())
+        streams = index_streams(weights, spec)
+        sizes = param_sizes(weights)
+        rep = model_size_report(sizes, args.bits, scaling=spec.scaling, index_streams=streams,
+                                exclude=[k for k in sizes if k not in streams])
+        t0 = time.perf_counter()
+        coded = {k: native.huffman_encode(v, 1 << args.bits) for k, v in streams.items()}
+        encode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = {k: native.huffman_decode(c[0], c[2], c[1], streams[k].size)
+                for k, c in coded.items()}
+        decode_s = time.perf_counter() - t0
+        checks.require(all(np.array_equal(back[k], streams[k]) for k in streams),
+                       "codec round trip of the index streams failed")
+        symbols = sum(v.size for v in streams.values())
+
+        want = expected(dequant_matmul=3 * steps, dequant_matmul_topk=steps, beam_advance=steps)
+        u_launches, u_load_s, u_search, meta, u_f32 = deploy_from_disk(
+            checks, args, "uniform", root / "uniform.qdt", model, None, want, src, src_len, cfg)
+        checks.require(meta == {"preset": args.preset, "seed": args.seed}, f"meta {meta}")
+        group = pick_generator_group(args.batch * args.beam)
+        mem = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.bfloat16,
+                           generator_group=group, device=dev)
+        mem_search = (lambda: beam_search_packed(model, mem, src, src_len, cfg, device=dev))
+        mem_search()
+        u_search()
+        spans = {"from_disk": [], "from_memory": []}
+        for i in range(args.reps):  # in turns
+            for name, run in (("from_disk", u_search), ("from_memory", mem_search))[
+                    :: 1 if i % 2 == 0 else -1]:
+                spans[name].append(span_ms(run))
+
+        cb_spec = QuantSpec(bits=args.bits, method="codebook")
+        t0 = time.perf_counter()
+        cb_stats = save_artifact(str(root / "codebook.qdt"), model, cb_spec, codebooks=books)
+        cb_save_s = time.perf_counter() - t0
+        want_lut = expected(dequant_matmul_lut=3 * steps, dequant_matmul_topk_lut=steps,
+                            beam_advance=steps)
+        c_launches, c_load_s, c_search, _, c_f32 = deploy_from_disk(
+            checks, args, "codebook (exact LUT)", root / "codebook.qdt", model,
+            books["generator/kernel"].cpu(), want_lut, src, src_len, cfg)
+        cb_span = [span_ms(c_search) for _ in range(args.reps)]
+
+        est_bytes = rep.total_bits / 8
+        emit({
+            "phase": "artifact", "preset": args.preset, "vocab": args.vocab, "bits": args.bits,
+            "batch": args.batch, "beam": args.beam, "max_len": steps,
+            "uniform": {
+                "file_bytes": stats["file_bytes"], "fp32_bytes": stats["fp32_bytes"],
+                "compression_ratio": stats["compression_ratio"],
+                "size_report_bytes": est_bytes,
+                "size_report_compression_ratio": rep.compression_ratio,
+                "file_over_report": stats["file_bytes"] / est_bytes,
+                "mean_bits_per_weight": rep.quantized_bits / max(
+                    sum(sizes[k] for k in streams), 1),
+                "save_seconds": save_s, "load_seconds": u_load_s,
+                "launches": u_launches, **u_f32,
+                "search_device_ms_from_disk": spans["from_disk"],
+                "search_device_ms_from_memory": spans["from_memory"],
+            },
+            "codec": {"symbols": symbols, "encode_seconds": encode_s,
+                      "decode_seconds": decode_s},
+            "codebook": {
+                "file_bytes": cb_stats["file_bytes"],
+                "compression_ratio": cb_stats["compression_ratio"],
+                "save_seconds": cb_save_s, "load_seconds": c_load_s,
+                "points": "the codebook train phase's codebooks; deployed exact-LUT on its "
+                          "generator/kernel codebook",
+                "launches": c_launches, **c_f32, "search_device_ms_from_disk": cb_span,
+            },
+            "manager": manager_round_trip(checks, args, train_state, root / "manager"),
+            "wmt_driver": driver_run(checks, root),
+            "card": smi,
+        })
+        return {"uniform": u_launches, "lut": c_launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 WRN_BUCKETS = 10814  # WRN-16-4's 17 quantizable leaves in buckets of 256
 LM_BUCKETS = 24096  # the LM student_medium's 18, V = 10000
 
@@ -1954,7 +2195,7 @@ def main(argv=None) -> int:
         row["launches"] = launches[row["name"]]
         row["engine_chunk_launches"] = engine_launches[row["name"]]
     del dec
-    fq_row = phase_train(checks, args, smi)
+    fq_row, train_state = phase_train(checks, args, smi)
     table.append(fq_row)
 
     books = phase_codebook_train(checks, args, smi)
@@ -1969,6 +2210,11 @@ def main(argv=None) -> int:
         row["launches"] = launches[row["name"]]
         row["engine_launches"] = engine_launches[row["name"]]
     table += lut_rows
+    from_disk = phase_artifact(checks, args, model, params, books, train_state, smi)
+    del train_state
+    for row in table:  # the launches of the two searches from disk
+        counts = {k: from_disk["uniform"][k] + from_disk["lut"][k] for k in LAUNCH_COUNTERS}
+        row["artifact_launches"] = counts.get(row["name"], 0)
     fq_row["paths"] = {
         "vision_train": phase_vision_train(checks, args, smi),
         "lm_train": phase_lm_train(checks, args, smi),

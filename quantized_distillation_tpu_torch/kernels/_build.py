@@ -6,11 +6,16 @@ built at first use into ``quantized_distillation_tpu_torch/_build/`` under a
 name keyed by a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is. :func:`build_all` starts one
 ``nvcc`` per source, all at once. A failed build raises; nothing falls back.
+
+Host code (``csrc/<name>.cpp``: the ``.qdt`` codec) compiles the same way
+with ``g++`` (:func:`load_host`), under a file lock, since several
+processes (test workers) may load it at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import json
 import os
@@ -32,6 +37,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -107,6 +113,32 @@ def load(name: str) -> ctypes.CDLL:
             lib = _libs.get(name)
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(str(path))
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library of ``csrc/<name>.cpp``, compiled with ``g++``
+    at first use into a name keyed by the source's hash; raises if it does
+    not build."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + src.read_bytes())
+    path = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _lock, open(BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not path.exists():
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, str(src)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(f"g++ failed for {src.name}:\n{proc.stderr}")
+            os.replace(tmp, path)
+        lib = _libs[name] = ctypes.CDLL(str(path))
     return lib
 
 

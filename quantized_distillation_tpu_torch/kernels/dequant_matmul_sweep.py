@@ -28,7 +28,7 @@ import sys
 
 import torch
 
-from ..utils.timing import graph_ms
+from ..utils.profiling import graph_ms
 from . import _build
 from .dequant_matmul import _ARGTYPES, dequant_matmul_reference
 from .packed import dequantize_linear, pack_linear

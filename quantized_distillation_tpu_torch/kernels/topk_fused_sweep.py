@@ -34,7 +34,7 @@ import sys
 
 import torch
 
-from ..utils.timing import graph_ms
+from ..utils.profiling import graph_ms
 from . import _build
 from .packed import dequantize_linear, pack_linear
 from .topk_fused import (

@@ -1,8 +1,9 @@
 """Quantization math of the PyTorch port: bucketed scaling, the uniform
 grid and learned codebooks (quantize, dequantize, fake-quant with a
-straight-through gradient)."""
+straight-through gradient), sub-byte packing of levels, and compressed-size
+accounting (Huffman code lengths, :func:`.sizes.model_size_report`)."""
 
-from . import bucketing, codebook, uniform
+from . import bucketing, codebook, huffman, packing, sizes, uniform
 from .bucketing import (
     ABSMAX,
     DEFAULT_BUCKET_SIZE,
@@ -16,11 +17,17 @@ from .bucketing import (
     to_buckets,
 )
 from .codebook import CodebookQuantizedTensor, init_points, nearest_point_idx
+from .huffman import code_lengths, entropy_bits_per_symbol, mean_bits_per_symbol
+from .packing import pack, unpack, values_per_byte
+from .sizes import SizeReport, model_size_report
 from .uniform import QuantizedTensor, fake_quant, quantize_levels_01, ste_fake_quant
 
 __all__ = [
     "bucketing",
     "codebook",
+    "huffman",
+    "packing",
+    "sizes",
     "uniform",
     "ABSMAX",
     "DEFAULT_BUCKET_SIZE",
@@ -35,6 +42,14 @@ __all__ = [
     "CodebookQuantizedTensor",
     "init_points",
     "nearest_point_idx",
+    "code_lengths",
+    "entropy_bits_per_symbol",
+    "mean_bits_per_symbol",
+    "pack",
+    "unpack",
+    "values_per_byte",
+    "SizeReport",
+    "model_size_report",
     "QuantizedTensor",
     "fake_quant",
     "quantize_levels_01",

@@ -5,14 +5,16 @@ NMT and LM tasks, the loops and automatic bit assignment.
 Ported for every model family (seq2seq, CNN, WideResNet, ResNet, LSTM LM):
 modes ``weights`` (quantized distillation), ``codebooks`` and ``joint``
 (differentiable quantization), the BatchNorm running statistics and the
-truncated-BPTT carry of the train state, and ``bits.py``. Still to come:
-the experiment manager and multi-GPU training.
+truncated-BPTT carry of the train state, ``bits.py``, and the experiment
+manager (checkpoints and a run registry). Still to come: multi-GPU
+training.
 """
 
-from . import bits, losses, quantize_tree, tasks, trainer
+from . import bits, losses, manager, quantize_tree, tasks, trainer
 from .bits import assign_bits, gradient_sensitivities
 from .loops import evaluate, fit
 from .losses import accuracy, cross_entropy, distillation_loss, kd_kl
+from .manager import ExperimentManager
 from .tasks import lm_initial_carry, lm_task, nmt_task, vision_task
 from .trainer import (
     Task,
@@ -28,6 +30,8 @@ __all__ = [
     "assign_bits",
     "gradient_sensitivities",
     "losses",
+    "manager",
+    "ExperimentManager",
     "evaluate",
     "fit",
     "quantize_tree",

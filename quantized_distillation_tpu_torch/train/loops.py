@@ -3,10 +3,8 @@
 with periodic evaluation on hard-quantized weights and metrics logging;
 ``evaluate`` aggregates eval metrics over a dataset. Both thread a
 recurrent carry for stateful tasks (contiguous-BPTT LM,
-``tasks.lm_task(thread_carry=True)``).
-
-Checkpointing through an experiment manager comes with the artifacts
-slice.
+``tasks.lm_task(thread_carry=True)``). ``fit`` checkpoints the train
+state through a :class:`.manager.ExperimentManager` after each epoch.
 """
 
 from __future__ import annotations
@@ -86,14 +84,13 @@ def fit(
 ) -> TrainState:
     """Epoch loop: ``train_batches(epoch)`` yields numpy batches; evaluate
     on hard-quantized weights every ``cfg.eval_every`` steps and after each
-    epoch; log train metrics every ``cfg.log_every`` steps.
+    epoch; log train metrics every ``cfg.log_every`` steps; with a
+    ``manager`` and a ``model_name``, save the state after each epoch.
 
     ``carry_reset``: for stateful (carry-threading) tasks, the zero carry
     installed afresh at each epoch's start (the data stream restarts) and
     the initial carry of every eval pass. It is copied once, so the
     caller's tensors stay as they are."""
-    if manager is not None:
-        raise NotImplementedError("checkpointing (manager) comes with the artifacts slice")
     logger = logger or MetricsLogger(echo=False)
     tx = tx or build_optimizer(cfg)
     step_fn = make_train_step(
@@ -125,4 +122,6 @@ def fit(
         if eval_batches is not None:
             epoch_metrics.update(evaluate(eval_fn, state, eval_batches(), carry_reset))
         logger.log("epoch", step=state.step, epoch=epoch, **epoch_metrics)
+        if manager is not None and model_name is not None:
+            manager.save(model_name, state, state.step)
     return state

@@ -43,6 +43,7 @@ from quantized_distillation_tpu_torch.train import (
     nmt_task,
 )
 from quantized_distillation_tpu_torch.train import quantize_tree as qt
+from quantized_distillation_tpu_torch.train.manager import ExperimentManager
 from quantized_distillation_tpu_torch.train.trainer import (
     CODEBOOK_PREFIX,
     as_batch,
@@ -609,8 +610,13 @@ def test_fit_trains_logs_and_evaluates(twin, tmp_path):
     events = [json.loads(line)["event"] for line in log.read_text().splitlines()]
     # steps 1-2 in epoch 0, 3-4 in epoch 1: logs at steps 2 and 4, an eval at step 3
     assert events == ["train", "epoch", "eval", "train", "epoch"]
-    with pytest.raises(NotImplementedError, match="artifacts"):
-        fit(task, state, cfg, lambda epoch: iter(batches), manager=object(), device="cpu")
+    mgr = ExperimentManager(str(tmp_path / "runs"))
+    mgr.add_new_model("student")
+    state = fit(task, state, cfg, lambda epoch: iter(batches), tx=tx, manager=mgr,
+                model_name="student", device="cpu")
+    assert mgr.latest_step("student") == state.step == 8  # saved after each epoch
+    assert sorted(p.name for p in (tmp_path / "runs/student/checkpoints").iterdir()) == [
+        "6.pt", "8.pt"]
 
 
 # ------------------------------------------------------------------ dropout
