@@ -148,16 +148,41 @@ Phases, each printing one JSON line:
    quantized_distillation_tpu_torch.examples.wmt_distill --device cuda``,
    toy corpus of 1,000 pairs, one epoch each) as a subprocess that must
    exit 0 with its ``final`` event. Files go to a temporary directory
-   under ``runs/``, removed at the end.
+   under ``runs/``, removed at the end;
+17. drivers: the four paper drivers of ``examples/`` in this process
+   through their ``main(argv)`` with ``--device cuda``, on their synthetic
+   data, each under its own workdir in a temporary directory under
+   ``runs/`` (removed at the end): CIFAR-10 (``teacher`` → ``student_small``,
+   4-bit, 2,560 images, 15 epochs a stage: BASELINE config 1), CIFAR-100
+   WRN-28-10 → WRN-16-4 (2-bit, ``--auto-bits 3``, 2,560 images, one epoch
+   a stage, the codebook stage included: BASELINE config 2), ImageNet
+   ``resnet18`` → ``resnet18_half`` (64 px, 1000 classes, 2,048 images, B =
+   64, one epoch a stage) and the PTB LM (2x650 → 2x256, V = 10000, 200,000
+   tokens, one epoch a stage). Each must return 0 with a ``final`` event
+   whose numbers are finite, register its teacher and student, each with a
+   checkpoint, and launch the fake-quant kernel exactly as its code implies
+   (one launch per student STE step and per quantized eval batch; the
+   teachers, the bit assignment and the codebook stage none), more than
+   zero times; the CIFAR-10 student's quantized accuracy must exceed 0.2.
+   One line per driver: wall seconds per stage from the events' ``t``
+   fields, the student epoch's images or tokens per second (epoch event to
+   epoch event: its steps, its eval pass and the checkpoint before it; a
+   lone epoch also builds the student and its state, and says so), the
+   launches, the fake-quant kernel bit-exact against its plain version and
+   timed on the buckets of the driver's student at its bits (after the
+   counted run), and for the vision drivers the host data time: one
+   training epoch of ``batches(..., train_augment=True)`` alone, and its
+   share of the student epoch.
 
-TF32 is off for matmul and cuDNN throughout, so every f32 product on the
-card is a true f32 product, as on the CPU. The card-vs-CPU steps (phases
+TF32 is off for matmul and cuDNN throughout, so every
+f32 product on the card is a true f32 product, as on the CPU. The card-vs-CPU steps (phases
 7, 9, 13-15) run the CPU on the card's ReLU sign patterns
 (:func:`relu_masks`).
 
 Then the kernel table as one JSON object (the fake-quant row also holds
-its launches, bucket count and times on each path of phases 13-15; every
-row its ``artifact_launches`` in phase 16's two searches from disk), then
+its launches, bucket count and times on each path of phases 13-15 and its
+launches, bucket counts and times in phase 17's drivers; every row its
+``artifact_launches`` in phase 16's two searches from disk), then
 the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. Weights are random, made from a seed. Imports nothing of JAX.
@@ -168,6 +193,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import re
@@ -177,6 +203,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -193,6 +220,14 @@ from quantized_distillation_tpu_torch.convert import (
     batch_stats_to_numpy,
     flax_leaves,
     params_to_numpy,
+)
+from quantized_distillation_tpu_torch.data import batches, load_cifar, load_imagenet
+from quantized_distillation_tpu_torch.data.cifar import BASE_DATA_FOLDER
+from quantized_distillation_tpu_torch.examples import (
+    cifar10_distill,
+    cifar100_wrn_diffquant,
+    imagenet_resnet_distill,
+    ptb_lm_distill,
 )
 from quantized_distillation_tpu_torch.kernels import (
     LAUNCH_COUNTERS,
@@ -2140,6 +2175,184 @@ def phase_vision_families(checks, args, smi) -> dict:
     return rows
 
 
+# Phase 17: the four paper drivers through their main(argv), on synthetic data.
+# The CIFAR-10 epochs are what the synthetic task needs for its quantized
+# student to clear CIFAR10_MIN_ACCURACY (the BatchNorm running statistics, at
+# momentum 0.99, settle only after a few hundred steps).
+CIFAR10_MIN_ACCURACY = 0.2  # chance is 0.1
+DRIVER_RUNS = {
+    "cifar10": (cifar10_distill, [
+        "--teacher", "teacher", "--student", "student_small", "--bits", "4",
+        "--synthetic-size", "2560", "--teacher-epochs", "15", "--epochs", "15"]),
+    "cifar100_wrn": (cifar100_wrn_diffquant, [
+        "--teacher", "teacher", "--student", "student_medium", "--bits", "2", "--auto-bits", "3",
+        "--synthetic-size", "2560", "--teacher-epochs", "1", "--epochs", "1",
+        "--diffquant-epochs", "1"]),
+    "imagenet": (imagenet_resnet_distill, [
+        "--teacher", "resnet18", "--student", "resnet18_half", "--image-size", "64",
+        "--num-classes", "1000", "--synthetic-size", "2048", "--batch-size", "64",
+        "--teacher-epochs", "1", "--epochs", "1"]),
+    "ptb": (ptb_lm_distill, [
+        "--teacher", "teacher", "--student", "student_medium", "--synthetic-vocab", "10000",
+        "--synthetic-tokens", "200000", "--teacher-epochs", "1", "--epochs", "1"]),
+}
+# stage → the event that ends it (a stage starts where the last one ended,
+# the first at the "data" event)
+DRIVER_STAGES = {
+    "cifar100_wrn": {"teacher": "teacher_eval", "student_uniform": "student_uniform_eval",
+                     "auto_bits": "auto_bits", "diffquant": "final"},
+}
+DEFAULT_STAGES = {"teacher": "teacher_eval", "student": "final"}
+
+
+def vision_driver_launches(n_train, n_test, batch_size, epochs) -> int:
+    """Fake-quant launches of a vision driver's student: one per STE step
+    (full batches), one per quantized eval batch (a pass after every epoch
+    and one for the report; the last batch may be short)."""
+    return epochs * (n_train // batch_size) + (epochs + 1) * math.ceil(n_test / batch_size)
+
+
+def lm_windows(n_tokens, batch_size, bptt) -> int:
+    """Contiguous-BPTT windows of ``data/lm.py::lm_batches``."""
+    return len(range(0, (n_tokens - 1) // batch_size - bptt + 1, bptt))
+
+
+def host_epoch_seconds(ds, batch_size, seed) -> float:
+    """One training epoch of ``batches(..., train_augment=True)`` alone, on
+    the host: the drivers' data time."""
+    t0 = time.perf_counter()
+    for _ in batches(ds, batch_size, train_augment=True, seed=seed):
+        pass
+    return time.perf_counter() - t0
+
+
+def driver_timeline(events, stages) -> tuple:
+    """(stage → wall seconds, the student's epoch intervals), from the
+    events' ``t`` fields. A student epoch's interval runs from the epoch
+    or stage-ending event before it (the periodic ``train`` events do not
+    count) to it: its steps, its eval pass and the checkpoint of the epoch
+    before it; the first one also builds the student and its state."""
+    ends = {end: stage for stage, end in stages.items()}
+    seconds, epochs, in_student = {}, [], False
+    start = prev = events[0]["t"]
+    for e in events[1:]:
+        stage = ends.get(e["event"])
+        if e["event"] == "epoch":
+            if in_student:
+                epochs.append(e["t"] - prev)
+            prev = e["t"]
+        elif stage:
+            seconds[stage] = e["t"] - start
+            start = prev = e["t"]
+            in_student = stage == "teacher"
+    return seconds, epochs
+
+
+def driver_plan(name, a) -> dict:
+    """What the driver ``name`` run at the flags ``a`` implies: its
+    registry's teacher and student, its fake-quant launches, the items of a
+    student epoch, its student model (for the bucket count) and, for the
+    vision drivers, its training split (for the host data time)."""
+    if name == "ptb":
+        per_epoch = lm_windows(a.synthetic_tokens, a.batch_size, a.bptt)
+        eval_windows = lm_windows(max(a.synthetic_tokens // 10, 2000), a.batch_size, a.bptt)
+        return {"models": (f"lm_{a.teacher}_fp32", f"lm_{a.student}_{a.bits}bit"),
+                "launches": a.epochs * per_epoch + (a.epochs + 1) * eval_windows,
+                "items": per_epoch * a.batch_size * a.bptt, "unit": "tokens",
+                "student": make_lm(a.student, a.synthetic_vocab, device="cuda"), "train": None}
+    data_dir = a.data_dir or BASE_DATA_FOLDER
+    if name == "imagenet":
+        prefix, n_test = "imagenet", (a.synthetic_size or 2000) // 4
+        student = make_resnet(a.student, a.num_classes, small_inputs=a.image_size <= 64,
+                              device="cuda")
+        train = load_imagenet(True, data_dir, a.image_size, a.num_classes, a.synthetic_size,
+                              a.seed)
+    elif name == "cifar10":
+        prefix, n_test = "cifar10", a.synthetic_size
+        student = make_cnn(a.student, device="cuda")
+        train = load_cifar(10, True, data_dir, a.synthetic_size, a.seed)
+    else:
+        prefix, n_test = "wrn", a.synthetic_size
+        student = make_wrn(a.student, 100, device="cuda")
+        train = load_cifar(100, True, data_dir, a.synthetic_size, a.seed)
+    n_train = len(train.labels)
+    return {"models": (f"{prefix}_{a.teacher}_fp32", f"{prefix}_{a.student}_{a.bits}bit"),
+            "launches": vision_driver_launches(n_train, n_test, a.batch_size, a.epochs),
+            "items": (n_train // a.batch_size) * a.batch_size, "unit": "images",
+            "student": student, "train": train}
+
+
+def phase_drivers(checks, args, smi) -> dict:
+    """The four paper drivers through their ``main(argv)`` with ``--device
+    cuda`` at the widths of DRIVER_RUNS, each under its own workdir in a
+    temporary directory (see the module docstring). Returns the fake-quant
+    launches and bucket counts of each."""
+    root = Path(__file__).resolve().parent / "runs"
+    root.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_drivers_", dir=root))
+    out = {}
+    try:
+        for name, (module, flags) in DRIVER_RUNS.items():
+            a = module.parse_args(flags)
+            workdir = root / name
+            zero_counts()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = module.main([*flags, "--device", "cuda", "--workdir", str(workdir)])
+            except Exception:  # the phase fails, the script goes on to report it
+                traceback.print_exc()
+                rc = None
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            path = workdir / "metrics.jsonl"
+            events = [json.loads(line) for line in path.read_text().splitlines()] \
+                if path.exists() else []
+            final = events[-1] if events and events[-1]["event"] == "final" else {}
+            numbers = [v for k, v in final.items() if isinstance(v, float) and k != "t"]
+            checks.require(rc == 0 and final and all(map(math.isfinite, numbers)),
+                           f"{name} driver: rc {rc}, final {final}")
+            plan = driver_plan(name, a)
+            fq = fake_quant_at(checks, f"{name} driver", dict(plan["student"].named_parameters()),
+                               QuantSpec(bits=a.bits))
+            got, want = launches["fake_quant_buckets"], plan["launches"]
+            checks.require(got == want > 0 and launches == expected(fake_quant_buckets=want),
+                           f"{name} driver launches {launches}, expected {want} fake-quant")
+            mgr = ExperimentManager(str(workdir))
+            saved = {m: mgr.has_model(m) and bool(mgr.latest_step(m)) and (
+                workdir / m / "checkpoints" / f"{mgr.latest_step(m)}.pt").is_file()
+                for m in plan["models"]}
+            checks.require(mgr.list_models() == sorted(saved) and all(saved.values()),
+                           f"{name} driver registry {mgr.list_models()}, checkpoints {saved}")
+            if name == "cifar10":
+                acc = final.get("student_quantized_accuracy", 0.0)
+                checks.require(acc > CIFAR10_MIN_ACCURACY,
+                               f"cifar10 student quantized accuracy {acc} <= "
+                               f"{CIFAR10_MIN_ACCURACY}")
+            stages, epochs = driver_timeline(events, DRIVER_STAGES.get(name, DEFAULT_STAGES)) \
+                if final else ({}, [])
+            epoch_s = statistics.median(epochs[1:] or epochs) if epochs else float("nan")
+            record = {
+                "phase": "drivers", "driver": name, "argv": flags, "rc": rc,
+                "wall_seconds": wall, "stage_seconds": stages, "student_epoch_seconds": epochs,
+                f"student_{plan['unit']}_per_s": plan["items"] / epoch_s,
+                "student_epoch_includes_setup": len(epochs) == 1,
+                "fake_quant_launches": got, "expected_launches": want,
+                "fake_quant": {"bits": a.bits, **fq}, "registry": saved,
+                "final": {k: v for k, v in final.items() if k not in ("event", "t")},
+            }
+            if plan["train"] is not None:
+                host = host_epoch_seconds(plan["train"], a.batch_size, a.seed)
+                record.update(host_data_seconds=host, host_data_share=host / epoch_s)
+            emit({**record, "card": smi})
+            out[name] = {"launches": got, "bits": a.bits, **fq}
+            del plan
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def vision_batch(n, size, classes, seed, device) -> dict:
     g = torch.Generator().manual_seed(seed)
     return {"image": torch.randn(n, size, size, 3, generator=g).to(device),
@@ -2220,6 +2433,12 @@ def main(argv=None) -> int:
         "lm_train": phase_lm_train(checks, args, smi),
         **phase_vision_families(checks, args, smi),
     }
+    drivers = phase_drivers(checks, args, smi)
+    fq_row["driver_launches"] = {name: d["launches"] for name, d in drivers.items()}
+    fq_row["driver_buckets"] = {name: d["n_buckets"] for name, d in drivers.items()}
+    fq_row["driver_fake_quant"] = {
+        name: {k: d[k] for k in ("bits", "bit_exact", "ms", "plain_ms", "bound_ms", "bound_by")}
+        for name, d in drivers.items()}
     if checks.failed:
         print(f"{len(checks.failed)} check(s) failed", file=sys.stderr)
         return 1
