@@ -174,12 +174,40 @@ Phases, each printing one JSON line:
    training epoch of ``batches(..., train_augment=True)`` alone, and its
    share of the student epoch.
 
+18. multi_gpu: the mesh-sharded paths (``parallel/``, ``serve/sharded.py``,
+   ``TranslationEngine(mesh=)``, ``make_train_step(mesh=)``). (a) NCCL at
+   world size 1 in this process, mesh (1, 1), full width: the sharded
+   search (one CUDA graph, its all-gathers inside) launches 3 dequant-matmul,
+   1 fused top-k and 1 beam advance a step on the capturing call and a
+   replay, records its all-gathers, and gives f32 tokens equal to
+   ``beam_search_packed``'s (graphed equal to eager), uniform and exact-LUT;
+   bf16 tokens/s sharded and unsharded in turns, and a profile of each; 16
+   requests through a
+   ``TranslationEngine(mesh=)`` equal to the offline sharded search; a
+   full-width KD step (B = 128) with ``grad_reduce_dtype=torch.bfloat16``
+   within the JAX package's tolerance of the mesh-less step (loss rtol
+   1e-5, weights rtol 0.05, atol 1e-4), one fake-quant launch each. (b) 4
+   ranks sharing the card over gloo (``parallel.launch.run_ranks``), meshes
+   (1, 4) and (2, 2), full width: each rank's fused generator kernel at its
+   shard width (N = 8192, 16384) against its plain version at rtol = atol =
+   1e-4, f32 and bf16; the f32 sharded search (eager: gloo's collectives
+   go through the host) with 3 / 1 / 1 launches a step on every rank, its
+   tokens equal on every rank and to a one-process emulation of the same
+   shards and merge, and equal to the one-process search's but where that
+   search had a tie of at most 2 ulps (the merged logsumexp sums in another
+   order), scores within 1e-4. (c) 2 ranks over gloo: a B = 8 DP step (f32
+   reduce) equal to the one-rank step on all 8 rows (loss rtol 1e-5,
+   weights rtol 1e-5, atol 1e-6). Then the generator, uniform and LUT, at
+   the shard widths in this process, checked and timed like phase 3.
+
 TF32 is off for matmul and cuDNN throughout, so every
 f32 product on the card is a true f32 product, as on the CPU. The card-vs-CPU steps (phases
 7, 9, 13-15) run the CPU on the card's ReLU sign patterns
 (:func:`relu_masks`).
 
-Then the kernel table as one JSON object (the fake-quant row also holds
+Then the kernel table as one JSON object (the generator rows also hold
+their sharded launches and times at the shard widths of phase 18; the
+fake-quant row also holds
 its launches, bucket count and times on each path of phases 13-15 and its
 launches, bucket counts and times in phase 17's drivers; every row its
 ``artifact_launches`` in phase 16's two searches from disk), then
@@ -204,6 +232,7 @@ import sys
 import tempfile
 import time
 import traceback
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -261,15 +290,30 @@ from quantized_distillation_tpu_torch.models import (
     make_wrn,
 )
 from quantized_distillation_tpu_torch import native
+from quantized_distillation_tpu_torch.parallel import DATA_AXIS, make_mesh, place_batch
+from quantized_distillation_tpu_torch.parallel.comm import collective_budget
+from quantized_distillation_tpu_torch.parallel.launch import run_ranks
+from quantized_distillation_tpu_torch.parallel.mesh import axis_index, axis_size
 from quantized_distillation_tpu_torch.ops.bucketing import to_buckets
 from quantized_distillation_tpu_torch.ops.sizes import model_size_report
 from quantized_distillation_tpu_torch.serve import (
     TranslationEngine,
     beam_search,
     beam_search_packed,
+    encode_packed,
+    expand_to_beams,
     pack_decoder,
+    packed_decode_step_topk,
 )
-from quantized_distillation_tpu_torch.serve.beam import EOS, NEG_INF, PAD
+from quantized_distillation_tpu_torch.serve.beam import BOS, EOS, NEG_INF, PAD
+from quantized_distillation_tpu_torch.serve.sharded import (
+    beam_search_sharded,
+    generator_shard,
+    graphed,
+    make_sharded_decode_step_topk,
+    pack_generator_sharded,
+    shard_decoder,
+)
 from quantized_distillation_tpu_torch.train import (
     build_optimizer,
     create_train_state,
@@ -549,6 +593,18 @@ def lut_points(bits: int, gen) -> torch.Tensor:
     return torch.rand(1 << bits, generator=gen) * 1.2 - 0.1
 
 
+def check_dequant_matmul(checks, name, x, q) -> dict:
+    """The dequant-matmul kernel against its plain version on one input, f32
+    and bf16 compute, at F32_TOL (see :func:`check_values`) → the max abs
+    error of each compute type."""
+    out = {}
+    for cd in (torch.float32, torch.bfloat16):
+        got = dequant_matmul(x, q, compute_dtype=cd)
+        want = dequant_matmul_reference(x, q, compute_dtype=cd)
+        out[str(cd)] = check_values(checks, f"{name}/{cd}", got, want, cd, True)
+    return out
+
+
 def kernel_dequant_matmul(checks, name, replaces, dec, rows, gen, lut_bits=()):
     """The dequant-matmul kernel at the three decode-step shapes of ``dec``
     against its plain version (f32 and bf16 compute; with ``lut_bits``, also
@@ -570,13 +626,10 @@ def kernel_dequant_matmul(checks, name, replaces, dec, rows, gen, lut_bits=()):
             (b, pack_linear(dequantize_linear(p), b, points=lut_points(b, gen).to(dev)))
             for b in lut_bits if b != p.bits]
         for bits, q in variants:
-            for cd in (torch.float32, bf16):
-                got = dequant_matmul(x, q, compute_dtype=cd)
-                want = dequant_matmul_reference(x, q, compute_dtype=cd)
-                err = check_values(checks, f"{name}/{mat}/{bits}/{cd}", got, want, cd, True)
-                errs[f"{mat}/{bits}/{cd}"] = err
-                if cd == bf16 and q is p:
-                    dm["err"] = max(dm["err"], err)
+            err = check_dequant_matmul(checks, f"{name}/{mat}/{bits}", x, q)
+            errs.update({f"{mat}/{bits}/{cd}": e for cd, e in err.items()})
+            if q is p:
+                dm["err"] = max(dm["err"], err[str(bf16)])
         w16 = dequantize_linear(p, bf16)
         ms = graph_ms(lambda: dequant_matmul(x, p, compute_dtype=bf16))
         plain = graph_ms(lambda: dequant_matmul_reference(x, p, compute_dtype=bf16))
@@ -599,11 +652,8 @@ def kernel_dequant_matmul(checks, name, replaces, dec, rows, gen, lut_bits=()):
         q = pack_linear(w, bits, bias=torch.randn(n, generator=gen), points=pts).to(dev)
         for xdt in (torch.float32, bf16):
             x = torch.randn(m, k, generator=gen).to(dev, xdt)
-            for cd in (torch.float32, bf16):
-                got = dequant_matmul(x, q, compute_dtype=cd)
-                want = dequant_matmul_reference(x, q, compute_dtype=cd)
-                errs[f"ragged/{bits}/{xdt}/{cd}"] = check_values(
-                    checks, f"{name}/ragged {m}x{k}x{n}/{bits}/{xdt}/{cd}", got, want, cd, True)
+            err = check_dequant_matmul(checks, f"{name}/ragged {m}x{k}x{n}/{bits}/{xdt}", x, q)
+            errs.update({f"ragged/{bits}/{xdt}/{cd}": e for cd, e in err.items()})
     _, by = bound(dm["flops"], dm["bytes"])
     emit({"phase": "kernel", "name": name, "per_shape": shapes, "max_abs_err": errs,
           "ragged": {"M": m, "K": k, "N": n, "bits": [2, 4, 8], "bias": True},
@@ -767,6 +817,19 @@ def advance_inputs(b, k, kc, t_max, gen):
     return tuple(x.cuda() for x in (vals, idx, lse)), tuple(x.cuda() for x in state)
 
 
+def check_advance(checks, name, b, k, kc, t, t_max, gen) -> bool:
+    """The beam-advance kernel against its plain version on the inputs of
+    :func:`advance_inputs` at step ``t``: bit-exact in every output (the new
+    beam state, the history rows, the flat parent rows)."""
+    cand, state = advance_inputs(b, k, kc, t_max, gen)
+    mine, ref = [x.clone() for x in state], [x.clone() for x in state]
+    rows = beam_advance(*cand, *mine, t, eos_id=EOS, pad_id=PAD)
+    want = beam_advance_reference(*cand, *ref, t, eos_id=EOS, pad_id=PAD)
+    ok = torch.equal(rows, want) and all(torch.equal(x, y) for x, y in zip(mine, ref))
+    checks.require(ok, f"{name} B={b} K={k} kc={kc} t={t}: not bit-exact")
+    return ok
+
+
 def kernel_beam_advance(checks, b, k, gen) -> dict:
     """The beam-advance kernel against its plain version, bit-exact in every
     output (the new beam state, the history rows, the flat parent rows): at
@@ -780,15 +843,9 @@ def kernel_beam_advance(checks, b, k, gen) -> dict:
     cases = [(b, k, k, 0), (b, k, k, t_max - 1)] + [
         (37, kk, kc, t) for kk, kc in ((1, 1), (1, 3), (3, 3), (3, 5), (5, 5), (5, 8), (8, 8))
         for t in (0, t_max - 1)]
-    exact = {}
-    for bb, kk, kc, t in cases:
-        cand, state = advance_inputs(bb, kk, kc, t_max, gen)
-        mine, ref = [x.clone() for x in state], [x.clone() for x in state]
-        rows = beam_advance(*cand, *mine, t, eos_id=EOS, pad_id=PAD)
-        want = beam_advance_reference(*cand, *ref, t, eos_id=EOS, pad_id=PAD)
-        ok = torch.equal(rows, want) and all(torch.equal(x, y) for x, y in zip(mine, ref))
-        exact[f"B{bb}/K{kk}/kc{kc}/t{t}"] = ok
-        checks.require(ok, f"beam_advance B={bb} K={kk} kc={kc} t={t}: not bit-exact")
+    exact = {f"B{bb}/K{kk}/kc{kc}/t{t}": check_advance(checks, "beam_advance", bb, kk, kc, t,
+                                                       t_max, gen)
+             for bb, kk, kc, t in cases}
     # the engine's form: the ring row in device memory and an active mask
     for pos, share in ((0, 0.5), (t_max - 1, 0.5), (t_max - 1, 0.0), (0, 1.0)):
         cand, state = advance_inputs(b, k, k, t_max, gen)
@@ -854,12 +911,18 @@ def searches_in_turns(legs: dict, reps: int) -> dict:
     return times
 
 
+def serve_inputs(args):
+    """The serving phases' seeded sources: B sentences of ``src_len``
+    tokens."""
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    src = torch.randint(4, args.vocab, (args.batch, args.src_len), generator=gen)
+    return src, torch.full((args.batch,), args.src_len, dtype=torch.int64)
+
+
 def phase_main_path(checks, args, model, params, smi):
     dev = torch.device("cuda")
     cfg = BeamConfig(beam_size=args.beam, max_len=args.src_len)
-    gen = torch.Generator().manual_seed(args.seed + 1)
-    src = torch.randint(4, args.vocab, (args.batch, args.src_len), generator=gen)
-    src_len = torch.full((args.batch,), args.src_len, dtype=torch.int64)
+    src, src_len = serve_inputs(args)
     group = pick_generator_group(args.batch * args.beam)
     dec = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.bfloat16,
                        generator_group=group, device=dev)
@@ -1406,9 +1469,7 @@ def phase_codebook_path(checks, args, model, params, points, smi, uniform) -> di
     deploy, in turns; a profile of the exact deploy."""
     dev = torch.device("cuda")
     cfg = BeamConfig(beam_size=args.beam, max_len=args.src_len)
-    gen = torch.Generator().manual_seed(args.seed + 1)
-    src = torch.randint(4, args.vocab, (args.batch, args.src_len), generator=gen)
-    src_len = torch.full((args.batch,), args.src_len, dtype=torch.int64)
+    src, src_len = serve_inputs(args)
     group = pick_generator_group(args.batch * args.beam)
     steps = cfg.max_len
 
@@ -1818,9 +1879,7 @@ def phase_artifact(checks, args, model, params, books, train_state, smi) -> dict
     root.mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_artifact_", dir=root))
     cfg = BeamConfig(beam_size=args.beam, max_len=args.src_len)
-    gen = torch.Generator().manual_seed(args.seed + 1)  # phase_main_path's sources
-    src = torch.randint(4, args.vocab, (args.batch, args.src_len), generator=gen)
-    src_len = torch.full((args.batch,), args.src_len, dtype=torch.int64)
+    src, src_len = serve_inputs(args)
     steps = cfg.max_len
     try:
         spec = QuantSpec(bits=args.bits)
@@ -2365,7 +2424,364 @@ def lm_batch(n, vocab, bptt, seed, device) -> dict:
             "target": torch.randint(0, vocab, (n, bptt), generator=g).to(device)}
 
 
-def main(argv=None) -> int:
+# ------------------------------------------------------------ multi-GPU (18)
+
+MG_SHAPES = ((1, 4), (2, 2))  # the 4 gloo ranks sharing the card
+MG_TIMEOUT = 300  # seconds a collective may wait; the spawns' join limit is 600
+MG_STEPS = 4  # decode steps of the sharded step against the unsharded one
+STEP_ATOL = 1e-4  # its values and lse, as the CPU tests hold the step
+
+
+def _rank_setup():
+    """A rank sharing the card: the card current, TF32 off as in the parent."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def sharded_step_check(checks, name, model, dec, sdec, mesh, src, src_len, k, steps) -> dict:
+    """The sharded decode step beside the unsharded one on this rank's rows
+    (its data slice of the sentences, ``k`` beams each): from the encoder's
+    state, then ``steps - 1`` more steps along the unsharded step's top-1
+    tokens. Indices equal, values and lse within STEP_ATOL. Both steps run
+    the same state, so no tie broken apart upstream can hide a fault of the
+    merge."""
+    dp, d = axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS)
+    bl, dev = src.shape[0] // dp, dec.device
+    step = make_sharded_decode_step_topk(sdec, mesh, k)
+    idx_equal, err = True, 0.0
+    with torch.no_grad():
+        keys, enc_out, enc_mask, st = encode_packed(
+            model, dec, src[d * bl:(d + 1) * bl].to(dev), src_len[d * bl:(d + 1) * bl].to(dev))
+        state = expand_to_beams(st, k)
+        tokens = torch.full((bl * k,), BOS, dtype=torch.int64, device=dev)
+        for _ in range(steps):
+            _, (sv, si, slse) = step(state, tokens, keys, enc_out, enc_mask)
+            state, (v, i, lse) = packed_decode_step_topk(dec, state, tokens, keys, enc_out,
+                                                         enc_mask, k)
+            idx_equal = idx_equal and torch.equal(si, i)
+            err = max(err, float((sv - v).abs().max()), float((slse - lse).abs().max()))
+            tokens = i[:, 0].long()
+    checks.require(idx_equal and err <= STEP_ATOL,
+                   f"{name}: the sharded step differs from the unsharded one (indices equal "
+                   f"{idx_equal}, values and lse {err} apart)")
+    return {"rows": bl * k, "steps": steps, "idx_equal": idx_equal, "max_abs_err": err}
+
+
+def _mg_serve_rank(rank, world, spec):
+    """One of 4 ranks sharing the card over gloo, for each mesh of MG_SHAPES:
+    the path's kernels at this rank's shapes against their plain versions
+    (the generator at its shard width, dequant-matmul at rows = B K / dp,
+    the beam advance on B / dp sentences), the f32 sharded decode step
+    against the unsharded one, then the f32 sharded search at full width
+    (every check launches before the counted run)."""
+    dev = _rank_setup()
+    a = argparse.Namespace(**spec["args"])
+    checks = Checks()
+    model = make_seq2seq(a.preset, a.vocab, a.vocab, device=dev, seed=a.seed)
+    params = params_to_numpy(model)
+    gk, gb = params["generator"]["kernel"], params["generator"]["bias"]
+    decs = {cd: pack_decoder(params, model.cfg, a.bits, compute_dtype=cd,
+                             generator_group=spec["group"], device=dev)
+            for cd in (torch.float32, torch.bfloat16)}
+    src, src_len = serve_inputs(a)
+    cfg = BeamConfig(beam_size=a.beam, max_len=a.src_len)
+    out = {}
+    for shape in MG_SHAPES:
+        mesh = make_mesh(*shape)
+        sdecs = {cd: shard_decoder(d, mesh, gk, gb) for cd, d in decs.items()}
+        rows = a.batch * a.beam // shape[0]
+        tag = f"multi_gpu {shape} rank {rank}"
+        gen = torch.Generator().manual_seed(a.seed + 40 + rank)
+        x = torch.randn(rows, model.cfg.hidden, generator=gen).to(dev)
+        kern = {str(cd): check_topk(checks, f"{tag} generator shard", x, sd.generator, a.beam, cd)
+                for cd, sd in sdecs.items()}
+        dm = {}
+        for mat, p, xdt in decode_matrices(sdecs[torch.float32]):
+            xm = torch.randn(rows, p.shape[0], generator=gen).to(dev, xdt)
+            dm[mat] = check_dequant_matmul(checks, f"{tag} dequant_matmul/{mat}", xm, p)
+        adv = {f"t{t}": check_advance(checks, f"{tag} beam_advance", a.batch // shape[0],
+                                      a.beam, a.beam, t, a.src_len, gen)
+               for t in (0, a.src_len - 1)}
+        stp = sharded_step_check(checks, f"{tag} step", model, decs[torch.float32],
+                                 sdecs[torch.float32], mesh, src, src_len, a.beam, MG_STEPS)
+        zero_counts()
+        with collective_budget(mesh) as budget:
+            toks, scores = beam_search_sharded(model, sdecs[torch.float32], src, src_len, cfg,
+                                               mesh, device=dev)
+        out[str(shape)] = {
+            "rows": rows, "N": sdecs[torch.float32].generator.shape[1], "kernel": kern,
+            "dequant_matmul": dm, "beam_advance_bit_exact": adv, "step": stp,
+            "launches": read_counts(), "graphed": graphed(mesh, dev),
+            "gathers": {ax: sum(op.kind == "all-gather" and op.axis == ax for op in budget.ops)
+                        for ax in ("model", "data", "unknown")},
+            "tokens": toks.cpu().numpy(), "scores": scores.cpu().numpy(),
+        }
+    return {"failed": checks.failed, "shapes": out}
+
+
+def _mg_kd(a, dev, batch_size, seed, mesh, grad_reduce_dtype):
+    """One SGD KD step (lr 1e-2, the JAX package's reduced-precision test)
+    of a fresh seeded student → (loss, params, fake-quant launches)."""
+    student, task, batch = kd_setup(a, dev, batch_size, seed)
+    quant = QuantSpec(bits=a.bits)
+    tx = build_optimizer(TrainConfig(learning_rate=1e-2, optimizer="sgd"))
+    state = create_train_state(dict(student.named_parameters()), tx, quant=quant, device=dev)
+    step = make_train_step(task, tx, quant=quant, distill=DistillSpec(), mesh=mesh,
+                           grad_reduce_dtype=grad_reduce_dtype, device=dev)
+    if mesh is not None:
+        batch = place_batch(batch, mesh, device=dev)
+    zero_counts()
+    state, m = step(state, batch, a.seed)
+    launches = read_counts()["fake_quant_buckets"]
+    return float(m["loss"]), state.params, launches
+
+
+def _params_excess(got, want, rtol, atol) -> float:
+    """The largest |got - want| - rtol |want| over every tensor (<= atol
+    passes)."""
+    return max(float(((g.detach() - want[n].detach()).abs() - rtol * want[n].detach().abs()).max())
+               for n, g in got.items())
+
+
+def _mg_train_rank(rank, world, spec):
+    """One of 2 ranks sharing the card over gloo: the B = 8 DP step (f32
+    reduce) on a (2, 1) mesh against the one-rank step on all 8 rows, both
+    run here."""
+    dev = _rank_setup()
+    a = argparse.Namespace(**spec["args"])
+    seed = a.seed + 30
+    loss1, params1, _ = _mg_kd(a, dev, a.parity_batch, seed, None, None)
+    loss, params, launches = _mg_kd(a, dev, a.parity_batch, seed, make_mesh(2, 1), None)
+    return {"loss": loss, "one_rank_loss": loss1, "fake_quant_launches": launches,
+            "params_excess": _params_excess(params, params1, W_RTOL, W_ATOL)}
+
+
+def shard_kernel_times(checks, args, params, points, group) -> dict:
+    """The fused generator (uniform and LUT) at the shard widths of MG_SHAPES,
+    one process on the card: against its plain version, and timed like
+    phase 3 (kernel, plain version, one PyTorch call, bound)."""
+    dev = torch.device("cuda")
+    gk, gb = params["generator"]["kernel"], params["generator"]["bias"]
+    gen = torch.Generator().manual_seed(args.seed + 50)
+    out = {}
+    for lut in (False, True):
+        name = "dequant_matmul_topk_lut" if lut else "dequant_matmul_topk"
+        for dp, mp in MG_SHAPES:
+            full = pack_generator_sharded(gk, gb, args.bits, mp, points=points if lut else None)
+            g = generator_shard(full, 0, mp).to(dev)
+            rows = args.batch * args.beam // dp
+            x = torch.randn(rows, g.shape[0], generator=gen).to(dev)
+            stats = {str(cd): check_topk(checks, f"{name} shard {dp}x{mp}", x, g, args.beam, cd)
+                     for cd in (torch.float32, torch.bfloat16)}
+            g16 = dequantize_linear(g, torch.bfloat16)
+            k = args.beam
+
+            def library():
+                logits = torch.matmul(x.to(torch.bfloat16), g16).float() + g.bias
+                return torch.topk(logits, k), torch.logsumexp(logits, dim=-1)
+
+            ms = graph_ms(lambda: dequant_matmul_topk(x, g, k, compute_dtype=torch.bfloat16))
+            plain = graph_ms(lambda: dequant_matmul_topk_reference(
+                x, g, k, compute_dtype=torch.bfloat16), calls=5)
+            flops = 2.0 * rows * g.shape[0] * g.shape[1]
+            byt = nbytes(x) + packed_bytes(g) + rows * (k * 8 + 4)
+            bms, by = bound(flops, byt)
+            out.setdefault(name, {})[f"{dp}x{mp}"] = {
+                "M": rows, "K": g.shape[0], "N": g.shape[1], "ms": ms, "plain_ms": plain,
+                "library_ms": graph_ms(library), "bound_ms": bms, "bound_by": by,
+                "max_abs_err": stats[str(torch.bfloat16)]["max_abs_err"], "checks": stats,
+            }
+    return out
+
+
+def mg_nccl(checks, args, model, params, points, smi) -> dict:
+    """(a): NCCL at world size 1, mesh (1, 1), full width, in this process."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = BeamConfig(beam_size=args.beam, max_len=args.src_len)
+    src, src_len = serve_inputs(args)
+    group = pick_generator_group(args.batch * args.beam)
+    gk, gb = params["generator"]["kernel"], params["generator"]["bias"]
+    steps = cfg.max_len
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_nccl_"))
+    torch.distributed.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                                         world_size=1, timeout=timedelta(seconds=MG_TIMEOUT))
+    try:
+        mesh = make_mesh(1, 1)
+        out = {"backend": "nccl", "mesh": [1, 1], "graphed": graphed(mesh, dev)}
+        checks.require(out["graphed"], "multi_gpu: the NCCL sharded search does not run graphed")
+        searches = {}
+        for label, kw in (("f32", dict(compute_dtype=torch.float32)),
+                          ("bf16", dict(compute_dtype=torch.bfloat16)),
+                          ("lut_f32", dict(compute_dtype=torch.float32, points=points,
+                                           lut_mode="exact"))):
+            dec = pack_decoder(params, model.cfg, args.bits, generator_group=group, device=dev,
+                               **kw)
+            searches[label] = (dec, shard_decoder(dec, mesh, gk, gb))
+        for label in ("f32", "lut_f32"):
+            dec, sdec = searches[label]
+            lut = label.startswith("lut")
+            want = expected(**{"dequant_matmul_lut" if lut else "dequant_matmul": 3 * steps,
+                               "dequant_matmul_topk_lut" if lut else "dequant_matmul_topk": steps,
+                               "beam_advance": steps})
+            res = {}
+            for call in ("capture", "replay"):
+                zero_counts()
+                with collective_budget(mesh) as budget:
+                    toks, scores = beam_search_sharded(model, sdec, src, src_len, cfg, mesh,
+                                                       device=dev)
+                launches = read_counts()
+                checks.require(launches == want, f"multi_gpu {label} sharded search launches "
+                                                 f"({call}) {launches}, expected {want}")
+                res[call] = {"launches": launches, "all_gathers": budget.count("all-gather")}
+                checks.require(budget.count("all-gather") > 0,
+                               f"multi_gpu {label}: no all-gather recorded ({call})")
+            e_toks, e_scores = beam_search_sharded(model, sdec, src, src_len, cfg, mesh,
+                                                   device=dev, _eager=True)
+            p_toks, p_scores = beam_search_packed(model, dec, src, src_len, cfg, device=dev)
+            res["tokens_equal_unsharded"] = torch.equal(toks, p_toks)
+            res["graph_equals_eager"] = torch.equal(toks, e_toks) and torch.equal(scores, e_scores)
+            res["score_max_abs_diff"] = float((scores - p_scores).abs().max())
+            checks.require(res["tokens_equal_unsharded"],
+                           f"multi_gpu {label}: sharded tokens differ from beam_search_packed")
+            checks.require(res["graph_equals_eager"],
+                           f"multi_gpu {label}: graphed sharded search differs from eager")
+            checks.require(res["score_max_abs_diff"] <= F32_TOL,
+                           f"multi_gpu {label}: scores {res['score_max_abs_diff']} apart")
+            out[label] = res
+        # bf16 tokens/s, sharded and unsharded in turns
+        dec16, sdec16 = searches["bf16"]
+        legs = {
+            "sharded": lambda: beam_search_sharded(model, sdec16, src, src_len, cfg, mesh,
+                                                   device=dev),
+            "unsharded": lambda: beam_search_packed(model, dec16, src, src_len, cfg, device=dev),
+        }
+        times = searches_in_turns(legs, args.reps)
+        ntok = args.batch * steps
+        out["bf16_seconds"] = times
+        out["bf16_tokens_per_s"] = {k: ntok / statistics.median(v) for k, v in times.items()}
+        out["bf16_profile"] = {}
+        for name, run in legs.items():
+            prof = phase_profile(run, statistics.median(times[name]),
+                                 phase=f"multi_gpu_profile_{name}")
+            out["bf16_profile"][name] = {k: prof[k] for k in (
+                "device_ms", "span_ms", "kernels", "device_busy_share_of_median_run")}
+        # the engine on the mesh: 16 requests against the offline sharded search
+        dec32, sdec32 = searches["f32"]
+        n = 16
+        sents = engine_sentences(n, args, torch.Generator().manual_seed(args.seed + 60))
+        esrc = torch.zeros((n, args.src_len), dtype=torch.int64)
+        for i, s in enumerate(sents):
+            esrc[i, : len(s)] = torch.tensor(s)
+        elen = torch.tensor([len(s) for s in sents])
+        o_toks, _ = beam_search_sharded(model, sdec32, esrc, elen, cfg, mesh, device=dev)
+        ecfg = ServeConfig(max_slots=8, max_src_len=args.src_len, max_tgt_len=steps, beam=cfg,
+                           admit_batch=ADMIT_BATCH, chunk_steps=4)
+        eng = TranslationEngine(model, ecfg, sdec32, mesh=mesh, device=dev)
+        zero_counts()
+        with collective_budget(mesh) as budget:
+            res = serve_arrivals(eng, sents, {0: list(range(8)), 2: list(range(8, n))})
+        e_launches = read_counts()
+        equal = all((res[i].tokens == o_toks[i].cpu().numpy()).all() for i in range(n))
+        checks.require(equal, "multi_gpu: the mesh engine's tokens differ from the offline "
+                              "sharded search")
+        checks.require(e_launches["dequant_matmul_topk"] > 0 and e_launches["beam_advance"] > 0,
+                       f"multi_gpu engine launches {e_launches}")
+        out["engine"] = {"requests": n, "tokens_equal_offline": equal, "launches": e_launches,
+                         "all_gathers": budget.count("all-gather"), "graphed": eng._graph
+                         is not None, "steps": eng.steps_run}
+        # a full-width KD step with the bf16 reduce against the mesh-less step
+        loss_m, params_m, fq_m = _mg_kd(args, dev, args.train_batch, args.seed + 10, mesh,
+                                        torch.bfloat16)
+        loss_1, params_1, fq_1 = _mg_kd(args, dev, args.train_batch, args.seed + 10, None, None)
+        excess = _params_excess(params_m, params_1, 0.05, 1e-4)
+        checks.require(abs(loss_m - loss_1) <= LOSS_RTOL * abs(loss_1),
+                       f"multi_gpu KD bf16 loss {loss_m} vs {loss_1}")
+        checks.require(excess <= 1e-4, f"multi_gpu KD bf16 params {excess} past rtol 0.05")
+        checks.require(fq_m == 1 and fq_1 == 1, f"multi_gpu KD fake-quant launches {fq_m}, {fq_1}")
+        out["kd_bf16_reduce"] = {"batch": args.train_batch, "loss": loss_m,
+                                 "mesh_less_loss": loss_1, "params_excess_over_rtol": excess,
+                                 "fake_quant_launches": fq_m}
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
+def phase_multi_gpu(checks, args, model, params, points, smi) -> dict:
+    """Phase 18: (a) NCCL at world size 1, (b) 4 ranks sharing the card over
+    gloo, (c) 2 ranks over gloo, then the generator at the shard widths.
+    Returns the sharded launches and shard-width times of the generator
+    rows."""
+    a = mg_nccl(checks, args, model, params, points, smi)
+    spec = {"args": vars(args), "group": pick_generator_group(args.batch * args.beam)}
+    # the one-process f32 search, for a count of the sentences the sharded
+    # search decodes alike (a candidate within an ulp or two of the beam's
+    # last place may go either way: the sharded lse sums in another order;
+    # the ranks' step checks hold the step itself)
+    cfg = BeamConfig(beam_size=args.beam, max_len=args.src_len)
+    src, src_len = serve_inputs(args)
+    dec32 = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.float32,
+                         generator_group=spec["group"], device="cuda")
+    want_toks = beam_search_packed(model, dec32, src, src_len, cfg, device="cuda")[0].cpu().numpy()
+    del dec32
+    t0 = time.perf_counter()
+    ranks = run_ranks(_mg_serve_rank, 4, args=(spec,), timeout=MG_TIMEOUT, join_timeout=600)
+    serve_s = time.perf_counter() - t0
+    b = {}
+    steps = args.src_len
+    want = expected(dequant_matmul=3 * steps, dequant_matmul_topk=steps, beam_advance=steps)
+    for shape in MG_SHAPES:
+        key = str(shape)
+        per = [r["shapes"][key] for r in ranks]
+        equal = all(np.array_equal(p["tokens"], per[0]["tokens"])
+                    and np.array_equal(p["scores"], per[0]["scores"]) for p in per)
+        checks.require(equal, f"multi_gpu gloo {shape}: the ranks return different results")
+        for r, p in enumerate(per):
+            checks.require(p["launches"] == want, f"multi_gpu gloo {shape} rank {r} launches "
+                                                  f"{p['launches']}, expected {want}")
+            checks.require(not p["graphed"], "multi_gpu: a gloo search ran graphed")
+        b[key] = {"ranks_equal": equal, "N": per[0]["N"], "rows": per[0]["rows"],
+                  "sentences_equal_one_process": int(
+                      (per[0]["tokens"] == want_toks).all(axis=1).sum()),
+                  "sentences": len(want_toks),
+                  "launches": [p["launches"] for p in per],
+                  "all_gathers": [p["gathers"] for p in per],
+                  "step": [p["step"] for p in per],
+                  "kernel_max_abs_err": [{cd: k["max_abs_err"] for cd, k in p["kernel"].items()}
+                                         for p in per],
+                  "dequant_matmul_max_abs_err": [p["dequant_matmul"] for p in per],
+                  "beam_advance_bit_exact": [p["beam_advance_bit_exact"] for p in per]}
+    for r in ranks:
+        checks.failed += r["failed"]
+    t0 = time.perf_counter()
+    train = run_ranks(_mg_train_rank, 2, args=(spec,), timeout=MG_TIMEOUT, join_timeout=600)
+    train_s = time.perf_counter() - t0
+    for r, t in enumerate(train):
+        checks.require(abs(t["loss"] - t["one_rank_loss"]) <= LOSS_RTOL * abs(t["one_rank_loss"]),
+                       f"multi_gpu DP rank {r}: loss {t['loss']} vs {t['one_rank_loss']}")
+        checks.require(t["params_excess"] <= W_ATOL,
+                       f"multi_gpu DP rank {r}: params {t['params_excess']} past rtol {W_RTOL}")
+        checks.require(t["fake_quant_launches"] == 1,
+                       f"multi_gpu DP rank {r}: {t['fake_quant_launches']} fake-quant launches")
+    shards = shard_kernel_times(checks, args, params, points, spec["group"])
+    emit({"phase": "multi_gpu", "nccl": a, "gloo_serve": b, "gloo_serve_seconds": serve_s,
+          "gloo_dp_train": train, "gloo_dp_train_seconds": train_s, "shard_kernels": shards,
+          "card": smi})
+    launches = {
+        "dequant_matmul_topk": {"nccl_1x1": a["f32"]["replay"]["launches"]["dequant_matmul_topk"],
+                                **{f"gloo_{k}": [x["dequant_matmul_topk"] for x in v["launches"]]
+                                   for k, v in b.items()}},
+        "dequant_matmul_topk_lut": {
+            "nccl_1x1": a["lut_f32"]["replay"]["launches"]["dequant_matmul_topk_lut"]},
+    }
+    return {name: {"sharded_launches": launches[name], "shard_widths": shards[name]}
+            for name in shards}
+
+
+def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", default="student_medium")
     ap.add_argument("--vocab", type=int, default=32000)
@@ -2386,7 +2802,11 @@ def main(argv=None) -> int:
     ap.add_argument("--cnn-batch", type=int, default=128)
     ap.add_argument("--resnet-batch", type=int, default=64)
     ap.add_argument("--family-parity-batch", type=int, default=4)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
 
     dev, smi = phase_device()
     # f32 matmuls (the FP32 beam_search leg, the f32 parity runs) in true f32
@@ -2434,6 +2854,9 @@ def main(argv=None) -> int:
         **phase_vision_families(checks, args, smi),
     }
     drivers = phase_drivers(checks, args, smi)
+    sharded = phase_multi_gpu(checks, args, model, params, points, smi)
+    for row in table:
+        row.update(sharded.get(row["name"], {}))
     fq_row["driver_launches"] = {name: d["launches"] for name, d in drivers.items()}
     fq_row["driver_buckets"] = {name: d["n_buckets"] for name, d in drivers.items()}
     fq_row["driver_fake_quant"] = {

@@ -17,7 +17,10 @@ with a hand-written CUDA fake-quant kernel (``kernels/``), and the same
 training of the other model families with their tasks: the CIFAR CNN, the
 WideResNet and the ImageNet ResNets (``vision_task``, with BatchNorm
 running statistics in the train state) and the LSTM language model
-(``lm_task``, with the truncated-BPTT carry threaded across steps).
+(``lm_task``, with the truncated-BPTT carry threaded across steps). On
+more than one device (``parallel/``, one process per rank over
+``torch.distributed``): serving sharded over a mesh (slots over ``data``,
+the generator's vocab over ``model``) and data-parallel training.
 """
 
 from .config import BeamConfig, DistillSpec, QuantSpec, ServeConfig, TrainConfig

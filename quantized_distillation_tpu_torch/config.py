@@ -89,7 +89,8 @@ class ServeConfig:
     (``serve.engine.TranslationEngine``): slot grid, source and target
     lengths, beam, admission width, chunk lengths and staging depth; the
     fields mirror the JAX package's. ``mesh`` is kept for the JAX package's
-    field list; the engine serves one device."""
+    field list; the engine takes its mesh as an argument
+    (``TranslationEngine(mesh=...)``), as the JAX package's does."""
 
     max_slots: int = 64
     max_src_len: int = 64

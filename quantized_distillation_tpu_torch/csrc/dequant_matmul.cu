@@ -181,14 +181,15 @@ static cudaError_t run_tc(const void* x, const void* packed, const void* scale,
                           int* plan) {
   using T = tc::Tile<XT, LUT, BITS, TBN, WG, MT>;
   auto kern = dequant_matmul_tc_kernel<XT, LUT, BITS, TBN, WG, MT>;
-  static const cudaError_t attr = [&] {
+  static std::atomic<int> attr_state[tc::MAX_DEVICES];  // per device, as attributes are
+  const cudaError_t attr = tc::once_per_device(attr_state, [&] {
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          T::SMEM);
     if (e == cudaSuccess)  // as much shared memory as the SM has, for 2 blocks an SM
       e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
     return e;
-  }();
+  });
   if (attr != cudaSuccess) return attr;
   dim3 grid((N + TBN - 1) / TBN, (M + T::ROWS - 1) / T::ROWS);
   if (plan) {

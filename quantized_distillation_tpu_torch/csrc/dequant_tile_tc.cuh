@@ -49,6 +49,8 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
+#include <atomic>
+
 #include "dequant_tile.cuh"
 
 namespace qdt {
@@ -618,13 +620,43 @@ static inline cudaError_t weight_maps(Maps* maps, const void* packed, const void
   return e;
 }
 
+// Per-device state. A kernel's function attributes and the SM count belong
+// to a device, and one process may drive any card (a rank that owns cuda:1),
+// so each is kept per device: the current one at the call.
+constexpr int MAX_DEVICES = 64;
+
+// Runs set() once per device and keeps its cudaError_t; `state` is one
+// static array per kernel instance (0: not run yet, else the error + 1).
+template <class F>
+static inline cudaError_t once_per_device(std::atomic<int>* state, F set) {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= MAX_DEVICES) return set();
+  int s = state[dev].load(std::memory_order_acquire);
+  if (s == 0) {
+    s = static_cast<int>(set()) + 1;
+    state[dev].store(s, std::memory_order_release);
+  }
+  return static_cast<cudaError_t>(s - 1);
+}
+
+// The current device's SM count, read once per device.
 static inline int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
+  static std::atomic<int> counts[MAX_DEVICES];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  const auto read = [dev] {
+    int v = 0;
     cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
     return v > 0 ? v : 132;
-  }();
+  };
+  if (dev < 0 || dev >= MAX_DEVICES) return read();
+  int n = counts[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    n = read();
+    counts[dev].store(n, std::memory_order_relaxed);
+  }
   return n;
 }
 

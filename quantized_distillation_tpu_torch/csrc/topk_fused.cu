@@ -668,7 +668,8 @@ static int pick_gen(int M, int K, bool lut, int bits) {
   return pick;
 }
 
-// Raises a kernel's dynamic shared memory limit to 227 KB, once.
+// Raises a kernel's dynamic shared memory limit to 227 KB (once per device:
+// see tc::once_per_device).
 template <class Kern>
 static cudaError_t allow_smem(Kern kern) {
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -697,7 +698,8 @@ template <typename XT, bool LUT, int BITS, int BN, int WG, int MT>
 static cudaError_t run_gen(const Args& a, int* plan) {
   using G = Gen<LUT, BITS, BN, WG, MT>;
   auto kern = topk_tc_kernel<XT, LUT, BITS, BN, WG, MT>;
-  static const cudaError_t attr = allow_smem(kern);
+  static std::atomic<int> attr_state[tc::MAX_DEVICES];  // per device, as attributes are
+  const cudaError_t attr = tc::once_per_device(attr_state, [&] { return allow_smem(kern); });
   if (attr != cudaSuccess) return attr;
   const int smem = G::smem((a.K + tc::BK - 1) / tc::BK);
   if (plan) return tc_plan(kern, G::THREADS, smem, G::ROWS, BN, G::STAGES, true, a, plan);
@@ -725,7 +727,8 @@ template <typename XT, bool LUT, int BITS>
 static cudaError_t run_stream(const Args& a, int* plan) {
   using T = tc::Tile<XT, LUT, BITS, 64, 1, 1>;
   auto kern = topk_tc_stream_kernel<XT, LUT, BITS>;
-  static const cudaError_t attr = allow_smem(kern);
+  static std::atomic<int> attr_state[tc::MAX_DEVICES];  // per device, as attributes are
+  const cudaError_t attr = tc::once_per_device(attr_state, [&] { return allow_smem(kern); });
   if (attr != cudaSuccess) return attr;
   if (plan) return tc_plan(kern, T::THREADS, T::SMEM, T::ROWS, 64, T::STAGES, false, a, plan);
   dim3 grid((a.M + T::ROWS - 1) / T::ROWS, a.splits);

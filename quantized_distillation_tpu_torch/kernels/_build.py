@@ -193,6 +193,13 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
+def on(device):
+    """Make ``device`` (a CUDA device or its index) the current one for a
+    launch or a plan: the kernels read the current device's SM count and
+    set their attributes per device, and launch on its current stream."""
+    return torch.cuda.device(device)
+
+
 def stream() -> ctypes.c_void_p:
     """PyTorch's current CUDA stream, on which every kernel launches."""
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)

@@ -77,11 +77,10 @@ def beam_combine_topk(
     tok = torch.empty((b, k), dtype=torch.int32, device=cand.device)
     fn = _build.function("beam_combine", "qdt_beam_combine", _ARGTYPES)
     ptr = _build.ptr
-    _build.check(
-        fn(ptr(cand), ptr(cand_tok), b, n, k, ptr(vals), ptr(pos), ptr(tok),
-           _build.stream()),
-        "beam_combine_topk",
-    )
+    with _build.on(cand.device):
+        err = fn(ptr(cand), ptr(cand_tok), b, n, k, ptr(vals), ptr(pos), ptr(tok),
+                 _build.stream())
+    _build.check(err, "beam_combine_topk")
     beam_combine_topk.launches += 1
     return vals, pos, tok
 
@@ -243,12 +242,11 @@ def beam_advance(
     flat_row = torch.empty(rows, dtype=torch.int64, device=vals.device)
     fn = _build.function("beam_combine", "qdt_beam_advance", _ADVANCE_ARGTYPES)
     ptr = _build.ptr
-    _build.check(
-        fn(ptr(vals), ptr(idx), ptr(lse), ptr(scores), ptr(finished), ptr(lengths),
-           ptr(last_token), ptr(sym), ptr(parent), ptr(flat_row), ptr(pos), ptr(active),
-           b, k, kc, 0 if t is None else t, eos_id, pad_id, _build.stream()),
-        "beam_advance",
-    )
+    with _build.on(vals.device):
+        err = fn(ptr(vals), ptr(idx), ptr(lse), ptr(scores), ptr(finished), ptr(lengths),
+                 ptr(last_token), ptr(sym), ptr(parent), ptr(flat_row), ptr(pos), ptr(active),
+                 b, k, kc, 0 if t is None else t, eos_id, pad_id, _build.stream())
+    _build.check(err, "beam_advance")
     beam_advance.launches += 1
     return flat_row
 

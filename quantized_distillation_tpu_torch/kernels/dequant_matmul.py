@@ -91,9 +91,10 @@ def dequant_matmul_plan(x: torch.Tensor, p: PackedLinear, *, compute_dtype=torch
     blocks per SM."""
     plan = (ctypes.c_int * len(_PLAN_KEYS))()
     fn = _build.function("dequant_matmul", "qdt_dequant_matmul_plan", _PLAN_ARGTYPES)
-    _build.check(fn(x.shape[0], x.shape[1], p.shape[1], int(x.dtype == torch.bfloat16),
-                    int(compute_dtype == torch.bfloat16), int(p.points is not None), p.bits,
-                    plan), "dequant_matmul_plan")
+    with _build.on(x.device):
+        err = fn(x.shape[0], x.shape[1], p.shape[1], int(x.dtype == torch.bfloat16),
+                 int(compute_dtype == torch.bfloat16), int(p.points is not None), p.bits, plan)
+    _build.check(err, "dequant_matmul_plan")
     return dict(zip(_PLAN_KEYS, plan))
 
 
@@ -112,14 +113,13 @@ def dequant_matmul(
     n = p.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fn = _build.function("dequant_matmul", "qdt_dequant_matmul", _ARGTYPES)
-    _build.check(
-        fn(_build.ptr(x), int(x.dtype == torch.bfloat16),
-           int(compute_dtype == torch.bfloat16), _build.ptr(p.packed),
-           _build.ptr(p.scale), _build.ptr(p.offset), _build.ptr(p.points),
-           _build.ptr(p.bias), _build.ptr(out), m, k, n, p.n_padded, p.bits,
-           _build.stream()),
-        "dequant_matmul",
-    )
+    with _build.on(x.device):
+        err = fn(_build.ptr(x), int(x.dtype == torch.bfloat16),
+                 int(compute_dtype == torch.bfloat16), _build.ptr(p.packed),
+                 _build.ptr(p.scale), _build.ptr(p.offset), _build.ptr(p.points),
+                 _build.ptr(p.bias), _build.ptr(out), m, k, n, p.n_padded, p.bits,
+                 _build.stream())
+    _build.check(err, "dequant_matmul")
     if p.points is None:
         dequant_matmul.launches += 1
     else:

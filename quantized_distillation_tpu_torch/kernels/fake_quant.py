@@ -68,11 +68,10 @@ def fake_quant_buckets(
         return out
     s = (1 << bits) - 1
     fn = _build.function("fake_quant", "qdt_fake_quant", _ARGTYPES)
-    _build.check(
-        fn(_build.ptr(buckets), _build.ptr(out), nb, bs, float(s), 1.0 / s,
-           int(scaling == ABSMAX), _build.stream()),
-        "fake_quant_buckets",
-    )
+    with _build.on(buckets.device):
+        err = fn(_build.ptr(buckets), _build.ptr(out), nb, bs, float(s), 1.0 / s,
+                 int(scaling == ABSMAX), _build.stream())
+    _build.check(err, "fake_quant_buckets")
     fake_quant_buckets.launches += 1
     return out
 

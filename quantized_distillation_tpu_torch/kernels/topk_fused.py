@@ -80,11 +80,15 @@ def dequant_matmul_topk_reference(
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(m: int, k: int, n: int, x_bf16: bool, compute_bf16: bool, lut: bool, bits: int) -> dict:
+def _plan(device: int, m: int, k: int, n: int, x_bf16: bool, compute_bf16: bool, lut: bool,
+          bits: int) -> dict:
+    """The plan of card ``device`` (it depends on that card's SM count and
+    occupancy, so the cache is keyed by the device too)."""
     plan = (ctypes.c_int * len(_PLAN_KEYS))()
     fn = _build.function("topk_fused", "qdt_topk_fused_plan", _PLAN_ARGTYPES)
-    _build.check(fn(m, k, n, int(x_bf16), int(compute_bf16), int(lut), bits, plan),
-                 "dequant_matmul_topk_plan")
+    with _build.on(device):
+        err = fn(m, k, n, int(x_bf16), int(compute_bf16), int(lut), bits, plan)
+    _build.check(err, "dequant_matmul_topk_plan")
     return dict(zip(_PLAN_KEYS, plan))
 
 
@@ -96,8 +100,9 @@ def dequant_matmul_topk_plan(
     per block, columns per vocab tile, copy stages, vocab tiles per split,
     splits, pass-1 blocks, dynamic shared memory bytes, resident blocks per
     SM and whether x stays resident in shared memory."""
-    return dict(_plan(x.shape[0], x.shape[1], p.shape[1], x.dtype == torch.bfloat16,
-                      compute_dtype == torch.bfloat16, p.points is not None, p.bits))
+    return dict(_plan(x.device.index, x.shape[0], x.shape[1], p.shape[1],
+                      x.dtype == torch.bfloat16, compute_dtype == torch.bfloat16,
+                      p.points is not None, p.bits))
 
 
 def dequant_matmul_topk(
@@ -134,8 +139,8 @@ def _launch(x, p, k, compute_dtype):
     n = p.shape[1]
     dev = x.device
     bias = p.bias if p.bias is not None else torch.zeros(n, dtype=torch.float32, device=dev)
-    plan = _plan(m, kk, n, x.dtype == torch.bfloat16, compute_dtype == torch.bfloat16,
-                 p.points is not None, p.bits)
+    plan = _plan(dev.index, m, kk, n, x.dtype == torch.bfloat16,
+                 compute_dtype == torch.bfloat16, p.points is not None, p.bits)
     tiles_per_split, splits = plan["tiles_per_split"], plan["splits"]
     part_v = torch.empty((m, splits, KMAX), dtype=torch.float32, device=dev)
     part_i = torch.empty((m, splits, KMAX), dtype=torch.int32, device=dev)
@@ -146,14 +151,13 @@ def _launch(x, p, k, compute_dtype):
     lse = torch.empty((m, 1), dtype=torch.float32, device=dev)
     fn = _build.function("topk_fused", "qdt_topk_fused", _ARGTYPES)
     ptr = _build.ptr
-    _build.check(
-        fn(ptr(x), int(x.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
-           ptr(p.packed), ptr(p.scale), ptr(p.offset), ptr(p.points), ptr(bias), m, kk, n,
-           p.n_padded, p.bits, k, tiles_per_split, splits, ptr(part_v),
-           ptr(part_i), ptr(part_m), ptr(part_s), ptr(vals), ptr(idx), ptr(lse),
-           _build.stream()),
-        "dequant_matmul_topk",
-    )
+    with _build.on(dev):
+        err = fn(ptr(x), int(x.dtype == torch.bfloat16), int(compute_dtype == torch.bfloat16),
+                 ptr(p.packed), ptr(p.scale), ptr(p.offset), ptr(p.points), ptr(bias), m, kk, n,
+                 p.n_padded, p.bits, k, tiles_per_split, splits, ptr(part_v),
+                 ptr(part_i), ptr(part_m), ptr(part_s), ptr(vals), ptr(idx), ptr(lse),
+                 _build.stream())
+    _build.check(err, "dequant_matmul_topk")
     if p.points is None:
         dequant_matmul_topk.launches += 1
     else:

@@ -9,6 +9,8 @@ from .resnet import RESNET_PRESETS, BottleneckBlock, ResNet, ResNetBlock, make_r
 from .seq2seq import (
     SEQ2SEQ_PRESETS,
     DecoderState,
+    Encoder,
+    LuongAttention,
     Seq2Seq,
     Seq2SeqConfig,
     make_seq2seq,
@@ -26,6 +28,8 @@ __all__ = [
     "make_lm",
     "SEQ2SEQ_PRESETS",
     "DecoderState",
+    "Encoder",
+    "LuongAttention",
     "Seq2Seq",
     "Seq2SeqConfig",
     "make_seq2seq",

@@ -1,5 +1,6 @@
-"""Serving: the beam core, packed-weight inference and the
-continuous-batching engine of the PyTorch port."""
+"""Serving: the beam core, packed-weight inference, the
+continuous-batching engine and mesh-sharded (slot data parallel x vocab
+tensor parallel) serving of the PyTorch port."""
 
 from .beam import (
     NEG_INF,
@@ -7,6 +8,7 @@ from .beam import (
     beam_decode,
     beam_search,
     coverage_penalty,
+    expand_to_beams,
     greedy_decode,
     init_beam_state,
     length_penalty,
@@ -27,7 +29,12 @@ from .infer import (
     packed_decode_step,
     packed_decode_step_topk,
 )
-from .sharded import pack_generator_sharded
+from .sharded import (
+    beam_search_sharded,
+    make_sharded_decode_step_topk,
+    pack_generator_sharded,
+    shard_decoder,
+)
 
 __all__ = [
     "NEG_INF",
@@ -39,17 +46,21 @@ __all__ = [
     "beam_decode",
     "beam_search",
     "beam_search_packed",
+    "beam_search_sharded",
     "coverage_penalty",
     "encode_packed",
+    "expand_to_beams",
     "greedy_decode",
     "init_beam_state",
     "length_penalty",
+    "make_sharded_decode_step_topk",
     "pack_decoder",
     "pack_generator_sharded",
     "packed_decode_step",
     "packed_decode_step_topk",
     "reconstruct_attention",
     "reconstruct_tokens",
+    "shard_decoder",
     "step_beams",
     "step_beams_cand",
     "tokens_to_sentences",

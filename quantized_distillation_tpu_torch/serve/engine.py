@@ -42,8 +42,18 @@ steps without any change of shape.
 Three decode backends, as in the JAX package: the dense model
 (``decode_step``, or ``decode_step_attn`` with the coverage penalty), the
 packed logits path (``beam_size > KMAX``), and the packed candidate path
-(the fused generator kernel, then the beam-advance kernel). Multi-device
-serving (``mesh=``) is not ported yet.
+(the fused generator kernel, then the beam-advance kernel).
+
+On a mesh (``mesh=``, one process per rank, see :mod:`..parallel`) the slot
+grid splits over ``data`` and the generator over ``model``
+(``sharded.shard_decoder``): every rank runs the same host bookkeeping
+(queue, admission, slot table) on the same submitted requests and holds
+device tensors for its own ``max_slots / dp`` slots only; its decode step
+is the sharded one (``sharded.make_sharded_decode_step_topk``). The
+once-a-chunk readback of done flags, depths and emitted tokens and the
+extracted hypotheses are gathered over ``data``, so every rank returns the
+same completions. On NCCL the step is a CUDA graph with its collectives
+inside; on gloo it runs eagerly.
 """
 
 from __future__ import annotations
@@ -59,6 +69,8 @@ import torch
 from .._device import resolve_device
 from ..config import ServeConfig
 from ..kernels.topk_fused import KMAX, topk_sorted
+from ..parallel.comm import all_gather, warm_up
+from ..parallel.mesh import DATA_AXIS, axis_index, axis_size
 from ..utils.graphs import CapturedStep, host_syncs_raise, signature
 from .beam import (
     BOS,
@@ -76,7 +88,8 @@ from .beam import (
     tree_map,
     unroll_ring,
 )
-from .infer import encode_packed, packed_decode_step, packed_decode_step_topk
+from .infer import check_whole_vocab, encode_packed, packed_decode_step, packed_decode_step_topk
+from .sharded import graphed, make_sharded_decode_step_topk
 
 
 @dataclass
@@ -108,7 +121,11 @@ class TranslationEngine:
     ``model`` (the port's ``Seq2Seq``) holds the weights; ``packed_decoder``
     (from ``infer.pack_decoder``) serves the decode steps on packed weights
     when given. Both live on ``device`` (default the card; ``"cpu"`` runs
-    the plain versions)."""
+    the plain versions). ``mesh`` (with a decoder from
+    ``sharded.shard_decoder``) serves the grid sharded, slots over ``data``
+    and the generator over ``model``; ``cfg.max_slots`` must divide the
+    data axis and the beam fit the fused generator (``beam_size <=
+    KMAX``)."""
 
     def __init__(
         self,
@@ -119,11 +136,6 @@ class TranslationEngine:
         device="cuda",
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "TranslationEngine(mesh=...): multi-device serving is not ported yet "
-                "(ROADMAP.md, Queue 1 item 8)"
-            )
         self.dev = resolve_device(device)
         if model.device != self.dev or (
             packed_decoder is not None and packed_decoder.device != self.dev
@@ -131,6 +143,20 @@ class TranslationEngine:
             raise ValueError(f"model and decoder must live on {self.dev}")
         if not 1 <= cfg.beam.n_best <= cfg.beam.beam_size:
             raise ValueError(f"n_best={cfg.beam.n_best} must be in [1, beam_size]")
+        self.mesh = mesh
+        if mesh is None:
+            if packed_decoder is not None:
+                check_whole_vocab(packed_decoder)
+            self._lo, self._s_loc = 0, cfg.max_slots
+        else:
+            dp = axis_size(mesh, DATA_AXIS)
+            if cfg.max_slots % dp:
+                raise ValueError(f"max_slots {cfg.max_slots} must divide data axis {dp}")
+            if packed_decoder is not None and cfg.beam.beam_size > KMAX:
+                raise ValueError(f"sharded serving requires beam_size <= {KMAX}")
+            # this rank's slots: [lo, lo + s_loc) of the grid
+            self._s_loc = cfg.max_slots // dp
+            self._lo = axis_index(mesh, DATA_AXIS) * self._s_loc
         self.model = model
         self.cfg = cfg
         self.dec = packed_decoder
@@ -155,8 +181,8 @@ class TranslationEngine:
 
     # ---- the grid and its programs ----
     def _build(self):
-        cfg, dev, model, dec = self.cfg, self.dev, self.model, self.dec
-        s, k = cfg.max_slots, cfg.beam.beam_size
+        cfg, dev, model, dec, mesh = self.cfg, self.dev, self.model, self.dec, self.mesh
+        s, k = self._s_loc, cfg.beam.beam_size  # the grid: this rank's slots
         t_src, t_max, t_hist = cfg.max_src_len, cfg.max_tgt_len, self._t_hist
         cov = self._cov
 
@@ -209,7 +235,12 @@ class TranslationEngine:
 
         use_cand = dec is not None and k <= KMAX
         enc_keys, enc_out, enc_mask = self._enc_keys, self._enc_out, self._enc_mask
-        if dec is not None:
+        if dec is not None and mesh is not None:
+            sharded_step = make_sharded_decode_step_topk(dec, mesh, k, with_align=cov)
+
+            def decode_step(st, tokens):
+                return sharded_step(st, tokens, enc_keys, enc_out, enc_mask)
+        elif dec is not None:
             if use_cand:
                 def decode_step(st, tokens):
                     return packed_decode_step_topk(dec, st, tokens, enc_keys, enc_out, enc_mask,
@@ -249,8 +280,11 @@ class TranslationEngine:
 
         self._one_step = one_step
         # every slot is inactive here, so the capture's warm-up step changes
-        # nothing that extraction reads
-        self._graph = CapturedStep(one_step) if dev.type == "cuda" else None
+        # nothing that extraction reads; a gloo mesh steps eagerly
+        on_graph = dev.type == "cuda" and (mesh is None or graphed(mesh, dev))
+        if on_graph and mesh is not None:
+            warm_up(mesh)
+        self._graph = CapturedStep(one_step) if on_graph else None
 
     def _replay(self, n: int) -> None:
         if self._graph is not None:
@@ -259,13 +293,19 @@ class TranslationEngine:
             for _ in range(n):
                 self._one_step()
 
+    def _mine(self, slots) -> np.ndarray:
+        """The grid's ``slots`` that this rank holds."""
+        slots = np.asarray(slots, np.int64)
+        return slots[(slots >= self._lo) & (slots < self._lo + self._s_loc)]
+
     def _drive(self, active0: np.ndarray, n: int, n_chunks: int):
         """Upload the slot depths, ``active0`` and the ring row (one copy),
         run ``n_chunks`` chunks of ``n`` steps (each starts from
         ``active0``), then read back once: (the last chunk's done flags,
-        ``t_vec``, its emitted tokens)."""
-        s = self.cfg.max_slots
-        ctrl = np.concatenate([self._slot_t, active0.astype(np.int32),
+        ``t_vec``, its emitted tokens), of every slot of the grid (on a mesh
+        gathered over ``data``)."""
+        s, lo = self._s_loc, self._lo
+        ctrl = np.concatenate([self._slot_t[lo:lo + s], active0[lo:lo + s].astype(np.int32),
                                [self.steps_run % self._t_hist]]).astype(np.int32)
         self._ctrl.copy_(torch.from_numpy(ctrl))
         self._t_vec.copy_(self._ctrl[:s])
@@ -277,9 +317,13 @@ class TranslationEngine:
                 self._done.zero_()
                 self._emitted.zero_()
                 self._replay(n)
-        back = torch.cat([self._done.to(torch.int32), self._t_vec, self._emitted]).cpu().numpy()
+        back = torch.cat([self._done.to(torch.int32), self._t_vec, self._emitted])
+        if self.mesh is not None:
+            back = all_gather(back, self.mesh, DATA_AXIS)
+        back = back.reshape(-1, 2 * s + 1).cpu().numpy()
         self.steps_run += n * n_chunks
-        return back[:s].astype(bool), back[s:2 * s].copy(), int(back[2 * s])
+        return (back[:, :s].reshape(-1).astype(bool), back[:, s:2 * s].reshape(-1).copy(),
+                int(back[:, 2 * s].sum()))
 
     def _insert(self, tensors, rows: List[int], slots: List[int]) -> None:
         """Rows ``rows`` of an encoded admission batch into slots ``slots``:
@@ -287,6 +331,11 @@ class TranslationEngine:
         fresh beam state; only those rows are written."""
         keys, enc_out, enc_mask, state = tensors
         k = self.cfg.beam.beam_size
+        lo, hi = self._lo, self._lo + self._s_loc
+        mine = [(r, sl - lo) for r, sl in zip(rows, slots) if lo <= sl < hi]
+        if not mine:
+            return
+        rows, slots = [r for r, _ in mine], [sl for _, sl in mine]
         idx = torch.tensor([rows, slots], dtype=torch.int64).to(self.dev)
         src, dst = idx[0], idx[1]
         for grid, new in ((self._enc_keys, keys), (self._enc_out, enc_out),
@@ -304,13 +353,38 @@ class TranslationEngine:
             beam.coverage.index_fill_(0, dst, 0.0)
         # the ring needs no reset: a slot's window starts at its admission row
 
-    def _extract(self, slots: np.ndarray):
-        """Reconstruct and rank the done slots' hypotheses on the device →
-        (tokens [E, n_best, max_tgt_len], scores [E, n_best]) on the host."""
+    def _extract_all(self, slots: np.ndarray):
+        """The done ``slots``' hypotheses → (tokens [E, n_best, max_tgt_len],
+        scores [E, n_best]) on the host, extracted ``admit_batch`` slots at a
+        time; on a mesh each rank extracts its own and the results are
+        gathered over ``data``."""
+        e = self.cfg.admit_batch
+        if self.mesh is None:
+            parts = [self._extract(slots[i:i + e]) for i in range(0, len(slots), e)]
+            return np.concatenate([t for t, _ in parts]), np.concatenate([v for _, v in parts])
+        cfg, s = self.cfg, self._s_loc
+        toks = torch.zeros((s, cfg.beam.n_best, cfg.max_tgt_len), dtype=torch.int64,
+                           device=self.dev)
+        scores = torch.zeros((s, cfg.beam.n_best), dtype=torch.float32, device=self.dev)
+        mine = self._mine(slots)
+        for i in range(0, len(mine), e):
+            part = mine[i:i + e]
+            t, v = self._extract(part, host=False)
+            at = torch.from_numpy(part - self._lo).to(self.dev)
+            toks.index_copy_(0, at, t.to(torch.int64))
+            scores.index_copy_(0, at, v)
+        toks = all_gather(toks, self.mesh, DATA_AXIS).flatten(0, 1).cpu().numpy()
+        scores = all_gather(scores, self.mesh, DATA_AXIS).flatten(0, 1).cpu().numpy()
+        return toks[slots], scores[slots]
+
+    def _extract(self, slots: np.ndarray, host: bool = True):
+        """Reconstruct and rank the done slots' hypotheses (this rank's) on
+        the device → (tokens [E, n_best, max_tgt_len], scores [E, n_best]),
+        on the host unless ``host`` is False."""
         cfg = self.cfg
         k, t_max = cfg.beam.beam_size, cfg.max_tgt_len
-        idx = torch.from_numpy(np.stack([slots, self._slot_g0[slots], self._slot_t[slots]])
-                               .astype(np.int64)).to(self.dev)
+        idx = torch.from_numpy(np.stack([slots - self._lo, self._slot_g0[slots],
+                                         self._slot_t[slots]]).astype(np.int64)).to(self.dev)
         sl, g0, t_len = idx[0], idx[1], idx[2]
         beam = self._beam
         cols = (sl[:, None] * k + self._beam_iota).reshape(-1)
@@ -324,7 +398,7 @@ class TranslationEngine:
             norm = norm + coverage_penalty(beam.coverage[sl], cfg.beam.coverage_penalty)
         top, order = topk_sorted(norm, cfg.beam.n_best)
         toks = torch.gather(toks, 1, order[:, :, None].expand(-1, -1, t_max))
-        return toks.cpu().numpy(), top.cpu().numpy()
+        return (toks.cpu().numpy(), top.cpu().numpy()) if host else (toks, top)
 
     # ---- public API ----
     def submit(self, src_tokens) -> int:
@@ -430,19 +504,18 @@ class TranslationEngine:
         self.tokens_emitted += emitted
         out: List[Completion] = []
         done_slots = np.where(done)[0]
-        n_best, e = self.cfg.beam.n_best, self.cfg.admit_batch
-        for i in range(0, len(done_slots), e):
-            chunk = done_slots[i:i + e]
-            toks, scores = self._extract(chunk)
-            for j, slot in enumerate(chunk):
-                comp = Completion(request_id=self._slot_req[slot], tokens=toks[j, 0].copy(),
-                                  score=float(scores[j, 0]))
-                if n_best > 1:
-                    comp.nbest_tokens = toks[j].copy()
-                    comp.nbest_scores = scores[j].copy()
-                out.append(comp)
-                self._slot_req[slot] = None
-                self._slot_t[slot] = 0
+        n_best = self.cfg.beam.n_best
+        if len(done_slots):
+            toks, scores = self._extract_all(done_slots)
+        for j, slot in enumerate(done_slots):
+            comp = Completion(request_id=self._slot_req[slot], tokens=toks[j, 0].copy(),
+                              score=float(scores[j, 0]))
+            if n_best > 1:
+                comp.nbest_tokens = toks[j].copy()
+                comp.nbest_scores = scores[j].copy()
+            out.append(comp)
+            self._slot_req[slot] = None
+            self._slot_t[slot] = 0
         self._results.extend(out)
         return out
 

@@ -89,7 +89,8 @@ class PackedLSTMCell:
 
 @dataclasses.dataclass
 class PackedDecoder:
-    """All decoder-side weights in deployment form, on one device."""
+    """All decoder-side weights in deployment form, on one device (on a
+    mesh: this rank's, the generator being its vocab shard)."""
 
     tgt_embed: torch.Tensor  # [V_tgt, E] compute dtype (a gather, stays dense)
     cells: Tuple[PackedLSTMCell, ...]
@@ -98,6 +99,9 @@ class PackedDecoder:
     generator: PackedLinear  # [H, V] + bias (uniform: V padded, -1e9 bias on the padding)
     hidden: int
     compute_dtype: torch.dtype = torch.bfloat16
+    # (shard, shards): ``generator`` is that vocab shard of a generator split
+    # over the mesh's model axis (``sharded.shard_decoder``); None: whole
+    vocab_shard: Optional[Tuple[int, int]] = None
 
     @property
     def device(self) -> torch.device:
@@ -257,6 +261,14 @@ def packed_decode_step_topk(
     return (new_state, cand, align) if with_align else (new_state, cand)
 
 
+def check_whole_vocab(dec: PackedDecoder) -> None:
+    """Raise for a decoder whose generator is one vocab shard of several:
+    it serves only through the sharded paths (``serve.sharded``)."""
+    if dec.vocab_shard is not None and dec.vocab_shard[1] > 1:
+        raise ValueError(f"the decoder holds vocab shard {dec.vocab_shard}: serve it with "
+                         "beam_search_sharded or TranslationEngine(mesh=...)")
+
+
 def beam_search_packed(
     model,
     dec: PackedDecoder,
@@ -286,6 +298,7 @@ def beam_search_packed(
     dev = resolve_device(device)
     if model.device != dev or dec.device != dev:
         raise ValueError(f"model on {model.device} and decoder on {dec.device}, not {dev}")
+    check_whole_vocab(dec)
     k = cfg.beam_size
     if fused_topk is None:
         fused_topk = k <= KMAX

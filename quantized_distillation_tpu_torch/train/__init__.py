@@ -5,9 +5,10 @@ NMT and LM tasks, the loops and automatic bit assignment.
 Ported for every model family (seq2seq, CNN, WideResNet, ResNet, LSTM LM):
 modes ``weights`` (quantized distillation), ``codebooks`` and ``joint``
 (differentiable quantization), the BatchNorm running statistics and the
-truncated-BPTT carry of the train state, ``bits.py``, and the experiment
-manager (checkpoints and a run registry). Still to come: multi-GPU
-training.
+truncated-BPTT carry of the train state, ``bits.py``, the experiment
+manager (checkpoints and a run registry), and data-parallel training over
+``torch.distributed`` (``make_train_step(mesh=, grad_reduce_dtype=)``).
+Still to come: tensor-parallel training on placed parameters.
 """
 
 from . import bits, losses, manager, quantize_tree, tasks, trainer
@@ -23,6 +24,7 @@ from .trainer import (
     create_train_state,
     make_eval_step,
     make_train_step,
+    preferred_grad_reduce_dtype,
 )
 
 __all__ = [
@@ -51,4 +53,5 @@ __all__ = [
     "create_train_state",
     "make_eval_step",
     "make_train_step",
+    "preferred_grad_reduce_dtype",
 ]

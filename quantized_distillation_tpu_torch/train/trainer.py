@@ -38,7 +38,21 @@ as the master weights are updated in place, in every mode (mode
 as ``batch["carry"]``, detached, and the task's ``updates["carry"]`` comes
 back detached, so no step holds on to the graph of the one before.
 
-Not ported yet: ``mesh``/``grad_reduce_dtype`` (multi-GPU, last).
+Data parallelism (``make_train_step(mesh=..., grad_reduce_dtype=...)``),
+one process per rank (see :mod:`..parallel`): each rank steps on its
+``data`` slice of the batch (``parallel.place_batch``) with the same
+replicated parameters, as the JAX package's reduced-precision path does
+under ``shard_map``. The gradients are pre-scaled by the shard's weight
+(``n_local / sum n_local`` when the task's metrics carry ``n_tokens``, else
+``1 / D``), all-reduced over ``data`` in ``grad_reduce_dtype`` (f32 when
+None) in one flat buffer, and cast back to f32 before the optimizer, which
+every rank then runs on the same gradients. The loss is reduced with the
+same weights; the metrics and the running statistics are averaged; the
+carry stays each rank's own. The fake-quant generator is the same on every
+rank (every shard sees the same quantized weights), the dropout generator
+is folded with the rank's ``data`` coordinate. BatchNorm normalizes with
+each shard's own batch statistics, as in the JAX package's
+reduced-precision path.
 """
 
 from __future__ import annotations
@@ -52,6 +66,8 @@ import torch
 
 from .._device import resolve_device
 from ..config import DistillSpec, QuantSpec, TrainConfig
+from ..parallel.comm import pmean, psum
+from ..parallel.mesh import DATA_AXIS, axis_index, axis_size
 from . import quantize_tree as qt
 from .optim import (
     OptState,
@@ -66,7 +82,6 @@ from .optim import (
 Params = Dict[str, torch.Tensor]
 Batch = Dict[str, Any]
 
-_MULTI_GPU = "multi-GPU training (mesh, grad_reduce_dtype) comes last in the port"
 MODES = ("weights", "codebooks", "joint")
 CODEBOOK_PREFIX = "codebook:"
 
@@ -225,10 +240,53 @@ def as_batch(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch.
     return out
 
 
-def step_generators(device: torch.device, rng: int, step: int):
-    """(weight quantization, dropout) generators of train step ``step``."""
-    seeds = np.random.SeedSequence([rng, step]).generate_state(2, np.uint64)
-    return tuple(torch.Generator(device=device).manual_seed(int(s)) for s in seeds)
+def step_generators(device: torch.device, rng: int, step: int,
+                    data_index: Optional[int] = None):
+    """(weight quantization, dropout) generators of train step ``step``;
+    with ``data_index`` (a data-parallel rank's coordinate) the dropout
+    generator is folded with it, the quantization one is not."""
+    seeds = [int(s) for s in np.random.SeedSequence([rng, step]).generate_state(2, np.uint64)]
+    if data_index is not None:
+        seeds[1] = int(np.random.SeedSequence([seeds[1], data_index]).generate_state(1, np.uint64)[0])
+    return tuple(torch.Generator(device=device).manual_seed(s) for s in seeds)
+
+
+def _pmean_dict(tree: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """Every tensor of a name → tensor dict averaged over ``data``, in one
+    f32 all-reduce."""
+    if not tree:
+        return tree
+    names = list(tree)
+    flat = torch.cat([tree[n].detach().to(torch.float32).reshape(-1) for n in names])
+    parts = pmean(flat, mesh, DATA_AXIS).split([tree[n].numel() for n in names])
+    return {n: p.reshape(tree[n].shape).to(tree[n].dtype) for n, p in zip(names, parts)}
+
+
+def reduce_over_data(loss, metrics, grads, updates, mesh, reduce_dtype):
+    """The data-parallel reduction of one step's ``(loss, metrics, grads,
+    updates)`` (the JAX package's ``_reduced_precision_grads``): shard
+    weights from ``n_tokens`` (else 1/D), the gradients summed in
+    ``reduce_dtype`` in one flat buffer and returned in f32, the loss summed
+    with the same weights, metrics and ``batch_stats`` averaged, the carry
+    kept."""
+    if "n_tokens" in metrics:
+        # masked sequence loss: the global token mean weights each shard by
+        # its live tokens
+        n_local = metrics["n_tokens"].detach().to(torch.float32)
+        w = n_local / psum(n_local, mesh, DATA_AXIS)
+    else:
+        w = 1.0 / axis_size(mesh, DATA_AXIS)
+    names = list(grads)
+    flat = torch.cat([(grads[n].to(torch.float32) * w).reshape(-1) for n in names])
+    flat = psum(flat, mesh, DATA_AXIS, dtype=reduce_dtype)
+    grads = {n: g.reshape(grads[n].shape)
+             for n, g in zip(names, flat.split([grads[n].numel() for n in names]))}
+    loss = psum(loss * w, mesh, DATA_AXIS)
+    metrics = _pmean_dict(dict(metrics), mesh)
+    updates = dict(updates)
+    if "batch_stats" in updates:
+        updates["batch_stats"] = _pmean_dict(updates["batch_stats"], mesh)
+    return loss, metrics, grads, updates
 
 
 def loss_and_grads(
@@ -283,22 +341,34 @@ def make_train_step(
     global norm of the trained tensors' gradients before clipping), as 0-dim
     tensors on the device. What ``mode`` trains (the master weights, the
     codebooks or both) and the running statistics are updated in place; the
-    returned state holds the new carry."""
+    returned state holds the new carry.
+
+    ``mesh`` (a ``parallel.make_mesh`` mesh; one process per rank): data
+    parallelism over its ``data`` axis on replicated parameters, each rank
+    passing its own rows of the batch (``parallel.place_batch``); see the
+    module docstring. ``grad_reduce_dtype`` (requires ``mesh``) carries the
+    gradient all-reduce in that dtype (``preferred_grad_reduce_dtype``);
+    f32 when None."""
     dev = resolve_device(device)
     _check_mode(mode, quant)
-    if mesh is not None or grad_reduce_dtype is not None:
-        raise NotImplementedError(_MULTI_GPU)
+    if grad_reduce_dtype is not None and mesh is None:
+        raise ValueError("grad_reduce_dtype requires a mesh")
+    reduce_dtype = grad_reduce_dtype or torch.float32
+    data_index = None if mesh is None else axis_index(mesh, DATA_AXIS)
 
     def step_fn(state: TrainState, batch: Batch, rng: int = 0):
         batch = as_batch(batch, dev)
         if state.carry is not None:
             batch["carry"] = map_tensors(torch.Tensor.detach, state.carry)
-        q_gen, drop_gen = step_generators(dev, rng, state.step)
+        q_gen, drop_gen = step_generators(dev, rng, state.step, data_index)
         loss, metrics, grads, updates = loss_and_grads(
             task, state.params, batch, quant=quant, distill=distill, bits_map=bits_map,
             quant_generator=q_gen, dropout_generator=drop_gen, codebooks=state.codebooks,
             mode=mode, batch_stats=state.batch_stats,
         )
+        if mesh is not None:
+            loss, metrics, grads, updates = reduce_over_data(loss, metrics, grads, updates,
+                                                             mesh, reduce_dtype)
         wrt = trainable(state.params, state.codebooks, mode)
         opt_updates, opt_state = tx.update(grads, state.opt_state, wrt)
         apply_updates(wrt, opt_updates)
@@ -313,6 +383,14 @@ def make_train_step(
         return state.replace(step=state.step + 1, opt_state=opt_state, carry=carry), metrics
 
     return step_fn
+
+
+def preferred_grad_reduce_dtype(device="cuda") -> torch.dtype:
+    """The reduced-precision gradient all-reduce dtype for ``device``: bf16
+    on the card (NCCL reduces it; f32's exponent range, so the cast cannot
+    overflow), f16 on the CPU, as the JAX package picks on its CPU backend
+    (both put 2 bytes an element on the wire)."""
+    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float16
 
 
 def make_eval_step(

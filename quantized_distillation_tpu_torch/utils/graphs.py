@@ -13,6 +13,10 @@ grid), replayed as often as asked. The kernel wrappers' launch counters
 count Python calls, so a replay would count nothing: the capture measures
 the launches it recorded, puts the counters back as they were before the
 warm-up and the capture, and every replay adds the captured launches again.
+Other records a replay must repeat (the collectives of the multi-device
+paths) come through a recorder registered with :func:`register_recorder`:
+the warm-up's records are dropped, the capture's kept, and every replay
+makes them again.
 A :class:`GraphCache` keeps a few captured calls, keyed by everything that
 fixes the captured work (see :func:`signature`).
 """
@@ -23,12 +27,32 @@ import contextlib
 import dataclasses
 import gc
 from collections import OrderedDict
-from typing import Callable, Dict, Hashable, Sequence
+from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ..kernels import launch_counts, set_launch_counts
+
+# (redirected, replay) of each registered recorder, in registration order
+_RECORDERS: List[Tuple[Callable, Callable]] = []
+
+
+def register_recorder(redirected: Callable, replay: Callable) -> None:
+    """Register records a replay must repeat besides kernel launches.
+    ``redirected(into)`` is a context manager inside which the records go
+    to the list ``into`` (None: nowhere) instead of where they usually go;
+    ``replay(records, times)`` makes ``records`` again ``times`` times."""
+    _RECORDERS.append((redirected, replay))
+
+
+@contextlib.contextmanager
+def _redirected(into: Sequence[Optional[list]]):
+    """Every registered recorder's records into its list of ``into``."""
+    with contextlib.ExitStack() as stack:
+        for (redirected, _), sink in zip(_RECORDERS, into):
+            stack.enter_context(redirected(sink))
+        yield
 
 
 def _map(fn: Callable, tree):
@@ -62,7 +86,8 @@ def host_syncs_raise():
 
 def _capture(fn: Callable, args: Sequence[torch.Tensor] = ()):
     """``fn(*args)`` captured as a CUDA graph → (graph, outputs, launches a
-    replay adds). One warm-up call on a side stream, under
+    replay adds, each recorder's records a replay makes again). One warm-up
+    call on a side stream, under
     ``torch.cuda.set_sync_debug_mode("error")`` so that any host sync in
     ``fn`` raises (a graph cannot hold one), then ``torch.cuda.graph``. A
     failed capture raises; nothing falls back to eager calls. The warm-up
@@ -72,7 +97,7 @@ def _capture(fn: Callable, args: Sequence[torch.Tensor] = ()):
     before = launch_counts()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with host_syncs_raise(), torch.cuda.stream(side):
+    with host_syncs_raise(), torch.cuda.stream(side), _redirected([None] * len(_RECORDERS)):
         fn(*args)
     torch.cuda.current_stream().wait_stream(side)
     warm = launch_counts()
@@ -83,8 +108,9 @@ def _capture(fn: Callable, args: Sequence[torch.Tensor] = ()):
     gc.collect()
     gc_was_on = gc.isenabled()
     gc.disable()
+    records = [[] for _ in _RECORDERS]
     try:
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph), _redirected(records):
             outputs = fn(*args)
         launches = _delta(launch_counts(), warm)
     finally:
@@ -96,12 +122,14 @@ def _capture(fn: Callable, args: Sequence[torch.Tensor] = ()):
             f"capture launched {launches}, its warm-up {_delta(warm, before)}: "
             "the captured work depends on more than the inputs' shapes"
         )
-    return graph, outputs, launches
+    return graph, outputs, launches, records
 
 
-def _count(launches: Dict[str, int], times: int) -> None:
+def _count(launches: Dict[str, int], records, times: int) -> None:
     counts = launch_counts()
     set_launch_counts({n: counts[n] + times * d for n, d in launches.items()})
+    for (_, replay), recs in zip(_RECORDERS, records):
+        replay(recs, times)
 
 
 class CapturedCall:
@@ -110,13 +138,13 @@ class CapturedCall:
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor]):
         self.inputs = tuple(x.clone() for x in inputs)
-        self.graph, self.outputs, self.launches = _capture(fn, self.inputs)
+        self.graph, self.outputs, self.launches, self.records = _capture(fn, self.inputs)
 
     def __call__(self, *inputs: torch.Tensor):
         for static, x in zip(self.inputs, inputs):
             static.copy_(x)
         self.graph.replay()
-        _count(self.launches, 1)
+        _count(self.launches, self.records, 1)
         return _map(torch.clone, self.outputs)
 
 
@@ -128,12 +156,12 @@ class CapturedStep:
     it ``n`` times and adds ``n`` times its launches to the counters."""
 
     def __init__(self, fn: Callable[[], None]):
-        self.graph, _, self.launches = _capture(fn)
+        self.graph, _, self.launches, self.records = _capture(fn)
 
     def replay(self, n: int = 1) -> None:
         for _ in range(n):
             self.graph.replay()
-        _count(self.launches, n)
+        _count(self.launches, self.records, n)
 
 
 def signature(obj) -> Hashable:

@@ -9,7 +9,10 @@ package's, and the deploy loop from a file on disk.
   for byte for the same weights (a seq2seq student, whose fused LSTM
   tensors are split into flax's gate leaves, and a CNN, whose OIHW conv
   kernels are written in flax's HWIO layout; uniform at 2/4/8 bits with
-  linear and abs-max scaling, learned codebooks, a bits map, meta), and its
+  linear and abs-max scaling, learned codebooks, a bits map, meta; the
+  uniform and codebook files also for a WideResNet, a ResNet with the small
+  stem and basic blocks, one with the ImageNet stem and bottleneck blocks,
+  and the LSTM LM untied and tied), and its
   ``load_artifact`` restores a JAX-written file to the JAX package's values
   bit for bit.
 - Deploy loop (JAX's ``tests/test_native_artifact.py`` end to end): a
@@ -93,6 +96,62 @@ def cnn(jx):
     port = ConvForwardNet(CNNSpec(**CNN), image_size=9, device="cpu")
     port.load_params(_np_tree(jx, v["params"]))
     return jm, v["params"], port
+
+
+VISION = {  # the other families, at small widths (tests/test_torch_vision.py's)
+    "wrn": dict(depth=10, widen=1, num_classes=10),
+    "resnet_basic": dict(stage_sizes=(1, 1), width_mult=0.25, num_classes=10,
+                         small_inputs=True),
+    "resnet_imagenet_bottleneck": dict(stage_sizes=(1, 1), bottleneck=True, width_mult=0.25,
+                                       num_classes=10),
+}
+# wide enough that the weights, not the header, fill the file
+LMS = {"lm": dict(embed_dim=32, hidden=64), "lm_tied": dict(embed_dim=64, hidden=64,
+                                                           tie_embeddings=True)}
+FAMILIES = ["seq2seq", "cnn"] + list(VISION) + list(LMS)
+
+
+def _filled(jx, init, *args):
+    """Seeded values in the tree ``init`` gives (shapes from
+    ``jax.eval_shape``, which runs no initializer)."""
+    rng = np.random.default_rng(len(args))
+    shapes = jx.jax.eval_shape(init, jx.jax.random.PRNGKey(0), *args)["params"]
+    return jx.jax.tree.map(lambda s: (0.1 * rng.standard_normal(s.shape)).astype(np.float32),
+                           dict(shapes))
+
+
+def _make_family(jx, name):
+    """(flax module, its params, the port model holding the same) of a
+    WideResNet, a ResNet or an LSTM LM."""
+    from quantized_distillation_tpu.models import lm as jlm
+    from quantized_distillation_tpu.models import resnet as jresnet
+    from quantized_distillation_tpu.models import wide_resnet as jwrn
+
+    from quantized_distillation_tpu_torch.models import ResNet, WideResNet, make_lm
+
+    if name in VISION:
+        kw = VISION[name]
+        jm = jwrn.WideResNet(**kw) if name == "wrn" else jresnet.ResNet(**kw)
+        params = _filled(jx, jm.init, jx.jnp.zeros((1, 8, 8, 3)))
+        port = (WideResNet if name == "wrn" else ResNet)(device="cpu", **kw)
+    else:
+        jm = jlm.make_lm("student_small", 30, **LMS[name])
+        params = _filled(jx, jm.init, jx.jnp.zeros((1, 3), jx.jnp.int32))
+        port = make_lm("student_small", 30, device="cpu", **LMS[name])
+    port.load_params(params)
+    return jm, params, port
+
+
+_FAMILIES = {}  # built once in this module
+
+
+def _family(jx, request, model):
+    """The ``seq2seq`` or ``cnn`` fixture, or a twin of another family."""
+    if model in ("seq2seq", "cnn"):
+        return request.getfixturevalue(model)
+    if model not in _FAMILIES:
+        _FAMILIES[model] = _make_family(jx, model)
+    return _FAMILIES[model]
 
 
 # ------------------------------------------------------------------ codec
@@ -187,18 +246,18 @@ SPECS = [dict(bits=b, scaling=s) for b in (2, 4, 8) for s in ("linear", "absmax"
 
 
 @pytest.mark.parametrize("spec", SPECS, ids=lambda s: f"{s['bits']}bit-{s['scaling']}")
-@pytest.mark.parametrize("model", ["seq2seq", "cnn"])
+@pytest.mark.parametrize("model", FAMILIES)
 def test_uniform_file_equals_jax_byte_for_byte(jx, request, tmp_path, model, spec):
-    _, jparams, port = request.getfixturevalue(model)
+    _, jparams, port = _family(jx, request, model)
     jbytes, pbytes, stats = _pair(tmp_path, jx, jparams, port, spec)
     assert pbytes == jbytes
     assert stats["file_bytes"] == len(pbytes) and stats["compression_ratio"] > 2
 
 
-@pytest.mark.parametrize("model", ["seq2seq", "cnn"])
+@pytest.mark.parametrize("model", FAMILIES)
 @pytest.mark.parametrize("init", ["uniform", "quantile"])
 def test_codebook_file_equals_jax_byte_for_byte(jx, request, tmp_path, model, init):
-    _, jparams, port = request.getfixturevalue(model)
+    _, jparams, port = _family(jx, request, model)
     spec = dict(bits=4, method="codebook")
     books = jx.qt.init_codebook_tree(jparams, jx.Quant(**spec), init)
     if init == "quantile":  # learned-looking points, unsorted, some outside [0, 1]

@@ -6,6 +6,8 @@ the offline search's tokens exactly, with its score within rtol 1e-5 (as
 ``tests/test_engine.py`` holds its coverage engine). Also the engine's
 counters, its refusals, and its default device."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -184,8 +186,9 @@ def test_refusals(setup):
         eng.step(chunk_steps=65)
     with pytest.raises(ValueError, match="headroom"):
         eng.drive_chunks(5, force_active=False, chunk_steps=16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TranslationEngine(m, _cfg(2), dec, device="cpu", mesh=object())
+    # a generator that is one vocab shard of two serves only on a mesh
+    with pytest.raises(ValueError, match="vocab shard"):
+        TranslationEngine(m, _cfg(2), dataclasses.replace(dec, vocab_shard=(0, 2)), device="cpu")
     with pytest.raises(ValueError, match="n_best"):
         TranslationEngine(m, _cfg(2, beam=BeamConfig(beam_size=2, n_best=3)), device="cpu")
 

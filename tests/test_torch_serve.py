@@ -200,8 +200,8 @@ def test_fused_step_equals_nested_step(twin):
 
 
 def test_unported_options_raise(twin):
-    # the coverage penalty and return_attention are ported; the engine's
-    # multi-device form is what still raises
+    # the coverage penalty, return_attention and the engine's multi-device
+    # form are ported; a vocab-sharded decoder serves only on a mesh
     from quantized_distillation_tpu_torch.config import ServeConfig
     from quantized_distillation_tpu_torch.serve import TranslationEngine
 
@@ -213,5 +213,8 @@ def test_unported_options_raise(twin):
     assert toks.shape == (3, 5) and torch.isfinite(scores).all()
     *_, attn = infer.beam_search_packed(tm, tdec, s, sl_t, cfg, return_attention=True, device="cpu")
     assert attn.shape == (3, 5, 6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        TranslationEngine(tm, ServeConfig(), tdec, device="cpu", mesh=object())
+    shard = dataclasses.replace(tdec, vocab_shard=(1, 2))
+    with pytest.raises(ValueError, match="vocab shard"):
+        TranslationEngine(tm, ServeConfig(), shard, device="cpu")
+    with pytest.raises(ValueError, match="vocab shard"):
+        infer.beam_search_packed(tm, shard, s, sl_t, cfg, device="cpu")
