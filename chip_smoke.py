@@ -199,6 +199,23 @@ Phases, each printing one JSON line:
    reduce) equal to the one-rank step on all 8 rows (loss rtol 1e-5,
    weights rtol 1e-5, atol 1e-6). Then the generator, uniform and LUT, at
    the shard widths in this process, checked and timed like phase 3.
+   (d) tp_train: tensor-parallel KD training (``make_train_step(mesh=,
+   param_specs=)`` on ``place_params_seq2seq`` shards, SGD lr 1e-2,
+   dropout 0). At mesh (1, 1) over NCCL in (a)'s group, the full-width
+   seq2seq step's TP code path (one-rank collectives) equal to the
+   mesh-less step. Over gloo, 4 ranks sharing the card at (1, 4) and (2, 2)
+   (the full-width seq2seq step: teacher 2x500 → student_medium, V =
+   32000, B = 128, L = 24, each rank its data rows) and 2 ranks at (1, 2)
+   (the LM: 2x650 → student_medium, V = 10000, B = 256 x 35): each rank's
+   loss and grad norm (rtol 1e-5) and SGD-updated shard (rtol 1e-5, atol
+   1e-6) against the slices of the one-process step on the card, one
+   fake-quant launch a rank, all-gathers, reduce-scatters and all-reduces
+   over ``model`` in the budget, and on every rank of the first mesh the
+   fake-quant kernel on the gathered tree (105,984 buckets; the LM's
+   24,096) bit-exact against its plain version. Then ``python -m
+   quantized_distillation_tpu_torch.scripts.comm_budget`` (full width, 8
+   gloo ranks on the card) and ``...scripts.multihost_smoke --device
+   cuda`` (4 gloo ranks) as subprocesses that must exit 0.
 
 TF32 is off for matmul and cuDNN throughout, so every
 f32 product on the card is a true f32 product, as on the CPU. The card-vs-CPU steps (phases
@@ -290,7 +307,14 @@ from quantized_distillation_tpu_torch.models import (
     make_wrn,
 )
 from quantized_distillation_tpu_torch import native
-from quantized_distillation_tpu_torch.parallel import DATA_AXIS, make_mesh, place_batch
+from quantized_distillation_tpu_torch.parallel import (
+    DATA_AXIS,
+    ModelParallel,
+    make_mesh,
+    place_batch,
+    place_params_seq2seq,
+    placed_pspecs,
+)
 from quantized_distillation_tpu_torch.parallel.comm import collective_budget
 from quantized_distillation_tpu_torch.parallel.launch import run_ranks
 from quantized_distillation_tpu_torch.parallel.mesh import axis_index, axis_size
@@ -2558,6 +2582,168 @@ def _mg_train_rank(rank, world, spec):
             "params_excess": _params_excess(params, params1, W_RTOL, W_ATOL)}
 
 
+TP_SHAPES = ((1, 4), (2, 2))  # the seq2seq tensor-parallel step: 4 gloo ranks on the card
+LM_TP_SHAPE = (1, 2)
+TP_SGD = TrainConfig(learning_rate=1e-2, optimizer="sgd")  # SGD: compare weights, not Adam's
+STE_BUCKETS = 105984  # student_medium's 37 quantizable leaves, V = 32000, in buckets of 256
+
+
+def _tp_models(a, dev, family: str, seed: int):
+    """(student, task, batch) of a full-width KD step, dropout 0: the
+    seq2seq one of phase 7 (B = ``train_batch``) or the LM one of phase 14
+    (2x650 → student_medium, V = ``lm_vocab``, B = ``lm_batch`` x
+    ``lm_bptt``, the carry not threaded)."""
+    if family == "s2s":
+        return kd_setup(a, dev, a.train_batch, seed)
+    teacher = make_lm("teacher", a.lm_vocab, dropout=0.0, device=dev, seed=seed)
+    student = make_lm("student_medium", a.lm_vocab, dropout=0.0, device=dev, seed=seed + 1)
+    batch = lm_batch(a.lm_batch, a.lm_vocab, a.lm_bptt, seed + 2, "cpu")
+    return student, lm_task(student, teacher, device=dev), batch
+
+
+def _tp_step(a, dev, family, seed, mesh, tensor_parallel: bool) -> dict:
+    """One SGD KD step of a fresh seeded student (whole, or this rank's
+    shards with ``tensor_parallel``) → loss, parameters, fake-quant launches,
+    collectives by kind and axis, seconds."""
+    student, task, batch = _tp_models(a, dev, family, seed)
+    quant = QuantSpec(bits=a.bits)
+    whole = dict(student.named_parameters())
+    specs = placed_pspecs(whole, mesh) if tensor_parallel else None
+    params = place_params_seq2seq(whole, mesh, device=dev) if tensor_parallel else whole
+    tx = build_optimizer(TP_SGD)
+    state = create_train_state(params, tx, quant=quant, device=dev)
+    step = make_train_step(task, tx, quant=quant, distill=DistillSpec(), mesh=mesh,
+                           param_specs=specs, device=dev)
+    if mesh is not None:
+        batch = place_batch(batch, mesh, device=dev)
+    zero_counts()
+    with collective_budget(mesh) as budget:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, a.seed)
+        loss = float(m["loss"])
+        seconds = time.perf_counter() - t0
+    kinds = {}
+    for op in budget.ops:
+        kinds[f"{op.kind}@{op.axis}"] = kinds.get(f"{op.kind}@{op.axis}", 0) + 1
+    return {"loss": loss, "grad_norm": float(m["grad_norm"]), "params": state.params,
+            "launches": read_counts()["fake_quant_buckets"], "collectives": kinds,
+            "wire_bytes_by_axis": budget.bytes_by_axis(wire=True), "seconds": seconds,
+            "specs": specs, "mp": None if specs is None else ModelParallel(mesh, specs)}
+
+
+def _shard_excess(got: dict, mp, whole: dict, dev) -> float:
+    """:func:`_params_excess` of this rank's shards against the slices of
+    the whole tensors ``whole`` (on the CPU)."""
+    return _params_excess(got, {n: mp.local(n, t.to(dev)) for n, t in whole.items()},
+                          W_RTOL, W_ATOL)
+
+
+def _tp_fake_quant_exact(a, dev, mp, params) -> dict:
+    """The fake-quant kernel on the whole tree gathered from this rank's
+    shards, as the TP step hands it the buckets, against its plain version
+    (outside any counted run)."""
+    quant = QuantSpec(bits=a.bits)
+    whole = {**params, **mp.gather(params)}
+    buckets = quantizable_buckets(whole, quant)
+    got = fake_quant_buckets(buckets, a.bits)
+    return {"n_buckets": int(buckets.shape[0]),
+            "bit_exact": bool(torch.equal(got, fake_quant_buckets_reference(buckets, a.bits)))}
+
+
+def _mg_tp_rank(rank, world, spec):
+    """One of the ranks sharing the card over gloo: the full-width
+    tensor-parallel KD step at each of ``spec["shapes"]``, its SGD-updated
+    shard against the slice of the one-process step's (``spec["ref"]``,
+    whole, on the CPU), and (first mesh) the fake-quant kernel on the
+    gathered tree against its plain version."""
+    dev = _rank_setup()
+    a = argparse.Namespace(**spec["args"])
+    out = {}
+    for i, shape in enumerate(spec["shapes"]):
+        mesh = make_mesh(*shape)
+        r = _tp_step(a, dev, spec["family"], spec["seed"], mesh, True)
+        mp = r.pop("mp")
+        res = {k: v for k, v in r.items() if k not in ("params", "specs")}
+        res["params_excess"] = _shard_excess(r["params"], mp, spec["ref"], dev)
+        res["split"] = sum(mp.is_split(n) for n in r["params"])
+        if i == 0:  # every rank: the gather is a collective over model
+            local = dict(_tp_models(a, dev, spec["family"], spec["seed"])[0].named_parameters())
+            res["fake_quant"] = _tp_fake_quant_exact(
+                a, dev, mp, place_params_seq2seq(local, mesh, device=dev))
+        out[str(shape)] = res
+    return out
+
+
+def mg_tp_train(checks, args, smi) -> dict:
+    """(d) tensor-parallel training: the full-width seq2seq KD step on 4
+    gloo ranks at TP_SHAPES and the LM's on 2 at LM_TP_SHAPE, each rank's
+    SGD-updated shard against the slice of the one-process step on the card
+    (loss LOSS_RTOL, weights W_RTOL / W_ATOL), one fake-quant launch a rank,
+    the kernel bit-exact on the gathered tree; then the two scripts."""
+    dev = torch.device("cuda", 0)
+    out = {}
+    for family, shapes, seed in (("s2s", TP_SHAPES, args.seed + 70),
+                                 ("lm", (LM_TP_SHAPE,), args.seed + 75)):
+        ref = _tp_step(args, dev, family, seed, None, False)
+        spec = {"args": vars(args), "family": family, "seed": seed, "shapes": shapes,
+                "ref": {n: t.detach().cpu() for n, t in ref["params"].items()}}
+        del ref["params"]
+        world = shapes[0][0] * shapes[0][1]
+        t0 = time.perf_counter()
+        ranks = run_ranks(_mg_tp_rank, world, args=(spec,), timeout=MG_TIMEOUT, join_timeout=600)
+        spawn_s = time.perf_counter() - t0
+        fam = {"one_process": {k: ref[k] for k in ("loss", "grad_norm", "launches", "seconds")},
+               "spawn_seconds": spawn_s}
+        for shape in shapes:
+            per = [r[str(shape)] for r in ranks]
+            for rk, p in enumerate(per):
+                tag = f"tp_train {family} {shape} rank {rk}"
+                checks.require(abs(p["loss"] - ref["loss"]) <= LOSS_RTOL * abs(ref["loss"]),
+                               f"{tag}: loss {p['loss']} vs {ref['loss']}")
+                checks.require(abs(p["grad_norm"] - ref["grad_norm"])
+                               <= LOSS_RTOL * abs(ref["grad_norm"]),
+                               f"{tag}: grad_norm {p['grad_norm']} vs {ref['grad_norm']}")
+                checks.require(p["params_excess"] <= W_ATOL,
+                               f"{tag}: shard {p['params_excess']} past rtol {W_RTOL}")
+                checks.require(p["launches"] == 1, f"{tag}: {p['launches']} fake-quant launches")
+                checks.require(p["split"] > 0, f"{tag}: no parameter split over model")
+                for k in ("all-gather@model", "reduce-scatter@model", "all-reduce@model"):
+                    checks.require(p["collectives"].get(k, 0) > 0, f"{tag}: no {k}")
+                if "fake_quant" in p:
+                    fq = p["fake_quant"]
+                    checks.require(fq["bit_exact"], f"{tag}: fake-quant on the gathered tree "
+                                                    "differs from its plain version")
+                    want = STE_BUCKETS if family == "s2s" else LM_BUCKETS
+                    checks.require(fq["n_buckets"] == want, f"{tag}: {fq['n_buckets']} buckets")
+            fam[str(shape)] = per
+        out[family] = fam
+    out["scripts"] = {
+        "comm_budget": run_script(checks, "comm_budget", [], timeout=420),
+        "multihost_smoke": run_script(checks, "multihost_smoke", ["--device", "cuda"],
+                                      timeout=300),
+    }
+    emit({"phase": "tp_train", **out, "card": smi})
+    return out
+
+
+def run_script(checks, name: str, argv, timeout: float) -> dict:
+    """``python -m quantized_distillation_tpu_torch.scripts.<name>`` as a
+    subprocess that must exit 0 → its seconds and last lines."""
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run([sys.executable, "-m", f"quantized_distillation_tpu_torch.scripts.{name}",
+                            *argv], capture_output=True, text=True, timeout=timeout)
+        rc, stdout, stderr = r.returncode, r.stdout, r.stderr
+    except subprocess.TimeoutExpired as e:
+        rc, stdout, stderr = "timeout", e.stdout or "", e.stderr or ""
+        stdout = stdout.decode() if isinstance(stdout, bytes) else stdout
+        stderr = stderr.decode() if isinstance(stderr, bytes) else stderr
+    checks.require(rc == 0, f"scripts.{name} exited {rc}: {stderr[-2000:]}")
+    return {"rc": rc, "seconds": time.perf_counter() - t0,
+            "last_lines": stdout.strip().splitlines()[-8:]}
+
+
 def shard_kernel_times(checks, args, params, points, group) -> dict:
     """The fused generator (uniform and LUT) at the shard widths of MG_SHAPES,
     one process on the card: against its plain version, and timed like
@@ -2704,6 +2890,25 @@ def mg_nccl(checks, args, model, params, points, smi) -> dict:
         out["kd_bf16_reduce"] = {"batch": args.train_batch, "loss": loss_m,
                                  "mesh_less_loss": loss_1, "params_excess_over_rtol": excess,
                                  "fake_quant_launches": fq_m}
+        # the tensor-parallel step's code path at mesh (1, 1) against the
+        # mesh-less step (one-rank collectives over NCCL)
+        seed = args.seed + 70
+        one = _tp_step(args, dev, "s2s", seed, None, False)
+        tp1 = _tp_step(args, dev, "s2s", seed, mesh, True)
+        tp_excess = _shard_excess(tp1["params"], tp1["mp"],
+                                  {n: t.detach().cpu() for n, t in one["params"].items()}, dev)
+        checks.require(abs(tp1["loss"] - one["loss"]) <= LOSS_RTOL * abs(one["loss"]),
+                       f"multi_gpu TP (1, 1) loss {tp1['loss']} vs {one['loss']}")
+        checks.require(tp_excess <= W_ATOL, f"multi_gpu TP (1, 1) params {tp_excess} past rtol")
+        checks.require(tp1["launches"] == 1, f"multi_gpu TP (1, 1): {tp1['launches']} fake-quant "
+                                             "launches")
+        checks.require(tp1["collectives"].get("reduce-scatter@unknown", 0) > 0,
+                       "multi_gpu TP (1, 1): the TP path issued no reduce-scatter")
+        out["kd_tp_1x1"] = {"batch": args.train_batch, "loss": tp1["loss"],
+                            "mesh_less_loss": one["loss"], "params_excess_over_rtol": tp_excess,
+                            "fake_quant_launches": tp1["launches"],
+                            "collectives": tp1["collectives"], "seconds": tp1["seconds"],
+                            "mesh_less_seconds": one["seconds"]}
     finally:
         torch.distributed.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -2767,6 +2972,7 @@ def phase_multi_gpu(checks, args, model, params, points, smi) -> dict:
         checks.require(t["fake_quant_launches"] == 1,
                        f"multi_gpu DP rank {r}: {t['fake_quant_launches']} fake-quant launches")
     shards = shard_kernel_times(checks, args, params, points, spec["group"])
+    tp = mg_tp_train(checks, args, smi)
     emit({"phase": "multi_gpu", "nccl": a, "gloo_serve": b, "gloo_serve_seconds": serve_s,
           "gloo_dp_train": train, "gloo_dp_train_seconds": train_s, "shard_kernels": shards,
           "card": smi})
@@ -2777,8 +2983,17 @@ def phase_multi_gpu(checks, args, model, params, points, smi) -> dict:
         "dequant_matmul_topk_lut": {
             "nccl_1x1": a["lut_f32"]["replay"]["launches"]["dequant_matmul_topk_lut"]},
     }
-    return {name: {"sharded_launches": launches[name], "shard_widths": shards[name]}
-            for name in shards}
+    out = {name: {"sharded_launches": launches[name], "shard_widths": shards[name]}
+           for name in shards}
+    out["fake_quant_buckets"] = {"tp_launches": {
+        "nccl_1x1": a["kd_tp_1x1"]["fake_quant_launches"],
+        **{f"gloo_{fam}_{shape}": [p["launches"] for p in tp[fam][shape]]
+           for fam, shapes in (("s2s", TP_SHAPES), ("lm", (LM_TP_SHAPE,)))
+           for shape in map(str, shapes)}},
+        "tp_gathered_tree": {fam: next(p["fake_quant"] for p in tp[fam][str(shapes[0])]
+                                       if "fake_quant" in p)
+                             for fam, shapes in (("s2s", TP_SHAPES), ("lm", (LM_TP_SHAPE,)))}}
+    return out
 
 
 def parse_args(argv=None):

@@ -21,8 +21,17 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..parallel.comm import all_gather_dim
+from ..parallel.mesh import MODEL_AXIS
+from ..parallel.tensor import (
+    ModelParallel,
+    copy_to_model,
+    gather_from_model,
+    local_columns,
+    vocab_parallel_embedding,
+)
 from ._layers import Dense, FlaxModel
-from .seq2seq import LSTMCell, dropout
+from .seq2seq import LSTMCell, cell_names, dropout, run_lstm_tp, split_part
 
 # Per-layer LSTM carry: ((c, h), ...), the seq2seq family's convention.
 LMCarry = Tuple[Tuple[torch.Tensor, torch.Tensor], ...]
@@ -95,6 +104,49 @@ class LSTMLanguageModel(FlaxModel):
         names → tensors) in place of the module's own."""
         return functional_call(self, dict(params), (tokens, carry),
                                {"train": train, "generator": generator})
+
+    def logits_split(self, mp: Optional[ModelParallel]) -> bool:
+        """Whether :meth:`forward_tp` returns this rank's vocab columns."""
+        name = "embed.embedding" if self.generator is None else "generator.kernel"
+        return mp is not None and mp.is_split(name)
+
+    def forward_tp(self, params: Mapping[str, torch.Tensor], tokens, carry=None, *,
+                   model_parallel: ModelParallel, train: bool = False,
+                   generator: Optional[torch.Generator] = None):
+        """Tensor-parallel :meth:`forward` on this rank's shards ``params``
+        (``parallel.place_params_lm`` of :meth:`named_parameters`) →
+        (logits [B, T, V/m], this rank's vocab columns where
+        :meth:`logits_split`, else [B, T, V]; the final carry, whole and
+        detached). ``carry`` is whole, as :meth:`forward` takes it. The
+        layout is :meth:`..seq2seq.Seq2Seq.forward_tp`'s: the embedding
+        row-split, each cell's gate columns split with the recurrent input
+        all-gathered a step, the generator vocab-split (the tied embedding
+        transposed); dropout masks are drawn whole, in :meth:`forward`'s
+        order."""
+        cfg, mp = self.cfg, model_parallel
+        emb_mp = split_part(mp, "embed.embedding")
+        x = dropout(vocab_parallel_embedding(params["embed.embedding"], tokens, emb_mp),
+                    cfg.dropout, train, generator)
+        finals = []
+        for i in range(cfg.num_layers):
+            cmp = split_part(mp, *cell_names(f"OptimizedLSTMCell_{i}"))
+            c0 = h0 = None
+            if carry is not None:
+                c0, h0 = (t.detach() for t in carry[i])
+                c0 = local_columns(c0, cmp).contiguous()
+            out, cs = run_lstm_tp(params, f"OptimizedLSTMCell_{i}", x, cmp, h0=h0, c0=c0)
+            with torch.no_grad():
+                last = torch.stack([cs[:, -1], out[:, -1]])
+                if cmp is not None:
+                    last = all_gather_dim(last, cmp.mesh, MODEL_AXIS, -1)
+            finals.append((last[0], last[1]))
+            x = dropout(gather_from_model(out, cmp), cfg.dropout, train, generator)
+        if self.generator is None:
+            logits = copy_to_model(x, emb_mp) @ params["embed.embedding"].T
+        else:
+            gen_mp = split_part(mp, "generator.kernel", "generator.bias")
+            logits = copy_to_model(x, gen_mp) @ params["generator.kernel"] + params["generator.bias"]
+        return logits, tuple(finals)
 
     def initial_carry(self, batch_size: int) -> LMCarry:
         """Zeros on the model's device, each (c, h) its own buffer."""

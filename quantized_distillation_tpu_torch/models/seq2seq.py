@@ -30,6 +30,16 @@ from torch.func import functional_call
 
 from .._device import resolve_device
 from ..convert import fuse_lstm_params
+from ..parallel.tensor import (
+    ModelParallel,
+    copy_to_model,
+    gather_from_model,
+    gather_to_split,
+    local_columns,
+    reduce_from_model,
+    split_to_model,
+    vocab_parallel_embedding,
+)
 
 # Decoder carry: (((c, h) per layer, ...), input_feed [B, H])
 DecoderState = Tuple[Tuple[Tuple[torch.Tensor, torch.Tensor], ...], torch.Tensor]
@@ -85,16 +95,61 @@ class LSTMCell(nn.Module):
         """One step on ``xw = x @ wi``, computed beforehand (for a whole
         window at once, say)."""
         c, h = carry
-        z = (h @ self.wh + self.bh) + xw
-        zi, zf, zg, zo = z.chunk(4, dim=-1)
-        c = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zg)
-        return c, torch.sigmoid(zo) * torch.tanh(c)
+        return lstm_gates(self.wh, self.bh, c, h, xw)
 
     def load(self, cell_params) -> None:
         wi, wh, bh = fuse_lstm_params(cell_params)
         _copy(self.wi, wi)
         _copy(self.wh, wh)
         _copy(self.bh, bh)
+
+
+def lstm_gates(wh, bh, c, h, xw):
+    """The cell's step on the recurrent input ``h``: ``z = (h @ wh + bh) +
+    xw``, gate blocks i, f, g, o → ``(c', h')``. On a rank's shards
+    (``wh`` [H, 4H/m], ``bh`` and ``xw`` its gate columns, ``c`` [B, H/m],
+    ``h`` whole) it gives the rank's hidden units."""
+    z = (h @ wh + bh) + xw
+    zi, zf, zg, zo = z.chunk(4, dim=-1)
+    c = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zg)
+    return c, torch.sigmoid(zo) * torch.tanh(c)
+
+
+def split_part(mp: Optional[ModelParallel], *names: str) -> Optional[ModelParallel]:
+    """``mp`` where the parameters ``names`` are split over ``model`` (the
+    tensor-parallel operators act), None where they are whole on every
+    rank (the operators are the identity). Parameters that run together
+    must be placed alike."""
+    split = {mp.is_split(n) for n in names} if mp is not None else {False}
+    if len(split) > 1:
+        raise ValueError(f"parameters {names} must be all split or all whole over model")
+    return mp if split.pop() else None
+
+
+def cell_names(prefix: str) -> Tuple[str, str, str]:
+    return (f"{prefix}.wi", f"{prefix}.wh", f"{prefix}.bh")
+
+
+def run_lstm_tp(params, prefix: str, x, mp: Optional[ModelParallel], h0=None, c0=None):
+    """One LSTM over time on a rank's shards of the cell ``prefix``, input
+    ``x`` [B, T, in] whole on every rank → (h [B, T, H/m], c [B, T, H/m] at
+    every step, the rank's hidden units; whole when ``mp`` is None). The
+    recurrent input is all-gathered every step (reduce-scattered in the
+    backward). ``h0`` (whole) and ``c0`` (the rank's units) start it, zeros
+    when None; neither may need a gradient."""
+    wi, wh, bh = (params[n] for n in cell_names(prefix))
+    b, width = x.shape[0], wh.shape[1] // 4
+    xw = copy_to_model(x, mp) @ wi
+    c = c0 if c0 is not None else x.new_zeros((b, width))
+    h_whole = h0 if h0 is not None else x.new_zeros((b, wh.shape[0]))
+    hs, cs = [], []
+    for step in range(x.shape[1]):
+        if step:
+            h_whole = gather_to_split(hs[-1], mp)
+        c, h = lstm_gates(wh, bh, c, h_whole, xw[:, step])
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
 
 
 class Encoder(nn.Module):
@@ -319,17 +374,153 @@ class Seq2Seq(nn.Module):
             self, dict(params), (src, src_len, tgt_in), {"train": train, "generator": generator}
         )
 
+    def logits_split(self, mp: Optional[ModelParallel]) -> bool:
+        """Whether :meth:`forward_tp` returns this rank's vocab columns."""
+        return mp is not None and mp.is_split("generator_kernel")
+
+    def forward_tp(self, params: Mapping[str, torch.Tensor], src, src_len, tgt_in, *,
+                   model_parallel: ModelParallel, train: bool = False,
+                   generator: Optional[torch.Generator] = None):
+        """Tensor-parallel :meth:`forward` on this rank's shards ``params``
+        (name → local tensor, as ``parallel.place_params_seq2seq`` places
+        :meth:`named_parameters`; ``model_parallel`` holds their specs) →
+        logits [B, T_tgt, V/m], this rank's vocab columns, where
+        :meth:`logits_split`, else [B, T_tgt, V].
+
+        The layout is the JAX package's rules: embeddings row-split (a
+        masked lookup, then ``psum``), each LSTM cell's gate columns split
+        so the gate math stays on the rank's H/m hidden units and only the
+        recurrent input is all-gathered a step, the attention's
+        ``linear_in``/``linear_out`` column-split (scores summed over the
+        split H), the generator vocab-split. A part whose parameters stay
+        whole (a dim that does not divide the axis) runs whole. Dropout
+        draws every mask whole, in :meth:`forward`'s order, from
+        ``generator`` (the same on every rank of ``model``) and applies the
+        rank's columns, so the masks are slices of the one-process ones."""
+        mp = model_parallel
+        cfg = self.cfg
+        n_enc = len(self.encoder.cells)
+        enc_mp = split_part(mp, *(n for i in range(n_enc)
+                                  for n in cell_names(f"encoder.cells.{i}")))
+        attn = ["decoder.attn.linear_out"] + (
+            ["decoder.attn.linear_in"] if cfg.attn_type == "general" else [])
+        dec_mp = split_part(mp, *attn, *(n for i in range(cfg.num_layers)
+                                         for n in cell_names(f"decoder.cells.{i}")))
+        enc_out, finals, local = self._encode_tp(params, mp, enc_mp, src, src_len, train,
+                                                 generator)
+        if local and dec_mp is None:
+            raise ValueError("the encoder's cells are split over model and the decoder's are not")
+        t = torch.arange(src.shape[1], device=src.device)[None, :]
+        enc_mask = t < src_len[:, None]
+        # the decoder's carry: (c as the rank's units, h whole)
+        states = []
+        for c, h in finals:
+            if local:
+                states.append((c, gather_to_split(h, dec_mp)))
+            else:  # whole finals
+                states.append((split_to_model(c, dec_mp), copy_to_model(h, dec_mp)))
+        attn_h = self._decode_tp(params, mp, dec_mp, states, enc_out, enc_mask, tgt_in, train,
+                                 generator)
+        gen_mp = split_part(mp, "generator_kernel", "generator_bias")
+        return copy_to_model(attn_h, gen_mp) @ params["generator_kernel"] + params["generator_bias"]
+
+    def _encode_tp(self, p, mp, enc_mp, src, src_len, train, generator):
+        """→ (enc_out [B, T, H] whole, per-layer final (c, h), whether the
+        finals are the rank's units (else whole))."""
+        cfg, enc = self.cfg, self.encoder
+        b, t = src.shape
+        x = vocab_parallel_embedding(p["encoder.embedding"], src,
+                                     split_part(mp, "encoder.embedding"))
+        last = (src_len.long() - 1) % t
+        rows = torch.arange(b, device=src.device)
+        per_layer = 2 if enc.bidirectional else 1
+        if enc.bidirectional:
+            flip = ((torch.arange(t - 1, -1, -1, device=src.device)[None, :]
+                     + src_len.long()[:, None]) % t)[:, :, None]
+        finals = []
+        for i in range(cfg.num_layers):
+            if i > 0:
+                x = dropout(x, cfg.dropout, train, generator)
+            out, cs = run_lstm_tp(p, f"encoder.cells.{per_layer * i}", x, enc_mp)
+            c, h = cs[rows, last], out[rows, last]
+            if enc.bidirectional:
+                xb = torch.gather(x, 1, flip.expand(b, t, x.shape[-1]))
+                bw, cb = run_lstm_tp(p, f"encoder.cells.{2 * i + 1}", xb, enc_mp)
+                cb, hb = cb[rows, last], bw[rows, last]
+                bw = torch.gather(bw, 1, flip.expand(b, t, bw.shape[-1]))
+                out = torch.cat([gather_from_model(out, enc_mp), gather_from_model(bw, enc_mp)],
+                                dim=-1)
+                c = torch.cat([gather_from_model(c, enc_mp), gather_from_model(cb, enc_mp)], dim=-1)
+                h = torch.cat([gather_from_model(h, enc_mp), gather_from_model(hb, enc_mp)], dim=-1)
+            else:
+                out = gather_from_model(out, enc_mp)
+            x = out
+            finals.append((c, h))
+        return x, finals, enc_mp is not None and not enc.bidirectional
+
+    def _decode_tp(self, p, mp, dec_mp, states, enc_out, enc_mask, tgt_in, train, generator):
+        """Teacher-forced decode → the attention outputs [B, T_tgt, H],
+        whole on every rank (the generator's input)."""
+        cfg = self.cfg
+        y_in = copy_to_model(vocab_parallel_embedding(p["tgt_embed"], tgt_in,
+                                                      split_part(mp, "tgt_embed")), dec_mp)
+        if cfg.attn_type == "general":
+            keys = copy_to_model(enc_out, dec_mp) @ p["decoder.attn.linear_in"]
+        else:
+            keys = split_to_model(enc_out, dec_mp)
+        b, steps = tgt_in.shape
+        input_feed = enc_out.new_zeros((b, cfg.hidden))
+        outs = []
+        for step in range(steps):
+            x = torch.cat([y_in[:, step], input_feed], dim=-1)
+            new_states = []
+            for i, (c, h_whole) in enumerate(states):
+                wi, wh, bh = (p[n] for n in cell_names(f"decoder.cells.{i}"))
+                c, h = lstm_gates(wh, bh, c, h_whole, x @ wi)
+                h_whole = gather_to_split(h, dec_mp)
+                new_states.append((c, h_whole))
+                mask = dropout_mask((b, cfg.hidden), cfg.dropout, train, generator, h)
+                x = apply_dropout(h_whole, mask, cfg.dropout)  # flax drop_{i}
+            states = new_states
+            x_local = apply_dropout(h, local_columns(mask, dec_mp), cfg.dropout)
+            scores = reduce_from_model(torch.einsum("bh,bth->bt", x_local, keys), dec_mp)
+            scores = torch.where(enc_mask, scores, torch.full_like(scores, -1e9))
+            align = torch.softmax(scores, dim=-1)
+            context = torch.einsum("bt,bth->bh", align, enc_out)
+            attn_h = torch.tanh(torch.cat([copy_to_model(context, dec_mp), x], dim=-1)
+                                @ p["decoder.attn.linear_out"])
+            mask = dropout_mask((b, cfg.hidden), cfg.dropout, train, generator, attn_h)
+            attn_h = apply_dropout(attn_h, local_columns(mask, dec_mp), cfg.dropout)  # drop_out
+            outs.append(attn_h)
+            if step + 1 < steps:
+                input_feed = gather_to_split(attn_h, dec_mp)
+        return gather_from_model(torch.stack(outs, dim=1), dec_mp)
+
 
 def dropout(x: torch.Tensor, rate: float, train: bool, generator) -> torch.Tensor:
     """flax ``nn.Dropout``: in training, keep each element with probability
     ``1 - rate`` (a uniform draw from ``generator`` below it) and scale the
     kept ones by ``1 / (1 - rate)``; the identity otherwise."""
+    return apply_dropout(x, dropout_mask(x.shape, rate, train, generator, x), rate)
+
+
+def dropout_mask(shape, rate: float, train: bool, generator, like: torch.Tensor):
+    """The keep mask :func:`dropout` draws for a tensor of ``shape`` (dtype
+    and device of ``like``), or None when it is the identity. The
+    tensor-parallel forwards draw a whole activation's mask and apply its
+    columns to the rank's slice."""
     if not train or rate == 0.0:
-        return x
+        return None
     if generator is None:
         raise ValueError("dropout in training mode requires a torch.Generator")
+    u = torch.rand(tuple(shape), generator=generator, dtype=like.dtype, device=like.device)
+    return u < 1.0 - rate
+
+
+def apply_dropout(x: torch.Tensor, mask, rate: float) -> torch.Tensor:
+    if mask is None:
+        return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, dtype=x.dtype, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -2,7 +2,8 @@
 placement, the collectives with their budget, and a launcher of rank
 processes. One process per rank over ``torch.distributed`` (NCCL on
 CUDA, gloo on the host), where the JAX package runs one controller over a
-``jax.sharding.Mesh``."""
+``jax.sharding.Mesh``. Tensor parallelism over ``model`` writes out
+the collectives XLA inserts (:mod:`.tensor`)."""
 
 from .mesh import (
     DATA_AXIS,
@@ -18,9 +19,11 @@ from .sharding import (
     place_params_lm,
     place_params_seq2seq,
     place_replicated,
+    placed_pspecs,
     replicated_pspecs,
     seq2seq_pspecs,
 )
+from .tensor import ModelParallel
 
 __all__ = [
     "DATA_AXIS",
@@ -36,4 +39,6 @@ __all__ = [
     "place_replicated",
     "replicated_pspecs",
     "seq2seq_pspecs",
+    "placed_pspecs",
+    "ModelParallel",
 ]

@@ -3,9 +3,11 @@ PyTorch port's counterpart of the JAX package's ``parallel/comm.py``).
 
 The JAX package reads the collectives of a step from its compiled HLO; the
 port has no HLO, so every collective of its multi-device paths goes through
-the helpers here (:func:`all_gather`, :func:`psum`, :func:`pmean`), and each
-one records itself: kind, payload bytes (the gathered output of an
-all-gather, the reduced tensor of an all-reduce, as XLA sizes them), the
+the helpers here (:func:`all_gather`, :func:`all_gather_dim`, :func:`psum`,
+:func:`pmean`, :func:`pmax`, :func:`reduce_scatter`), and each one records
+itself: kind, payload bytes (the gathered output of an all-gather, the
+reduced tensor of an all-reduce, the scattered output of a reduce-scatter:
+the result shape, as XLA's HLO writes it), the
 mesh axis its groups vary along (:func:`_axis_of_groups`) and the group
 size. ``with collective_budget(mesh) as budget: step(...)`` collects them.
 An axis of size 1 still issues and records its collective, so a one-rank
@@ -189,6 +191,42 @@ def all_gather(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         out = torch.stack(parts)
     _op("all-gather", out.numel() * out.element_size(), mesh, axis)
     return out.to(x.device)
+
+
+def all_gather_dim(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis`` concatenated along tensor dim
+    ``dim``, in axis order (JAX's ``lax.all_gather(tiled=True)``): one
+    recorded all-gather."""
+    g = all_gather(x, mesh, axis)
+    dim = dim % x.dim()
+    return g.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Sum of every rank's ``x`` along ``axis``, of which this rank keeps its
+    block of tensor dim ``dim`` (the axis index-th of ``axis size`` equal
+    blocks; JAX's ``lax.psum_scatter(scatter_dimension=dim, tiled=True)``).
+    ``x.shape[dim]`` must divide the axis."""
+    group = _group(mesh, axis)
+    g = dist.get_world_size(group)
+    dim = dim % x.dim()
+    if x.shape[dim] % g:
+        raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does not divide axis {axis!r} "
+                         f"of size {g}")
+    y = _staged(x.movedim(dim, 0), mesh)  # contiguous: the blocks are rows
+    out = torch.empty((y.shape[0] // g,) + tuple(y.shape[1:]), dtype=y.dtype, device=y.device)
+    dist.reduce_scatter_tensor(out, y, group=group)
+    _op("reduce-scatter", out.numel() * out.element_size(), mesh, axis)
+    return out.movedim(0, dim).to(x.device)
+
+
+def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Elementwise maximum of every rank's ``x`` along ``axis`` (JAX's
+    ``lax.pmax``), on ``x``'s device."""
+    y = _staged(x, mesh).clone()  # reduced in place: never x
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=_group(mesh, axis))
+    _op("all-reduce", y.numel() * y.element_size(), mesh, axis)
+    return y.to(x.device)
 
 
 def psum(x: torch.Tensor, mesh, axis: str, *, dtype: Optional[torch.dtype] = None) -> torch.Tensor:

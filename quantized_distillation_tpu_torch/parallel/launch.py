@@ -10,6 +10,12 @@ raised with the rank's traceback, so no rank is left blocked in a
 collective. The function must be importable by name (a module-level
 function): spawned children import its module again, not the caller's
 ``__main__`` block.
+
+Across hosts, :func:`run_node` starts this node's share of the ranks
+(``world_size / nnodes`` of them, global ranks ``node_rank * local + i``)
+with a TCP rendezvous at ``master_addr:master_port``, with the same
+failure handling; :func:`env_rank` reads what ``torchrun`` sets for a
+process that is itself one rank.
 """
 
 from __future__ import annotations
@@ -29,12 +35,12 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def _child(call, rank, world, backend, store, timeout, out):
+def _child(call, rank, world, backend, init_method, timeout, out):
     try:
         with open(call, "rb") as f:
             fn, args = pickle.load(f)
         torch.set_num_threads(1)  # the ranks share the host's cores
-        dist.init_process_group(backend, init_method=f"file://{store}", rank=rank,
+        dist.init_process_group(backend, init_method=init_method, rank=rank,
                                 world_size=world, timeout=timedelta(seconds=timeout))
         try:
             result = fn(rank, world, *args)
@@ -61,9 +67,75 @@ def run_ranks(
     Each rank runs one intra-op thread (``fn`` may set more).
     Raises ``RuntimeError`` with the first failing rank's traceback, or
     ``TimeoutError``; every child has ended when it returns or raises."""
-    ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="qdt_ranks_", dir=store_dir)
-    store = os.path.join(tmp, "store")
+    try:
+        return _spawn(fn, list(range(world_size)), world_size, args, backend,
+                      f"file://{os.path.join(tmp, 'store')}", timeout, join_timeout, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_node(
+    fn: Callable[..., Any],
+    world_size: int,
+    *,
+    nnodes: int,
+    node_rank: int,
+    master_addr: str,
+    master_port: int,
+    args: Sequence[Any] = (),
+    backend: str = "gloo",
+    timeout: float = 120.0,
+    join_timeout: float = 300.0,
+) -> List[Any]:
+    """This node's ranks of a ``world_size``-rank group over ``nnodes``
+    hosts: ``fn(rank, world_size, *args)`` on global ranks ``node_rank *
+    local`` to ``(node_rank + 1) * local - 1`` (``local = world_size /
+    nnodes``), joined at ``tcp://master_addr:master_port`` (node 0 serves
+    the store) → their return values, in rank order. Failures as
+    :func:`run_ranks`."""
+    if world_size % nnodes or not 0 <= node_rank < nnodes:
+        raise ValueError(f"{world_size} ranks do not split over node {node_rank} of {nnodes}")
+    local = world_size // nnodes
+    tmp = tempfile.mkdtemp(prefix="qdt_node_")
+    try:
+        return _spawn(fn, list(range(node_rank * local, (node_rank + 1) * local)), world_size,
+                      args, backend, f"tcp://{master_addr}:{master_port}", timeout,
+                      join_timeout, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rank_device(device, local_rank: int) -> torch.device:
+    """Where a rank's tensors live: the CPU, or card ``local_rank % cards``
+    (made current; ranks beyond the cards share them), TF32 off so an f32
+    product on the card is a true f32 product."""
+    if torch.device(device).type != "cuda":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("a CUDA device was asked for and PyTorch sees no card")
+    dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return dev
+
+
+def env_rank() -> Optional[tuple]:
+    """``(rank, world_size, local_rank, local_world_size)`` from
+    ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``LOCAL_WORLD_SIZE``), or None outside it; such a process joins with
+    ``init_process_group(init_method="env://")``."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None
+    world = int(os.environ["WORLD_SIZE"])
+    return (int(os.environ["RANK"]), world, int(os.environ.get("LOCAL_RANK", "0")),
+            int(os.environ.get("LOCAL_WORLD_SIZE", world)))
+
+
+def _spawn(fn, ranks, world_size, args, backend, init_method, timeout, join_timeout, tmp):
+    """Start one child per global rank in ``ranks``, wait for all of their
+    results (raising the first failure) and end every child."""
+    ctx = mp.get_context("spawn")
     # the function and its arguments go through a file: a spawned child reads
     # its start-up pipe only after importing the caller's main module, so a
     # large argument there would start the ranks one after another
@@ -71,26 +143,26 @@ def run_ranks(
     with open(call, "wb") as f:
         pickle.dump((fn, tuple(args)), f)
     out = ctx.Queue()
-    procs = [
-        ctx.Process(target=_child, daemon=True,
-                    args=(call, r, world_size, backend, store, timeout, out))
-        for r in range(world_size)
-    ]
+    procs = {
+        r: ctx.Process(target=_child, daemon=True,
+                       args=(call, r, world_size, backend, init_method, timeout, out))
+        for r in ranks
+    }
     results: dict = {}
     try:
-        for p in procs:
+        for p in procs.values():
             p.start()
         deadline = time.monotonic() + join_timeout
         grace = None
-        while len(results) < world_size:
+        while len(results) < len(ranks):
             left = deadline - time.monotonic()
             if left <= 0:
-                raise TimeoutError(f"ranks {sorted(set(range(world_size)) - set(results))} "
+                raise TimeoutError(f"ranks {sorted(set(ranks) - set(results))} "
                                    f"did not finish within {join_timeout} s")
             try:
                 rank, ok, value = out.get(timeout=min(left, 1.0))
             except queue.Empty:
-                dead = [r for r, p in enumerate(procs)
+                dead = [r for r, p in procs.items()
                         if r not in results and p.exitcode is not None]
                 if dead:  # its result may still be in the pipe: a short grace
                     grace = grace or time.monotonic() + 5.0
@@ -101,13 +173,12 @@ def run_ranks(
             if not ok:
                 raise RuntimeError(f"rank {rank} of {world_size} failed:\n{value}")
             results[rank] = value
-        for p in procs:
+        for p in procs.values():
             p.join(timeout=30)
     finally:
-        for p in procs:
+        for p in procs.values():
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
         out.close()
-        shutil.rmtree(tmp, ignore_errors=True)
-    return [results[r] for r in range(world_size)]
+    return [results[r] for r in ranks]

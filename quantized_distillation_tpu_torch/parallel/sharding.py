@@ -153,6 +153,45 @@ def _fits(shape, spec: PartitionSpec, mesh, blocks: int) -> bool:
     return True
 
 
+def _spec_fit(key_path, leaf, mesh) -> PartitionSpec:
+    """The rule's spec for a leaf, or ``()`` where a split dim does not
+    divide its mesh dim."""
+    x = _tensor(leaf)
+    paths = _paths(key_path)
+    spec = _rule(paths[0], x.dim())
+    return spec if _fits(tuple(x.shape), spec, mesh, len(paths)) else ()
+
+
+def placed_pspecs(params: PyTree, mesh) -> PyTree:
+    """The spec tree :func:`place_params_seq2seq` applies on ``mesh``: the
+    tensor-parallel rules, with replication wherever a split dim does not
+    divide its mesh dim. ``make_train_step(param_specs=)`` takes it (of a
+    port model's whole ``named_parameters()``)."""
+    return _map(lambda p, leaf: _spec_fit(p, leaf, mesh), params)
+
+
+def shard(x: torch.Tensor, spec: PartitionSpec, mesh, blocks: int = 1) -> torch.Tensor:
+    """This rank's slice of the whole tensor ``x`` under ``spec``; a fused
+    tensor of ``blocks`` gate blocks along its last dim is split block by
+    block (its slice is the blocks' slices side by side)."""
+    if blocks > 1 and spec:
+        return torch.cat([_local(b, spec, mesh) for b in x.chunk(blocks, dim=-1)], dim=-1)
+    return _local(x, spec, mesh)
+
+
+def unshard(parts: Sequence[torch.Tensor], spec: PartitionSpec, blocks: int = 1) -> torch.Tensor:
+    """The whole tensor from every rank's slice along the one split dim of
+    ``spec`` (``parts`` in axis order): the inverse of :func:`shard`."""
+    dims = [d for d, name in enumerate(spec) if name is not None]
+    if len(dims) != 1:
+        raise ValueError(f"unshard takes a spec with one split dim, got {spec}")
+    d = dims[0]
+    if blocks > 1 and d == parts[0].dim() - 1:
+        split = [p.chunk(blocks, dim=-1) for p in parts]
+        return torch.cat([torch.cat([s[b] for s in split], dim=-1) for b in range(blocks)], dim=-1)
+    return torch.cat(list(parts), dim=d)
+
+
 def place_params_seq2seq(params: PyTree, mesh, *, device="cuda") -> PyTree:
     """This rank's local seq2seq params under the tensor-parallel rules.
 
@@ -164,15 +203,8 @@ def place_params_seq2seq(params: PyTree, mesh, *, device="cuda") -> PyTree:
 
     def put(key_path, leaf):
         x = _tensor(leaf)
-        paths = _paths(key_path)
-        spec = _rule(paths[0], x.dim())
-        if not _fits(tuple(x.shape), spec, mesh, len(paths)):
-            spec = ()
-        if len(paths) > 1 and spec:  # fused gate blocks shard one by one
-            x = torch.cat([_local(b, spec, mesh) for b in x.chunk(len(paths), dim=-1)], dim=-1)
-        else:
-            x = _local(x, spec, mesh)
-        return x.to(dev).contiguous()
+        spec = _spec_fit(key_path, x, mesh)
+        return shard(x, spec, mesh, len(_paths(key_path))).to(dev).contiguous()
 
     return _map(put, params)
 

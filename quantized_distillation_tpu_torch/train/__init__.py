@@ -6,9 +6,10 @@ Ported for every model family (seq2seq, CNN, WideResNet, ResNet, LSTM LM):
 modes ``weights`` (quantized distillation), ``codebooks`` and ``joint``
 (differentiable quantization), the BatchNorm running statistics and the
 truncated-BPTT carry of the train state, ``bits.py``, the experiment
-manager (checkpoints and a run registry), and data-parallel training over
-``torch.distributed`` (``make_train_step(mesh=, grad_reduce_dtype=)``).
-Still to come: tensor-parallel training on placed parameters.
+manager (checkpoints and a run registry), and data- and tensor-parallel
+training over ``torch.distributed`` (``make_train_step(mesh=,
+grad_reduce_dtype=, param_specs=)``: the seq2seq and LM students on
+``place_params_*`` shards).
 """
 
 from . import bits, losses, manager, quantize_tree, tasks, trainer

@@ -22,6 +22,9 @@ from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.comm import psum
+from ..parallel.mesh import MODEL_AXIS
+
 Tensors = Dict[str, torch.Tensor]
 Schedule = Callable[[int], float]
 
@@ -66,6 +69,17 @@ def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors.values()))
 
 
+def model_parallel_norm(tensors: Mapping[str, torch.Tensor], mp) -> torch.Tensor:
+    """:func:`global_norm` of tensors of which this rank holds shards
+    (``mp`` a ``parallel.tensor.ModelParallel``): each split tensor's
+    squares summed over ``model`` once (one all-reduce), each whole one's
+    counted once."""
+    zero = next(iter(tensors.values())).new_zeros(())
+    split = sum((torch.sum(t * t) for n, t in tensors.items() if mp.is_split(n)), zero)
+    whole = sum((torch.sum(t * t) for n, t in tensors.items() if not mp.is_split(n)), zero)
+    return torch.sqrt(psum(split, mp.mesh, MODEL_AXIS) + whole)
+
+
 def _bias_correction(decay: float, count: int) -> float:
     """``1 - decay**count`` in f32, as optax computes it."""
     return float(np.float32(1) - np.float32(decay) ** np.float32(count))
@@ -104,11 +118,14 @@ class Optimizer:
 
     def update(
         self, grads: Mapping[str, torch.Tensor], state: OptState,
-        params: Mapping[str, torch.Tensor],
+        params: Mapping[str, torch.Tensor], *, norm: Optional[torch.Tensor] = None,
     ) -> Tuple[Tensors, OptState]:
+        """``norm``: the gradients' global norm where ``grads`` are one rank's
+        shards (:func:`model_parallel_norm`); computed from ``grads`` when
+        None."""
         g = {n: t.detach() for n, t in grads.items()}
         if self.clip_norm:
-            norm = global_norm(g)
+            norm = global_norm(g) if norm is None else norm
             g = {n: torch.where(norm < self.clip_norm, t, (t / norm) * self.clip_norm)
                  for n, t in g.items()}
         if self.weight_decay:

@@ -16,6 +16,15 @@ order) and assembles the per-leaf results back into fused tensors
 Quantizable leaves: ndim >= 2 (kernels, embeddings) and no excluded
 substring in the path; biases stay full precision.
 
+Under tensor parallelism (:func:`ste_quantize_tree_tp`) a rank holds only
+its shard of each split leaf, and a split cuts buckets (a 256-wide gate
+row spans the ranks at H/m = 128; the generator's 32,000-wide rows split
+mid-bucket), so the split quantizable parameters are all-gathered over
+``model`` in one flat buffer, fake-quantized whole exactly as the
+one-process step does (one kernel launch per bits-group over the whole
+tree), and each rank keeps its slice: the values are bit-identical to the
+one-process step's.
+
 Differentiable quantization (``QuantSpec(method="codebook")``) keeps one
 learned codebook of ``2^bits`` points per quantizable leaf, in a flat dict
 keyed by flax path (:func:`init_codebook_tree`); :func:`ste_codebook_tree`
@@ -38,6 +47,7 @@ from ..kernels.fake_quant import fake_quant_buckets
 from ..ops import codebook as cb
 from ..ops import uniform
 from ..ops.bucketing import apply_scale, compute_scale, from_buckets, to_buckets
+from ..parallel.tensor import copy_to_model
 
 Params = Mapping[str, torch.Tensor]
 Codebooks = Dict[str, torch.Tensor]
@@ -124,6 +134,42 @@ def ste_quantize_tree(
     }
 
 
+def ste_quantize_tree_tp(
+    params: Params,
+    spec: QuantSpec,
+    model_parallel,
+    generator: Optional[torch.Generator] = None,
+    bits_map: Optional[Dict[str, int]] = None,
+) -> Dict[str, torch.Tensor]:
+    """:func:`ste_quantize_tree` of this rank's shards ``params`` (name →
+    local tensor; ``model_parallel`` a ``parallel.tensor.ModelParallel``
+    holding their specs): the split parameters with a quantizable leaf
+    are gathered whole over ``model`` (one all-gather), the whole tree is
+    fake-quantized, and each parameter's value is the rank's slice of it,
+    with a straight-through gradient to the local master shard."""
+    mp = model_parallel
+    detached = {n: t.detach() for n, t in params.items()}
+    whole = _whole_quantizable(params, spec, mp)
+    values = _hard_values(whole, spec, bits_map, generator)
+    q = map_quantizable(lambda p, _: values[p], whole, spec)
+    out = {}
+    for n, t in params.items():
+        if q[n] is whole[n]:
+            out[n] = t
+        else:
+            out[n] = t + (mp.local(n, q[n]) - detached[n])  # value q's slice, gradient 1
+    return out
+
+
+def _whole_quantizable(params: Params, spec: QuantSpec, mp) -> Dict[str, torch.Tensor]:
+    """The detached parameters with every split one that holds a
+    quantizable leaf gathered whole (one all-gather over ``model``)."""
+    detached = {n: t.detach() for n, t in params.items()}
+    quantizable = {n: t for n, t in detached.items()
+                   if any(is_quantizable(p, x, spec) for p, x in flax_leaves({n: t}))}
+    return {**detached, **mp.gather(quantizable)}
+
+
 def quantize_tree_hard(
     params: Params,
     spec: QuantSpec,
@@ -175,11 +221,16 @@ def param_sizes(params: Params) -> Dict[str, int]:
     return {path: leaf.numel() for path, leaf in flax_leaves(params)}
 
 
-def init_codebook_tree(params: Params, spec: QuantSpec, mode: str = "uniform") -> Codebooks:
+def init_codebook_tree(params: Params, spec: QuantSpec, mode: str = "uniform",
+                       model_parallel=None) -> Codebooks:
     """One codebook of ``2^spec.bits`` f32 points per quantizable leaf, keyed
     by flax path, on the leaf's device: the uniform grid, or (``quantile``)
     the quantiles of the leaf's bucket-scaled weights, the last bucket's
-    edge padding included, as the JAX package computes them."""
+    edge padding included, as the JAX package computes them. With
+    ``model_parallel`` the parameters are one rank's shards, and the
+    quantiles are the whole leaves' (gathered)."""
+    if model_parallel is not None and mode == "quantile":
+        params = _whole_quantizable(params, spec, model_parallel)
     books: Codebooks = {}
     for path, leaf in flax_leaves(params):
         if not is_quantizable(path, leaf, spec):
@@ -190,6 +241,27 @@ def init_codebook_tree(params: Params, spec: QuantSpec, mode: str = "uniform") -
             x01 = apply_scale(b, compute_scale(b, spec.scaling))
         books[path] = cb.init_points(spec.bits, mode, x01, device=leaf.device)
     return books
+
+
+def ste_codebook_tree_tp(params: Params, codebooks: Codebooks, spec: QuantSpec,
+                         model_parallel) -> Dict[str, torch.Tensor]:
+    """:func:`ste_codebook_tree` of this rank's shards ``params``: every
+    split leaf is snapped onto its codebook whole (gathered, so its buckets
+    are the one-process step's) and the rank keeps its slice; the value's
+    gradient goes straight through to the local shard, and into the points
+    through each rank's own weights, summed over ``model``."""
+    mp = model_parallel
+    whole = _whole_quantizable(params, spec, mp)
+    split = {p for n in params if mp.is_split(n) for p in flax_paths(n)}
+    q = map_quantizable(
+        lambda p, x: cb.fake_quant(
+            x, copy_to_model(codebooks[p], mp) if p in split else codebooks[p],
+            bucket_size=spec.bucket_size, scaling=spec.scaling),
+        whole, spec)
+    return {
+        n: t if q[n] is whole[n] else mp.local(n, q[n]) + (t - t.detach())
+        for n, t in params.items()
+    }
 
 
 def ste_codebook_tree(params: Params, codebooks: Codebooks, spec: QuantSpec) -> Dict[str, torch.Tensor]:

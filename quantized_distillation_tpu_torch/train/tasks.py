@@ -12,6 +12,13 @@ Batch format (numpy arrays or tensors), the JAX package's:
 Every student runs on the weights (and running statistics) the trainer
 hands it (``forward_with``); every teacher on its own weights under
 ``torch.no_grad()``, in eval mode. All models must be on ``device``.
+
+``nmt_task`` and ``lm_task`` also train one rank's shards of the student
+(``model_parallel=``, see ``trainer.make_train_step(param_specs=)``): the
+student runs its tensor-parallel forward (``forward_tp``), and where its
+logits are this rank's vocab columns the losses and metrics take the
+vocab-parallel path (``losses``, ``model_parallel=``); the teacher runs
+whole on every rank and its logits are sliced there.
 """
 
 from __future__ import annotations
@@ -72,12 +79,12 @@ def nmt_task(student_model, teacher_model=None, *, device="cuda") -> Task:
     ``device``."""
     _check_models(device, student_model, teacher_model)
 
-    def student_forward(params, batch, train, generator):
-        logits = student_model.forward_with(
-            params, batch["src"], batch["src_len"], batch["tgt_in"],
-            train=train, generator=generator,
-        )
-        return logits, {}
+    def student_forward(params, batch, train, generator, model_parallel=None):
+        args = (params, batch["src"], batch["src_len"], batch["tgt_in"])
+        if model_parallel is not None:
+            return student_model.forward_tp(*args, model_parallel=model_parallel, train=train,
+                                            generator=generator), {}
+        return student_model.forward_with(*args, train=train, generator=generator), {}
 
     teacher_forward = None
     if teacher_model is not None:
@@ -86,13 +93,14 @@ def nmt_task(student_model, teacher_model=None, *, device="cuda") -> Task:
             with torch.no_grad():
                 return teacher_model(batch["src"], batch["src_len"], batch["tgt_in"])
 
-    def loss_and_metrics(logits, teacher_logits, batch, distill):
+    def loss_and_metrics(logits, teacher_logits, batch, distill, model_parallel=None):
+        vp = model_parallel if student_model.logits_split(model_parallel) else None
         mask = batch["tgt_mask"]
-        loss = distillation_loss(logits, teacher_logits, batch["tgt_out"], distill, mask)
-        nll_sum, n_tok = perplexity_terms(logits.detach(), batch["tgt_out"], mask)
+        loss = distillation_loss(logits, teacher_logits, batch["tgt_out"], distill, mask, vp)
+        nll_sum, n_tok = perplexity_terms(logits.detach(), batch["tgt_out"], mask, vp)
         return loss, {"nll_sum": nll_sum, "n_tokens": n_tok}
 
-    return Task(student_forward, loss_and_metrics, teacher_forward)
+    return Task(student_forward, loss_and_metrics, teacher_forward, model_parallel=True)
 
 
 def lm_task(student_model, teacher_model=None, *, thread_carry: bool = False,
@@ -111,22 +119,29 @@ def lm_task(student_model, teacher_model=None, *, thread_carry: bool = False,
     run and its carry passes through unchanged."""
     _check_models(device, student_model, teacher_model)
 
-    def loss_and_metrics(logits, teacher_logits, batch, distill):
+    def loss_and_metrics(logits, teacher_logits, batch, distill, model_parallel=None):
+        vp = model_parallel if student_model.logits_split(model_parallel) else None
         if thread_carry:
             logits, teacher_logits = logits
         mask = torch.ones(batch["target"].shape, dtype=torch.float32,
                           device=batch["target"].device)
-        loss = distillation_loss(logits, teacher_logits, batch["target"], distill, mask)
-        nll_sum, n_tok = perplexity_terms(logits.detach(), batch["target"], mask)
+        loss = distillation_loss(logits, teacher_logits, batch["target"], distill, mask, vp)
+        nll_sum, n_tok = perplexity_terms(logits.detach(), batch["target"], mask, vp)
         return loss, {"nll_sum": nll_sum, "n_tokens": n_tok}
+
+    def run_student(params, tokens, carry, train, generator, model_parallel):
+        if model_parallel is not None:
+            return student_model.forward_tp(params, tokens, carry, model_parallel=model_parallel,
+                                            train=train, generator=generator)
+        return student_model.forward_with(params, tokens, carry, train=train, generator=generator)
 
     if thread_carry:
 
-        def student_forward(params, batch, train, generator):
+        def student_forward(params, batch, train, generator, model_parallel=None):
             carry = batch.get("carry")
-            logits, new_s = student_model.forward_with(
+            logits, new_s = run_student(
                 params, batch["input"], None if carry is None else carry["student"],
-                train=train, generator=generator)
+                train, generator, model_parallel)
             t_logits, new_t = None, None if carry is None else carry["teacher"]
             if teacher_model is not None and train:
                 with torch.no_grad():
@@ -134,11 +149,10 @@ def lm_task(student_model, teacher_model=None, *, thread_carry: bool = False,
                         batch["input"], None if carry is None else carry["teacher"])
             return (logits, t_logits), {"carry": {"student": new_s, "teacher": new_t}}
 
-        return Task(student_forward, loss_and_metrics, None)
+        return Task(student_forward, loss_and_metrics, None, model_parallel=True)
 
-    def student_forward(params, batch, train, generator):
-        logits, _ = student_model.forward_with(params, batch["input"], train=train,
-                                               generator=generator)
+    def student_forward(params, batch, train, generator, model_parallel=None):
+        logits, _ = run_student(params, batch["input"], None, train, generator, model_parallel)
         return logits, {}
 
     teacher_forward = None
@@ -148,7 +162,7 @@ def lm_task(student_model, teacher_model=None, *, thread_carry: bool = False,
             with torch.no_grad():
                 return teacher_model(batch["input"])[0]
 
-    return Task(student_forward, loss_and_metrics, teacher_forward)
+    return Task(student_forward, loss_and_metrics, teacher_forward, model_parallel=True)
 
 
 def lm_initial_carry(student_model, batch_size: int, teacher_model=None) -> dict:

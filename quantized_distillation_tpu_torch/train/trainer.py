@@ -53,6 +53,30 @@ rank (every shard sees the same quantized weights), the dropout generator
 is folded with the rank's ``data`` coordinate. BatchNorm normalizes with
 each shard's own batch statistics, as in the JAX package's
 reduced-precision path.
+
+Tensor parallelism (``make_train_step(mesh=, param_specs=)``): the state
+holds this rank's shards of the parameters, as
+``parallel.place_params_seq2seq`` / ``place_params_lm`` place a model's
+``named_parameters()``, and ``param_specs`` says how
+(``parallel.placed_pspecs`` of the whole parameters). The task runs the
+model's tensor-parallel forward on the shards (``forward_tp``: the JAX
+rules' layout over ``model``, its collectives written out in
+``parallel/tensor.py``) and the vocab-parallel loss where the logits are
+split; the loss, the metrics and each rank's gradients equal the
+one-process step's (its slices). Fake-quant gathers the split leaves and
+quantizes the whole tree, one launch a bits-group as in the one-process
+step (``quantize_tree.ste_quantize_tree_tp``); the global norm sums the
+split leaves' squares over ``model``; the gradients are reduced over
+``data`` only. The fake-quant generator is the same on every rank and the
+dropout one is folded with the ``data`` coordinate, so every rank of
+``model`` draws the same whole masks. Learned codebooks
+(modes ``codebooks`` and ``joint``) stay whole on every rank: each split
+leaf is snapped onto its codebook whole and the points' gradient is summed
+over ``model`` (``quantize_tree.ste_codebook_tree_tp``); pass the same
+``mesh`` and ``param_specs`` to :func:`create_train_state` so a quantile
+init reads the whole leaves. Only tasks built for it (``nmt_task``,
+``lm_task``) take split parameters, and the teacher runs whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -67,7 +91,8 @@ import torch
 from .._device import resolve_device
 from ..config import DistillSpec, QuantSpec, TrainConfig
 from ..parallel.comm import pmean, psum
-from ..parallel.mesh import DATA_AXIS, axis_index, axis_size
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_index, axis_size
+from ..parallel.tensor import ModelParallel
 from . import quantize_tree as qt
 from .optim import (
     OptState,
@@ -76,6 +101,7 @@ from .optim import (
     constant_schedule,
     exponential_decay_staircase,
     global_norm,
+    model_parallel_norm,
     warmup_cosine_decay_schedule,
 )
 
@@ -110,11 +136,15 @@ class Task:
     ``{}`` for seq2seq;
     ``teacher_forward(batch) -> logits`` runs the teacher without gradients;
     ``loss_and_metrics(student_logits, teacher_logits, batch, distill)``
-    returns ``(scalar loss, metrics dict)``."""
+    returns ``(scalar loss, metrics dict)``. ``model_parallel``: both
+    callables also take ``model_parallel=`` (a
+    ``parallel.tensor.ModelParallel``: the student's parameters are one
+    rank's shards), as ``nmt_task`` and ``lm_task`` build them."""
 
     student_forward: Callable[..., Tuple[torch.Tensor, Dict]]
     loss_and_metrics: Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
     teacher_forward: Optional[Callable[[Batch], torch.Tensor]] = None
+    model_parallel: bool = False
 
 
 def build_optimizer(cfg: TrainConfig, steps_per_epoch: int = 1) -> Optimizer:
@@ -179,6 +209,8 @@ def create_train_state(
     codebook_init: str = "uniform",
     mode: str = "weights",
     carry: Any = None,
+    mesh=None,
+    param_specs: Optional[Mapping[str, tuple]] = None,
     device="cuda",
 ) -> TrainState:
     """Train state over ``params`` (``dict(model.named_parameters())``),
@@ -188,8 +220,10 @@ def create_train_state(
     place too. ``carry`` (a tree of tensors, e.g. from
     :func:`.tasks.lm_initial_carry`) is copied, so the caller's stays as it
     is. A codebook ``quant`` adds one codebook per quantizable leaf
-    (``codebook_init``: ``uniform`` or ``quantile``). Every tensor must be
-    on ``device``."""
+    (``codebook_init``: ``uniform`` or ``quantile``); with ``mesh`` and
+    ``param_specs`` (as :func:`make_train_step` takes them) ``params`` are
+    one rank's shards and the quantiles are those of the whole leaves.
+    Every tensor must be on ``device``."""
     dev = resolve_device(device)
     _check_mode(mode, quant)
     params = dict(params)
@@ -200,7 +234,8 @@ def create_train_state(
     carry = map_tensors(lambda t: _on(dev, t, "a carry tensor").detach().clone(), carry)
     codebooks = None
     if quant is not None and quant.method == "codebook":
-        codebooks = qt.init_codebook_tree(params, quant, codebook_init)
+        codebooks = qt.init_codebook_tree(params, quant, codebook_init,
+                                          _model_parallel(mesh, param_specs))
         for t in codebooks.values():
             t.requires_grad_(mode != "weights")
     return TrainState(step=0, params=params, batch_stats=batch_stats, codebooks=codebooks,
@@ -213,15 +248,21 @@ def quantized_params(
     codebooks: Optional[Dict[str, torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
     bits_map: Optional[Dict[str, int]] = None,
+    model_parallel: Optional[ModelParallel] = None,
 ) -> Params:
     """STE fake-quant view of the parameters (identity when quant is None;
-    onto ``codebooks`` for a codebook ``quant``)."""
+    onto ``codebooks`` for a codebook ``quant``; of one rank's shards with
+    ``model_parallel``)."""
     if quant is None:
         return params
     if quant.method == "codebook":
         if codebooks is None:
             raise ValueError("codebook method requires codebooks")
+        if model_parallel is not None:
+            return qt.ste_codebook_tree_tp(params, codebooks, quant, model_parallel)
         return qt.ste_codebook_tree(params, codebooks, quant)
+    if model_parallel is not None:
+        return qt.ste_quantize_tree_tp(params, quant, model_parallel, generator, bits_map)
     return qt.ste_quantize_tree(params, quant, generator, bits_map)
 
 
@@ -302,20 +343,25 @@ def loss_and_grads(
     codebooks: Optional[Dict[str, torch.Tensor]] = None,
     mode: str = "weights",
     batch_stats: Optional[Dict[str, torch.Tensor]] = None,
+    model_parallel: Optional[ModelParallel] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Params, Dict[str, Any]]:
     """The JAX step's ``value_and_grad`` of its loss: ``(loss, metrics,
     grads, updates)`` with ``grads`` keyed like :func:`trainable` (zeros
     where the loss does not reach a tensor, as ``jax.grad`` gives) and
     ``updates`` the task's (new ``batch_stats``, ``carry``). The student
     runs with the running statistics ``batch_stats``. In mode ``codebooks``
-    the weights are detached, as the JAX step stops their gradient."""
+    the weights are detached, as the JAX step stops their gradient. With
+    ``model_parallel`` the parameters are this rank's shards and the
+    gradients are theirs (the task must take split parameters)."""
     if mode == "codebooks":
         params = {n: t.detach() for n, t in params.items()}
-    q_params = quantized_params(params, quant, codebooks, quant_generator, bits_map)
+    q_params = quantized_params(params, quant, codebooks, quant_generator, bits_map,
+                                model_parallel)
+    kw = {} if model_parallel is None else {"model_parallel": model_parallel}
     logits, updates = task.student_forward({**q_params, **(batch_stats or {})}, batch, True,
-                                           dropout_generator)
+                                           dropout_generator, **kw)
     teacher_logits = task.teacher_forward(batch) if task.teacher_forward else None
-    loss, metrics = task.loss_and_metrics(logits, teacher_logits, batch, distill)
+    loss, metrics = task.loss_and_metrics(logits, teacher_logits, batch, distill, **kw)
     wrt = trainable(params, codebooks, mode)
     names = list(wrt)
     grads = torch.autograd.grad(loss, [wrt[n] for n in names], allow_unused=True)
@@ -333,6 +379,7 @@ def make_train_step(
     bits_map: Optional[Dict[str, int]] = None,
     mesh=None,
     grad_reduce_dtype=None,
+    param_specs: Optional[Mapping[str, tuple]] = None,
     device="cuda",
 ):
     """The train step ``(state, batch, rng: int) -> (state, metrics)``.
@@ -348,31 +395,48 @@ def make_train_step(
     passing its own rows of the batch (``parallel.place_batch``); see the
     module docstring. ``grad_reduce_dtype`` (requires ``mesh``) carries the
     gradient all-reduce in that dtype (``preferred_grad_reduce_dtype``);
-    f32 when None."""
+    f32 when None.
+
+    ``param_specs`` (requires ``mesh``; parameter name → partition spec,
+    ``parallel.placed_pspecs`` of the whole parameters): the state's
+    parameters are this rank's shards under those specs, and the step is
+    tensor parallel over ``model`` (see the module docstring). None: every
+    parameter whole on every rank, the data-parallel step above."""
     dev = resolve_device(device)
     _check_mode(mode, quant)
     if grad_reduce_dtype is not None and mesh is None:
         raise ValueError("grad_reduce_dtype requires a mesh")
     reduce_dtype = grad_reduce_dtype or torch.float32
     data_index = None if mesh is None else axis_index(mesh, DATA_AXIS)
+    mp = _model_parallel(mesh, param_specs)
+    if mp is not None and not task.model_parallel:
+        raise ValueError("this task does not take parameters split over model "
+                         "(nmt_task and lm_task do)")
 
     def step_fn(state: TrainState, batch: Batch, rng: int = 0):
         batch = as_batch(batch, dev)
         if state.carry is not None:
             batch["carry"] = map_tensors(torch.Tensor.detach, state.carry)
         q_gen, drop_gen = step_generators(dev, rng, state.step, data_index)
+        if mp is not None and set(state.params) - set(mp.specs):
+            raise ValueError(f"param_specs lack {sorted(set(state.params) - set(mp.specs))}")
         loss, metrics, grads, updates = loss_and_grads(
             task, state.params, batch, quant=quant, distill=distill, bits_map=bits_map,
             quant_generator=q_gen, dropout_generator=drop_gen, codebooks=state.codebooks,
-            mode=mode, batch_stats=state.batch_stats,
+            mode=mode, batch_stats=state.batch_stats, model_parallel=mp,
         )
         if mesh is not None:
             loss, metrics, grads, updates = reduce_over_data(loss, metrics, grads, updates,
                                                              mesh, reduce_dtype)
         wrt = trainable(state.params, state.codebooks, mode)
-        opt_updates, opt_state = tx.update(grads, state.opt_state, wrt)
+        if mp is None:
+            opt_updates, opt_state = tx.update(grads, state.opt_state, wrt)
+            norm = global_norm(grads)
+        else:
+            norm = model_parallel_norm(grads, mp)
+            opt_updates, opt_state = tx.update(grads, state.opt_state, wrt, norm=norm)
         apply_updates(wrt, opt_updates)
-        metrics = dict(metrics, loss=loss, grad_norm=global_norm(grads))
+        metrics = dict(metrics, loss=loss, grad_norm=norm)
         if state.batch_stats is not None and "batch_stats" in updates:
             with torch.no_grad():
                 for name, t in state.batch_stats.items():
@@ -383,6 +447,18 @@ def make_train_step(
         return state.replace(step=state.step + 1, opt_state=opt_state, carry=carry), metrics
 
     return step_fn
+
+
+def _model_parallel(mesh, param_specs) -> Optional[ModelParallel]:
+    """The :class:`ModelParallel` of ``param_specs`` on ``mesh``, or None
+    for whole parameters (no specs, or none splits anything over
+    ``model``)."""
+    if param_specs is None:
+        return None
+    if mesh is None:
+        raise ValueError("param_specs requires a mesh")
+    specs = {n: tuple(s) for n, s in param_specs.items()}
+    return ModelParallel(mesh, specs) if any(MODEL_AXIS in s for s in specs.values()) else None
 
 
 def preferred_grad_reduce_dtype(device="cuda") -> torch.dtype:
