@@ -9,6 +9,8 @@ launches in an attribute; :data:`LAUNCH_COUNTERS` names them all.
 
 from typing import Dict
 
+import torch
+
 from .beam_combine import (
     beam_advance,
     beam_advance_reference,
@@ -50,6 +52,14 @@ def launch_counts() -> Dict[str, int]:
     return {name: getattr(fn, attr) for name, (fn, attr) in LAUNCH_COUNTERS.items()}
 
 
+def launches_since(before: Dict[str, int]) -> Dict[str, int]:
+    """The launches counted since ``before`` (a :func:`launch_counts`),
+    by counter, leaving out the counters that did not move."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return {n: c - before[n] for n, c in launch_counts().items() if c != before[n]}
+
+
 def set_launch_counts(counts: Dict[str, int]) -> None:
     """Set the named launch counters (a replayed CUDA graph adds the
     launches it captured this way)."""
@@ -78,6 +88,7 @@ __all__ = [
     "fake_quant_buckets",
     "fake_quant_buckets_reference",
     "launch_counts",
+    "launches_since",
     "pack_linear",
     "pick_generator_group",
     "plane_unpack",
