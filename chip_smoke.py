@@ -56,7 +56,13 @@ Phases, each printing one JSON line:
    then ``make_eval_step``; checks one fake-quant launch per step (and one
    for the eval step), finite loss and gradient norm, a falling loss, and
    one step at B=8 on the card against the port's CPU plain path from the
-   same weights; then times the 4-bit and the FP32 step;
+   same weights; then times the 4-bit and the FP32 step (both graphed:
+   ``make_train_step`` runs one CUDA graph per signature on the card); then
+   the graphed step against the eager one (``_eager=True``) on a student
+   with dropout 0.3 (:func:`graph_legs`: 10 steps from copies of one state,
+   every tensor and loss bit-equal where two eager runs are, one capture,
+   one fake-quant launch a step, another seed another loss; seconds in
+   turns, busy shares, peak device bytes; phase ``train_graph``);
 8. train profile: device time by kernel over one 4-bit step and the
    fake-quant kernel's share of it;
 9. codebook train: differentiable quantization at the same shape, 4-bit
@@ -66,9 +72,11 @@ Phases, each printing one JSON line:
    gradient norm, a falling loss, that weights and codebooks both move, and
    one joint step at B=8 on the card against the CPU plain path; times the
    codebook and the FP32 step in turns, breaks the step into stages (the
-   ``codebook_tree`` among them), times the codebook gather's backward both
-   ways, profiles one step, then runs 2 steps in mode ``codebooks`` that
-   must leave every weight bit-identical and move the codebooks;
+   ``codebook_tree`` among them), profiles one step, holds the graphed
+   joint step to the eager one (:func:`graph_legs`, no launch), times the
+   codebook gather's backward both ways, then runs 2 steps in mode
+   ``codebooks`` that must leave every weight bit-identical and move the
+   codebooks;
 10. LUT kernels: the LUT variants of dequant-matmul (the three decode-step
    shapes, 2/4/8 bits, f32 and bf16 compute) and of the fused generator
    ([1280, 256] x [256, 32000] padded to 32768 without a -1e9 bias, 4-bit,
@@ -114,15 +122,18 @@ Phases, each printing one JSON line:
    CPU plain path from the trained weights and statistics (the new
    statistics at W_RTOL / W_ATOL); 2 steps in mode ``joint`` (learned
    codebooks, as ``examples/cifar100_wrn_diffquant.py`` trains) that launch
-   no kernel; the 4-bit and FP32 steps in turns (images/s, ``vs_baseline``
-   = FP32 / 4-bit seconds), a stage breakdown and a profile;
+   no kernel; the graphed step against the eager one (:func:`graph_legs`);
+   the 4-bit and FP32 steps in turns (images/s, ``vs_baseline`` = FP32 /
+   4-bit seconds), a stage breakdown and a profile;
 14. LM train: the 2x650 teacher → ``student_medium`` LSTM LM at ``bench.py
    --train --family lm``'s shape (V = 10000, bptt 35, B = 256) with
    ``lm_task(thread_carry=True)``: on the card each step's input carry is
-   the last step's output carry, with no gradient history; then the checks
-   of phase 13 (24,096 buckets, no statistics), the B = 8 parity over two
-   threaded steps (carries at W_RTOL / W_ATOL), tokens/s 4-bit and FP32 in
-   turns, a stage breakdown and a profile;
+   the last step's output carry, with no gradient history (a recording
+   task, run with ``_eager=True``: a replay would not record); then the
+   checks of phase 13 (24,096 buckets, no statistics), the B = 8 parity
+   over two threaded steps (carries at W_RTOL / W_ATOL), the graphed step
+   against the eager one with the carry threaded (:func:`graph_legs`),
+   tokens/s 4-bit and FP32 in turns, a stage breakdown and a profile;
 15. vision families: the CNN (``teacher`` → ``student_small``, CIFAR-10, B
    = 128, ``examples/cifar10_distill.py``) and the ResNet (``resnet18`` →
    ``resnet18_half``, ImageNet stem at 224×224, 1000 classes, B = 64):
@@ -238,13 +249,16 @@ Phases, each printing one JSON line:
 
 TF32 is off for matmul and cuDNN throughout, so every
 f32 product on the card is a true f32 product, as on the CPU. The card-vs-CPU steps (phases
-7, 9, 13-15) run the CPU on the card's ReLU sign patterns
-(:func:`relu_masks`).
+7, 9, 13-15) run through the train step's own ``prepare``, ``gradients``
+and ``update`` on both devices, the CPU on the card's ReLU sign patterns
+(:func:`relu_masks`), and fail where the CPU's own signs differ on more
+than ``RELU_FLIP_SHARE`` (1 in 10^5) of the ReLU outputs of a step.
 
 Then the kernel table as one JSON object (the generator rows also hold
 their sharded launches and times at the shard widths of phase 18; the
-fake-quant row also holds
-its launches, bucket count and times on each path of phases 13-15 and its
+fake-quant row also holds its launches in the graphed legs of phases 7,
+13 and 14 (``graph_launches``), its launches, bucket count and times on
+each path of phases 13-15 and its
 launches, bucket counts and times in phase 17's drivers; every row its
 ``artifact_launches`` in phase 16's two searches from disk and its
 ``quality_launches`` in each script of phase 19), then
@@ -259,6 +273,7 @@ import argparse
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import math
 import re
@@ -384,8 +399,9 @@ from quantized_distillation_tpu_torch.train.quantize_tree import (
 from quantized_distillation_tpu_torch.train.optim import apply_updates, global_norm
 from quantized_distillation_tpu_torch.train.trainer import (
     Task,
+    _clone_state,
+    _state_tensors,
     as_batch,
-    loss_and_grads,
     map_tensors,
     quantized_params,
     trainable,
@@ -404,6 +420,7 @@ F32_TOL = 1e-4  # rtol = atol, as tests/test_kernels.py states for f32 compute
 # metrics rtol 1e-5; gradients within 1e-4 of the tensor's largest |gradient|;
 # updated weights rtol 1e-5, atol 1e-6
 LOSS_RTOL, GRAD_TOL, W_RTOL, W_ATOL = 1e-5, 1e-4, 1e-5, 1e-6
+RELU_FLIP_SHARE = 1e-5  # card-vs-CPU ReLU sign flips: at most this share of the outputs a step
 BF16_REL = 2e-2  # bf16 values: relative to the row's largest |value|
 BF16_TIE = 4 * 2.0 ** -8  # bf16 tie band (TestCrossKernelNumerics), times max(|logit|, 1)
 
@@ -1126,12 +1143,12 @@ def phase_train_kernel(checks, student, gen) -> dict:
     }
 
 
-def kd_setup(args, device, batch_size, seed):
-    """Student, its KD task from a fresh teacher, and a bench.py-shaped
-    synthetic batch."""
+def kd_setup(args, device, batch_size, seed, dropout: float = 0.0):
+    """Student (``dropout``), its KD task from a fresh teacher, and a
+    bench.py-shaped synthetic batch."""
     v, L = args.vocab, args.src_len
     teacher = make_seq2seq("teacher", v, v, dropout=0.0, device=device, seed=seed)
-    student = make_seq2seq(args.preset, v, v, dropout=0.0, device=device, seed=seed + 1)
+    student = make_seq2seq(args.preset, v, v, dropout=dropout, device=device, seed=seed + 1)
     g = torch.Generator().manual_seed(seed + 2)
     batch = {
         "src": torch.randint(4, v, (batch_size, L), generator=g),
@@ -1168,14 +1185,15 @@ def relu_masks(masks: list, replay: bool):
     """Inside, ``F.relu`` records the sign pattern of each output in
     ``masks`` (``replay`` False), or applies the recorded patterns in call
     order in place of its own (``replay`` True; the yielded list then
-    counts the elements whose own sign differs). A ReLU network's gradient
-    jumps where a pre-activation crosses 0: in the WRN step at B = 8 on an
-    H100, a few outputs that rounded to the other side of 0 than on the CPU
-    put the gradients 0.031 of a tensor's largest value apart, which no
-    tolerance on rounding can hold (PERF.md). Replayed, the CPU
-    differentiates the same piecewise-linear function the card did."""
+    counts the elements whose own sign differs, and the outputs). A ReLU
+    network's gradient jumps where a pre-activation crosses 0: in the WRN
+    step at B = 8 on an H100, a few outputs that rounded to the other side
+    of 0 than on the CPU put the gradients 0.031 of a tensor's largest value
+    apart, which no tolerance on rounding can hold (PERF.md). Replayed, the
+    CPU differentiates the same piecewise-linear function the card did, and
+    the flips are bounded instead (``RELU_FLIP_SHARE``)."""
     relu = torch.nn.functional.relu
-    it, flips = iter(masks), [0]
+    it, counts = iter(masks), [0, 0]  # flips, outputs
 
     def recording(x, inplace=False):
         y = relu(x)
@@ -1184,12 +1202,13 @@ def relu_masks(masks: list, replay: bool):
 
     def replaying(x, inplace=False):
         m = next(it).to(x.device)
-        flips[0] += int(((x > 0) != m).sum())
+        counts[0] += int(((x > 0) != m).sum())
+        counts[1] += m.numel()
         return torch.where(m, x, torch.zeros_like(x))
 
     torch.nn.functional.relu = replaying if replay else recording
     try:
-        yield flips
+        yield counts
     finally:
         torch.nn.functional.relu = relu
 
@@ -1197,52 +1216,64 @@ def relu_masks(masks: list, replay: bool):
 def step_parity(checks, label, setup, batches, quant, distill, mode: str = "weights") -> dict:
     """Train steps at a small batch on the card and on the CPU (plain
     versions) from the same weights (and codebooks, running statistics,
-    carry), with the body of ``make_train_step`` written out so its
-    gradients can be compared: loss, metrics, grad_norm and every gradient
-    card against CPU; the new running statistics and carry card against CPU
-    at W_RTOL / W_ATOL; then the card's updated tensors against the CPU
-    optimizer applied to the card's gradients. (Adam's first step is lr * g
-    / (|g| + eps), which turns gradient differences at the level of rounding
-    into whole steps where |g| is near 0, so the two devices' own updated
+    carry), through the parts of the train step that runs
+    (``make_train_step(..., _eager=True)``: ``prepare``, then the body's
+    ``gradients`` and, on the card, its ``update``), so its gradients can be
+    compared: loss, metrics, grad_norm and every gradient card against CPU;
+    the new running statistics and carry card against CPU at W_RTOL /
+    W_ATOL; then the card's updated tensors against the CPU optimizer
+    applied to the card's gradients. (Adam's first step is lr * g / (|g| +
+    eps), which turns gradient differences at the level of rounding into
+    whole steps where |g| is near 0, so the two devices' own updated
     tensors are compared and reported, not held.) A later step starts both
     devices from the card's updated tensors, each with its own running
     statistics and carry, so the carry the card threads is held to the one
     the CPU threads. The CPU step takes the card's ReLU sign patterns
-    (:func:`relu_masks`; ``relu_sign_flips`` counts where its own differ).
+    (:func:`relu_masks`); the outputs whose own sign differs must be at
+    most ``RELU_FLIP_SHARE`` of the ReLU outputs a step.
     ``setup(device) -> (task, state, tx)``; ``batches``: one batch a step."""
-    runs = {dev: setup(torch.device(dev)) for dev in ("cuda", "cpu")}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        task, state, tx = setup(torch.device(dev))
+        runs[dev] = [state, tx, make_train_step(task, tx, quant=quant, distill=distill,
+                                                mode=mode, device=dev, _eager=True)]
     out = {"batch": next(iter(batches[0].values())).shape[0], "mode": mode,
            "steps": len(batches)}
     grad_rel = opt_err = own_err = stats_err = carry_err = 0.0
-    own_over = flips = 0
+    own_over = flips = outputs = 0
     for i, batch in enumerate(batches):
         res, masks = {}, []
-        for dev, (task, state, _) in runs.items():
-            b = as_batch(batch, torch.device(dev))
-            if state.carry is not None:
-                b["carry"] = state.carry
+        for dev, (state, _, step) in runs.items():
+            run = step.prepare(state, batch, 0)
             wrt = trainable(state.params, state.codebooks, mode)
             before = {n: p.detach().clone() for n, p in wrt.items()}
-            with relu_masks(masks, replay=dev == "cpu") as flipped:
-                loss, metrics, grads, upd = loss_and_grads(
-                    task, state.params, b, quant=quant, distill=distill,
-                    codebooks=state.codebooks, mode=mode, batch_stats=state.batch_stats)
-            flips += flipped[0]
-            res[dev] = (dict(metrics, loss=loss, grad_norm=global_norm(grads)), grads, before, upd)
-        (gm, gg, _, gupd), (cm, cg, cbefore, cupd) = res["cuda"], res["cpu"]
-        for k, v in cm.items():
+            with relu_masks(masks, replay=dev == "cpu") as counted:
+                loss, metrics, grads, upd = step.gradients(run)
+            res[dev] = (loss, metrics, grads, before, upd, run)
+        step_flips, step_outputs = counted
+        flips, outputs = flips + step_flips, outputs + step_outputs
+        checks.require(step_flips <= RELU_FLIP_SHARE * step_outputs,
+                       f"{label} step {i}: {step_flips} ReLU sign flips of {step_outputs} "
+                       f"outputs, more than {RELU_FLIP_SHARE} of them")
+        (gl, gmet, gg, _, gupd, grun), (cl, cmet, cg, cbefore, cupd, _) = res["cuda"], res["cpu"]
+        gm = dict(gmet, loss=gl, grad_norm=global_norm(gg))
+        for k, v in dict(cmet, loss=cl, grad_norm=global_norm(cg)).items():
             err = abs(float(gm[k]) - float(v))
             out[f"{k}_abs_diff"] = max(err, out.get(f"{k}_abs_diff", 0.0))
             checks.require(err <= LOSS_RTOL * abs(float(v)),
                            f"{label} step {i} {k}: card {float(gm[k])} vs cpu {float(v)}")
-        (_, gstate, gtx), (_, cstate, ctx) = runs["cuda"], runs["cpu"]
+        gstate, _, gstep = runs["cuda"]
+        cstate, ctx, _ = runs["cpu"]
+        gstep.update(grun, gl, gmet, gg, gupd)  # the card's step, in place
+        runs["cuda"][0], _ = gstep.finish(gstate, grun)
         gwrt = trainable(gstate.params, gstate.codebooks, mode)
         cwrt = trainable(cstate.params, cstate.codebooks, mode)
-        updates, gstate.opt_state = gtx.update(gg, gstate.opt_state, gwrt)
-        apply_updates(gwrt, updates)
         g_card = {n: g.detach().cpu() for n, g in gg.items()}
-        on_card, _ = ctx.update(g_card, cstate.opt_state, cbefore)  # the CPU optimizer's step
-        own, cstate.opt_state = ctx.update(cg, cstate.opt_state, cbefore)
+        opt = cstate.opt_state  # the CPU optimizer's step on the card's gradients, on copies
+        on_card, _ = ctx.update(g_card, opt._replace(mu=map_tensors(torch.clone, opt.mu),
+                                                     nu=map_tensors(torch.clone, opt.nu)),
+                                cbefore)
+        own, new_opt = ctx.update(cg, opt, cbefore)
         for n, g_c in cg.items():
             scale = max(float(g_c.abs().max()), 1e-30)
             e = float((g_card[n] - g_c).abs().max())
@@ -1269,21 +1300,23 @@ def step_parity(checks, label, setup, batches, quant, distill, mode: str = "weig
                     carry_err = max(carry_err, float(d.max()))
                 checks.require(bool((d <= W_ATOL + W_RTOL * c_t.detach().abs()).all()),
                                f"{label} step {i}: {key} card vs cpu, max abs diff {float(d.max())}")
-        for (_, state, _), upd in ((runs["cuda"], gupd), (runs["cpu"], cupd)):
-            if "batch_stats" in upd:
-                with torch.no_grad():
-                    for n, t in state.batch_stats.items():
-                        t.copy_(upd["batch_stats"][n])
-            if "carry" in upd:
-                state.carry = map_tensors(torch.Tensor.detach, upd["carry"])
+        if "batch_stats" in cupd:
+            with torch.no_grad():
+                for n, t in cstate.batch_stats.items():
+                    t.copy_(cupd["batch_stats"][n])
+        runs["cpu"][0] = cstate.replace(
+            step=cstate.step + 1, opt_state=new_opt,
+            carry=map_tensors(torch.Tensor.detach, cupd["carry"]) if "carry" in cupd
+            else cstate.carry)
     out.update(
         grad_max_rel_diff=grad_rel, optimizer_step_max_abs_diff=opt_err,
         weights_max_abs_diff=own_err, weights_over_tolerance=own_over,
         weights=sum(t.numel() for t in cbefore.values()), relu_sign_flips=flips,
+        relu_outputs=outputs, relu_flip_bound=RELU_FLIP_SHARE,
     )
-    if runs["cpu"][1].batch_stats is not None:
+    if runs["cpu"][0].batch_stats is not None:
         out["batch_stats_max_abs_diff"] = stats_err
-    if runs["cpu"][1].carry is not None:
+    if runs["cpu"][0].carry is not None:
         out["carry_max_abs_diff"] = carry_err
     return out
 
@@ -1377,6 +1410,14 @@ def phase_train(checks, args, smi) -> dict:
     })
     phase_profile(lambda: run(step), med_q, phase="train_profile", focus="fake_quant_kernel")
     row["launches"] = launches["fake_quant_buckets"]
+    # the graphed step against the eager one, dropout on (the paper's 0.3)
+    d_student, d_task, _ = kd_setup(args, dev, args.train_batch, args.seed + 10, dropout=0.3)
+    d_tx = build_optimizer(cfg)
+    d_state = create_train_state(dict(d_student.named_parameters()), d_tx, quant=quant,
+                                 device=dev)
+    legs = graph_legs(checks, "train", d_task, d_tx, d_state, batch, args.seed, args,
+                      quant=quant, distill=distill, control=True)
+    row["graph_launches"] = {"train": legs["launches"]["fake_quant_buckets"]}
     return row, holder["state"]
 
 
@@ -1458,6 +1499,8 @@ def phase_codebook_train(checks, args, smi) -> dict:
     run("joint", step)
     peak = torch.cuda.max_memory_allocated()
     phase_profile(lambda: run("joint", step), med_cb, phase="codebook_train_profile")
+    graph_legs(checks, "codebook_train", task, tx, holder["joint"], batch, args.seed, args,
+               quant=quant, distill=distill, mode="joint", fq_per_step=0)
     books = {n: b.detach().clone() for n, b in holder["joint"].codebooks.items()}
     gather = gather_backward_ms(books["generator/kernel"], state.params["generator_kernel"])
 
@@ -2087,6 +2130,112 @@ def legs_in_turns(legs: dict, state, batch, seed, reps) -> tuple:
     return holder["state"], times, {k: statistics.median(v) for k, v in times.items()}
 
 
+def state_tensors(state) -> list:
+    """Every tensor of a train state: parameters, moments, running
+    statistics, codebooks, carry."""
+    return _state_tensors(state) + _leaves(state.carry)
+
+
+def step_bytes(run) -> dict:
+    """``run()`` → (its result, its device bytes), the allocator's cache
+    emptied before and after: the peak allocated above what was allocated
+    before the call (an eager step's activations and gradients), and the
+    bytes the call leaves reserved (a capturing call: the graph's private
+    pool, held as long as the graph lives)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    out = run()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out, {"peak_allocated_above": torch.cuda.max_memory_allocated() - allocated,
+                 "held_reserved": torch.cuda.memory_reserved() - reserved}
+
+
+def graph_legs(checks, label, task, tx, state, batch, seed, args, *, quant, distill,
+               mode: str = "weights", fq_per_step: int = 1, control: bool = False) -> dict:
+    """The graphed train step against the eager one (``_eager=True``), at the
+    phase's width: from four copies of ``state``, three eager runs and one
+    graphed run of ``args.train_steps`` steps on ``batch`` at the same
+    ``(seed, step)``. Every tensor of the state after them (parameters,
+    codebooks, moments, running statistics, carry), and every step's loss,
+    must equal the first eager run's bit for bit where the eager runs are
+    equal bit for bit, and lie within twice the eager-against-eager gap
+    elsewhere (a tensor's largest gap between any two of three eager runs;
+    for the losses, the largest over the steps), for cuDNN's backward adds
+    with atomics in no fixed order. The graphed run must launch
+    ``fq_per_step`` fake-quant kernels a step and capture one graph. With ``control``, one graphed step
+    at another seed must give another loss (the student's dropout masks
+    follow the seed). Then the two steps' host seconds in turns (median of
+    ``args.reps``), the device's busy share of one call of each
+    (:func:`phase_profile`), and the device memory of each
+    (:func:`step_bytes`: an eager step's peak above the state, and what
+    the capturing call leaves reserved, the graph's pool)."""
+    kw = dict(quant=quant, distill=distill, mode=mode, device="cuda")
+    eager = make_train_step(task, tx, _eager=True, **kw)
+    graph = make_train_step(task, tx, **kw)
+    nbytes = {}
+    runs = []
+    for step in (eager, eager, eager, graph):
+        st, losses = _clone_state(state), []
+        zero_counts()
+        for i in range(args.train_steps):
+            leg = "graph" if step is graph else "eager"
+            if i == 0 and leg not in nbytes:  # the first eager step, the capturing call
+                (st, m), nbytes[leg] = step_bytes(lambda: step(st, batch, seed))
+            else:
+                st, m = step(st, batch, seed)
+            losses.append(m["loss"])
+        runs.append((st, torch.stack(losses), read_counts()))
+    g, lg, launches = runs.pop()
+    want = expected(fake_quant_buckets=fq_per_step * args.train_steps)
+    checks.require(launches == want, f"{label} graphed launches {launches}, expected {want}")
+    checks.require(graph.captures == 1, f"{label}: {graph.captures} captures for one signature")
+    over, record = 0, {}
+    for what, tensors, tg in (("state", [state_tensors(s) for s, _, _ in runs], state_tensors(g)),
+                              ("loss", [list(losses) for _, losses, _ in runs], list(lg))):
+        ta = tensors[0]
+        gap_e = [max(float((x - y).abs().max()) for x, y in itertools.combinations(ts, 2))
+                 for ts in zip(*tensors, strict=True)]
+        gap_ag = [float((x - y).abs().max()) for x, y in zip(ta, tg, strict=True)]
+        if what == "loss":  # one number a step: the bound is the largest gap of the run
+            gap_e = [e and max(gap_e) for e in gap_e]
+        bad = sum(d > (0.0 if e == 0.0 else 2 * e) for e, d in zip(gap_e, gap_ag))
+        over += bad
+        record[what] = {
+            "tensors": len(ta), "eager_bit_equal": sum(e == 0.0 for e in gap_e),
+            "graph_bit_equal": sum(d == 0.0 for d in gap_ag),
+            "eager_eager_max_abs_gap": max(gap_e), "graph_eager_max_abs_gap": max(gap_ag),
+            "largest_gap_ratio": max((d / e for e, d in zip(gap_e, gap_ag) if e), default=0.0),
+            "graph_over_bound": bad}
+    checks.require(over == 0, f"{label}: graphed against eager past the eager-eager bound "
+                   f"{record}")
+    record["loss_eager"] = [float(x) for x in runs[0][1]]
+    record["loss_graph"] = [float(x) for x in lg]
+    if control:  # a step object of its own, so that ``graph`` keeps one capture
+        _, m = make_train_step(task, tx, **kw)(_clone_state(state), batch, seed + 1)
+        record["loss_other_seed"] = float(m["loss"])
+        checks.require(record["loss_other_seed"] != record["loss_graph"][0],
+                       f"{label}: another seed gave the same loss (dropout off?)")
+    del runs
+    st, times, med = legs_in_turns({"graph": graph, "eager": eager}, g, batch, seed, args.reps)
+    busy = {leg: phase_profile(lambda s=step: s(st, batch, seed), med[leg],
+                               phase=f"{label}_{leg}_profile")
+            for leg, step in (("graph", graph), ("eager", eager))}
+    checks.require(graph.captures == 1, f"{label}: {graph.captures} captures after the timing")
+    out = {"phase": f"{label}_graph", "steps": args.train_steps, "mode": mode,
+           "launches": launches, "captures": graph.captures, "parity": record,
+           "step_seconds_graph": times["graph"], "step_seconds_eager": times["eager"],
+           "median_step_seconds_graph": med["graph"], "median_step_seconds_eager": med["eager"],
+           "device_busy_share_graph": busy["graph"]["device_busy_share_of_median_run"],
+           "device_busy_share_eager": busy["eager"]["device_busy_share_of_median_run"],
+           "device_bytes_eager_step": nbytes["eager"],
+           "device_bytes_capturing_call": nbytes["graph"]}
+    emit(out)
+    return out
+
+
 def phase_vision_train(checks, args, smi) -> dict:
     """WRN-28-10 → WRN-16-4 on CIFAR-100 (see the module docstring)."""
     dev = torch.device("cuda")
@@ -2120,6 +2269,8 @@ def phase_vision_train(checks, args, smi) -> dict:
     parity = step_parity(checks, "vision_train parity", setup,
                          [vision_batch(args.parity_batch, 32, 100, args.seed + 43, "cpu")],
                          quant, distill)
+    legs = graph_legs(checks, "vision_train", task, tx, state, batch, args.seed, args,
+                      quant=quant, distill=distill)
     fp_step = make_train_step(task, tx, quant=None, distill=distill, device=dev)
     state, times, med = legs_in_turns({"4bit": step, "fp32": fp_step}, state, batch, args.seed,
                                       args.reps)
@@ -2158,7 +2309,8 @@ def phase_vision_train(checks, args, smi) -> dict:
         "stage_seconds_4bit": stages, "device_busy_share": prof["device_busy_share"],
         "joint": {"steps": 2, "loss": cb_loss, "launches": cb_launches}, "card": smi,
     })
-    return {"launches": record["launches"]["fake_quant_buckets"], **fq}
+    return {"launches": record["launches"]["fake_quant_buckets"],
+            "graph_launches": legs["launches"]["fake_quant_buckets"], **fq}
 
 
 def phase_lm_train(checks, args, smi) -> dict:
@@ -2190,7 +2342,8 @@ def phase_lm_train(checks, args, smi) -> dict:
     fq = fake_quant_at(checks, "lm_train", state.params, quant)
     checks.require(fq["n_buckets"] == LM_BUCKETS, f"lm_train: {fq['n_buckets']} buckets")
     outs = []
-    step = make_train_step(rec_task, tx, quant=quant, distill=distill, device=dev)
+    # eager: a replay would not repeat the recording
+    step = make_train_step(rec_task, tx, quant=quant, distill=distill, device=dev, _eager=True)
     for _ in range(2):  # the carry handed from step to step, on the card
         state, _ = step(state, batch, args.seed)
         outs.append(state.carry)
@@ -2215,6 +2368,8 @@ def phase_lm_train(checks, args, smi) -> dict:
     parity = step_parity(checks, "lm_train parity", setup,
                          [lm_batch(args.parity_batch, v, args.lm_bptt, args.seed + 53 + i, "cpu")
                           for i in range(2)], quant, distill)
+    legs = graph_legs(checks, "lm_train", task, tx, state, batch, args.seed, args, quant=quant,
+                      distill=distill)
     fp_step = make_train_step(task, tx, quant=None, distill=distill, device=dev)
     state, times, med = legs_in_turns({"4bit": step, "fp32": fp_step}, state, batch, args.seed,
                                       args.reps)
@@ -2231,7 +2386,8 @@ def phase_lm_train(checks, args, smi) -> dict:
         "vs_baseline": med["fp32"] / med["4bit"], "stage_seconds_4bit": stages,
         "device_busy_share": prof["device_busy_share"], "card": smi,
     })
-    return {"launches": record["launches"]["fake_quant_buckets"], **fq}
+    return {"launches": record["launches"]["fake_quant_buckets"],
+            "graph_launches": legs["launches"]["fake_quant_buckets"], **fq}
 
 
 def phase_vision_families(checks, args, smi) -> dict:

@@ -12,16 +12,18 @@ codebook trains by gradient descent (differentiable quantization).
 - The codebook gradient is the backward of the ``points[idx]`` gather: a
   scatter-add of each weight's cotangent, times its bucket's scale, into
   its point. :class:`PointGather` computes it as a histogram weighted by
-  the cotangent (``torch.bincount``). Autograd's own backward of
-  ``points[idx]`` (an index-put with accumulation) sorts the indices and
-  then sums each point's run of equal indices serially, about a hundred
-  times slower on an H100 at the generator leaf's 8.2 M weights and 16
-  points (``chip_smoke.py`` times both). On a CUDA tensor the histogram
-  adds with atomics in no fixed order, so it sums in f64 and rounds once
-  to f32: the order then shows in the result only when an f64 sum lies
-  within its rounding error of an f32 rounding boundary, so a codebook
-  trains to the same points run after run on the card, and whatever is
-  decoded with it repeats too.
+  the cotangent: one row of ``2^bits`` sums a bucket (``scatter_add_``),
+  then the rows summed. Autograd's own backward of ``points[idx]`` (an
+  index-put with accumulation) sorts the indices and then sums each
+  point's run of equal indices serially, about a hundred times slower on
+  an H100 at the generator leaf's 8.2 M weights and 16 points
+  (``chip_smoke.py`` times both); ``torch.bincount`` reads its largest
+  index back to the host, which a captured train step cannot do. On a
+  CUDA tensor the scatter adds with atomics in no fixed order, so it sums
+  in f64 and rounds once to f32: the order then shows in the result only
+  when an f64 sum lies within its rounding error of an f32 rounding
+  boundary, so a codebook trains to the same points run after run on the
+  card, and whatever is decoded with it repeats too.
 - :func:`ste_fake_quant` is straight-through in the weights, as in
   :mod:`.uniform`: value ``fake_quant(x.detach(), points)``, gradient the
   identity in ``x``.
@@ -106,7 +108,8 @@ def init_points(bits: int, mode: str = "uniform", x01: Optional[torch.Tensor] = 
 class PointGather(torch.autograd.Function):
     """``points[idx]``, differentiable in ``points``: the backward
     scatter-adds the cotangent into each point as a weighted histogram,
-    summed in f64."""
+    summed in f64, a row of sums per bucket (``idx``'s first dimension)
+    and then the rows."""
 
     @staticmethod
     def forward(ctx, points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -117,9 +120,10 @@ class PointGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
         (idx,) = ctx.saved_tensors
-        g = torch.bincount(idx.reshape(-1), weights=grad.reshape(-1).double(),
-                           minlength=ctx.n_points)
-        return g.to(grad.dtype), None
+        rows = idx.shape[0] if idx.dim() > 1 else 1
+        g = grad.new_zeros((rows, ctx.n_points), dtype=torch.float64).scatter_add_(
+            1, idx.reshape(rows, -1), grad.reshape(rows, -1).double())
+        return g.sum(0).to(grad.dtype), None
 
 
 def nearest_point_idx(x01: torch.Tensor, points: torch.Tensor) -> torch.Tensor:

@@ -155,7 +155,9 @@ def run_nmt_grid(args):
                             device=dev, seed=args.seed, **kw)
 
     def train_model(model, teacher=None, bits=None):
-        """Train ``model``'s own weights (KD from ``teacher`` when given)."""
+        """Train a copy of ``model``'s weights (KD from ``teacher`` when
+        given) → its state; ``model`` keeps its own, as the JAX script's
+        step does not donate."""
         quant = QuantSpec(bits=bits) if bits else None
         task = nmt_task(model, teacher, device=dev)
         tx = build_optimizer(TrainConfig(learning_rate=3e-3, clip_norm=5.0))
@@ -163,7 +165,7 @@ def run_nmt_grid(args):
         step = make_train_step(
             task, tx, quant=quant,
             distill=DistillSpec(weight=0.7, temperature=5.0) if teacher else None,
-            device=dev,
+            donate=False, device=dev,
         )
         for epoch in range(args.nmt_epochs):
             for batch in nmt_batches(corpus, args.batch, seed=epoch, drop_remainder=True):
@@ -172,12 +174,13 @@ def run_nmt_grid(args):
         return state
 
     def bleu_of(model, params, bits):
-        # deploy path: HARD-quantized weights, beam decode, corpus BLEU
+        # deploy path: HARD-quantized weights into the model, beam decode,
+        # corpus BLEU
         if bits:
-            hard = qt.quantize_tree_hard(params, QuantSpec(bits=bits))
-            with torch.no_grad():  # the master weights are not needed past here
-                for name, t in params.items():
-                    t.copy_(hard[name])
+            params = qt.quantize_tree_hard(params, QuantSpec(bits=bits))
+        with torch.no_grad():
+            for name, t in model.named_parameters():
+                t.copy_(params[name])
         tb = next(nmt_batches(test, 256, shuffle=False))
         toks, _ = beam_search(
             model, torch.as_tensor(tb["src"]).long(), torch.as_tensor(tb["src_len"]).long(),

@@ -111,7 +111,7 @@ def train_stage(vocab=None, device="cuda"):
     task = nmt_task(model, device=dev)
     tx = build_optimizer(TrainConfig(learning_rate=3e-3, clip_norm=5.0))
     state = create_train_state(dict(model.named_parameters()), tx, device=dev)
-    step = make_train_step(task, tx, device=dev)
+    step = make_train_step(task, tx, donate=False, device=dev)
     losses = []
     for epoch in range(EPOCHS):
         tot, nb = 0.0, 0
@@ -122,6 +122,9 @@ def train_stage(vocab=None, device="cuda"):
             nb += 1
         losses.append(tot / nb)
         print(f"train epoch {epoch} loss {tot / nb:.4f}", file=sys.stderr, flush=True)
+    with torch.no_grad():  # the step stepped its own copy (donate=False, as in JAX)
+        for name, t in model.named_parameters():
+            t.copy_(state.params[name])
     return model, losses
 
 

@@ -13,7 +13,6 @@ import math
 from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
-import torch
 
 from ..config import TrainConfig
 from ..utils.metrics import MetricsLogger, Throughput
@@ -90,7 +89,8 @@ def fit(
     ``carry_reset``: for stateful (carry-threading) tasks, the zero carry
     installed afresh at each epoch's start (the data stream restarts) and
     the initial carry of every eval pass. It is copied once, so the
-    caller's tensors stay as they are."""
+    caller's tensors stay as they are; the train step copies it into its
+    carry buffer and never writes it."""
     logger = logger or MetricsLogger(echo=False)
     tx = tx or build_optimizer(cfg)
     step_fn = make_train_step(
@@ -103,7 +103,7 @@ def fit(
     thr = Throughput()
     for epoch in range(cfg.epochs):
         if carry_reset is not None:
-            state = state.replace(carry=map_tensors(torch.Tensor.clone, carry_reset))
+            state = state.replace(carry=carry_reset)
         losses = []
         for batch in train_batches(epoch):
             batch = {k: v for k, v in batch.items() if k != "index"}

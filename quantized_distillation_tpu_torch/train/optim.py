@@ -11,6 +11,12 @@ the update; Adam's bias corrections are computed in f32 as optax computes
 them. Parameters, gradients and moments are dicts of parameter name →
 tensor; the state lives on the parameters' device and the count on the
 host, so an update needs no device-to-host copy.
+
+An update is replayable, as a captured CUDA graph replays it: the moments
+are persistent tensors updated in place, and the values that change from
+step to step (the learning rate, Adam's bias corrections) are computed on
+the host (:meth:`Optimizer.hyper_values`) and read from a small device
+tensor, never baked into the arithmetic as Python numbers.
 """
 
 from __future__ import annotations
@@ -80,15 +86,22 @@ def model_parallel_norm(tensors: Mapping[str, torch.Tensor], mp) -> torch.Tensor
     return torch.sqrt(psum(split, mp.mesh, MODEL_AXIS) + whole)
 
 
-def _bias_correction(decay: float, count: int) -> float:
+def _bias_correction(decay: float, count: int) -> np.float32:
     """``1 - decay**count`` in f32, as optax computes it."""
-    return float(np.float32(1) - np.float32(decay) ** np.float32(count))
+    return np.float32(1) - np.float32(decay) ** np.float32(count)
+
+
+def _unbias(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``x`` divided by a bias correction read from ``c`` (see
+    :meth:`Optimizer.hyper_values`: on the card ``c`` holds its
+    reciprocal)."""
+    return x * c if x.is_cuda else x / c
 
 
 class OptState(NamedTuple):
     count: int  # updates applied so far
-    mu: Optional[Tensors]  # Adam's first moment, or the momentum trace
-    nu: Optional[Tensors]  # Adam's second moment
+    mu: Optional[Tensors]  # Adam's first moment, or the momentum trace (updated in place)
+    nu: Optional[Tensors]  # Adam's second moment (updated in place)
 
 
 @dataclass(frozen=True)
@@ -116,32 +129,52 @@ class Optimizer:
             nu=zeros() if self.kind == "adam" else None,
         )
 
+    def hyper_values(self, count: int, device) -> np.ndarray:
+        """What the update after ``count`` updates reads of the host, as f32
+        for a tensor on ``device``: the step ``-lr`` (the schedule at
+        ``count``) and Adam's two bias corrections. On the card each
+        correction is stored as its f32 reciprocal, because PyTorch divides a
+        CUDA tensor by a host scalar as the product with its reciprocal: the
+        update then gives the bits it gave with host scalars."""
+        bc = [_bias_correction(B1, count + 1), _bias_correction(B2, count + 1)]
+        if torch.device(device).type == "cuda":
+            bc = [np.float32(1) / c for c in bc]
+        return np.array([-self.schedule(count), *bc], np.float32)
+
     def update(
         self, grads: Mapping[str, torch.Tensor], state: OptState,
         params: Mapping[str, torch.Tensor], *, norm: Optional[torch.Tensor] = None,
+        hyper: Optional[torch.Tensor] = None,
     ) -> Tuple[Tensors, OptState]:
-        """``norm``: the gradients' global norm where ``grads`` are one rank's
-        shards (:func:`model_parallel_norm`); computed from ``grads`` when
-        None."""
+        """The updates to add, and the state after them: its moments are
+        ``state``'s, updated in place. ``norm``: the gradients' global norm
+        where ``grads`` are one rank's shards (:func:`model_parallel_norm`);
+        computed from ``grads`` when None. ``hyper``: a device tensor holding
+        :meth:`hyper_values` of ``state.count`` (a train step writes it
+        before the step); made here when None."""
         g = {n: t.detach() for n, t in grads.items()}
+        if hyper is None:
+            dev = next(iter(g.values())).device
+            hyper = torch.from_numpy(self.hyper_values(state.count, dev)).to(
+                dev, non_blocking=True)
+        lr, c1, c2 = hyper[0], hyper[1], hyper[2]
         if self.clip_norm:
             norm = global_norm(g) if norm is None else norm
             g = {n: torch.where(norm < self.clip_norm, t, (t / norm) * self.clip_norm)
                  for n, t in g.items()}
         if self.weight_decay:
             g = {n: t + self.weight_decay * params[n].detach() for n, t in g.items()}
-        mu = nu = None
+        mu, nu = state.mu, state.nu
         if self.kind == "adam":
-            mu = {n: (1 - B1) * t + B1 * state.mu[n] for n, t in g.items()}
-            nu = {n: (1 - B2) * (t * t) + B2 * state.nu[n] for n, t in g.items()}
-            bc1 = _bias_correction(B1, state.count + 1)
-            bc2 = _bias_correction(B2, state.count + 1)
-            g = {n: (mu[n] / bc1) / (torch.sqrt(nu[n] / bc2) + EPS) for n in g}
+            for n, t in g.items():
+                torch.add((1 - B1) * t, B1 * mu[n], out=mu[n])
+                torch.add((1 - B2) * (t * t), B2 * nu[n], out=nu[n])
+            g = {n: _unbias(mu[n], c1) / (torch.sqrt(_unbias(nu[n], c2)) + EPS) for n in g}
         elif self.kind == "momentum":
-            mu = {n: t + MOMENTUM * state.mu[n] for n, t in g.items()}
+            for n, t in g.items():
+                torch.add(t, MOMENTUM * mu[n], out=mu[n])
             g = {n: t + MOMENTUM * mu[n] for n, t in g.items()}  # nesterov
-        step = -self.schedule(state.count)
-        return {n: step * t for n, t in g.items()}, OptState(state.count + 1, mu, nu)
+        return {n: lr * t for n, t in g.items()}, OptState(state.count + 1, mu, nu)
 
 
 def apply_updates(params: Mapping[str, torch.Tensor], updates: Mapping[str, torch.Tensor]) -> None:

@@ -6,14 +6,36 @@ fake-quantize the student's quantizable weights with a straight-through
 gradient (one fake-quant kernel launch per bits-group on the card), run the
 student on them, run the teacher without gradients, take the KD loss and
 its gradients on the full-precision master weights, and step the optimizer
-on those. PyTorch runs it eagerly, so the step is a Python function; the
-master weights are updated in place (the JAX step donates its state, so
-neither keeps the old weights).
+on those.
+
+On the card the step is one CUDA graph, as the JAX package's is one
+``jax.jit(step_fn, donate_argnums=(0,))``. It is split in two.
+``prepare`` is the host's work: the step's seeds, the learning rate and
+Adam's bias corrections (written into a small device tensor), the batch
+copied into static input buffers and the incoming carry into the step's
+carry buffer. ``body`` is the device's: it reads only those buffers and
+the state's tensors, and writes the parameters, codebooks, moments,
+running statistics and carry in place and the metrics into static
+outputs. The first call for a signature (the state's tensors by address,
+shape and dtype; the batch's shapes and dtypes; the TF32 settings) runs
+``body`` as the warm-up of a capture (``utils.graphs.CapturedStep``): the
+warm-up is that call's step, and the capture after it only records. Later
+calls run ``prepare`` and replay. A failed capture raises; nothing runs
+eagerly in its place. On the CPU, and with ``_eager=True`` on the card,
+``prepare`` and ``body`` run eagerly.
+
+``donate=True`` (the default, as in JAX) steps the caller's state in
+place, so neither keeps the old weights; ``donate=False`` leaves the
+caller's tensors as they were and returns a state of new tensors (the
+step steps a copy of its own). The metrics and the carry come back as new
+tensors either way, as JAX returns new arrays.
 
 Random numbers: the JAX step folds the step count into its key and splits
-it in two (weight quantization, dropout); here two ``torch.Generator``s on
-the step's device are seeded from ``(rng, step, 0)`` and ``(rng, step,
-1)``. They cannot give JAX's bits.
+it in two (weight quantization, dropout); here two ``torch.Generator``s
+that the step keeps on its device are seeded before each step from
+``(rng, step, 0)`` and ``(rng, step, 1)`` (a graph reads their seeds at
+each replay, so its draws are the eager step's). They cannot give JAX's
+bits.
 
 Three modes cover both of the paper's algorithms, as in the JAX package:
 ``weights`` (quantized distillation: the optimizer steps the master
@@ -77,11 +99,16 @@ over ``model`` (``quantize_tree.ste_codebook_tree_tp``); pass the same
 init reads the whole leaves. Only tasks built for it (``nmt_task``,
 ``lm_task``) take split parameters, and the teacher runs whole on every
 rank.
+
+A step with a ``mesh`` (data or tensor parallel) runs eagerly and never
+tries a capture. Holding its NCCL collectives inside the graph is later
+work; gloo's cannot be captured.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
@@ -93,6 +120,7 @@ from ..config import DistillSpec, QuantSpec, TrainConfig
 from ..parallel.comm import pmean, psum
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_index, axis_size
 from ..parallel.tensor import ModelParallel
+from ..utils.graphs import CapturedStep, GraphCache, precision_key, signature
 from . import quantize_tree as qt
 from .optim import (
     OptState,
@@ -281,15 +309,22 @@ def as_batch(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch.
     return out
 
 
-def step_generators(device: torch.device, rng: int, step: int,
-                    data_index: Optional[int] = None):
-    """(weight quantization, dropout) generators of train step ``step``;
-    with ``data_index`` (a data-parallel rank's coordinate) the dropout
-    generator is folded with it, the quantization one is not."""
+def step_seeds(rng: int, step: int, data_index: Optional[int] = None) -> Tuple[int, int]:
+    """(weight quantization, dropout) seeds of train step ``step``; with
+    ``data_index`` (a data-parallel rank's coordinate) the dropout seed is
+    folded with it, the quantization one is not."""
     seeds = [int(s) for s in np.random.SeedSequence([rng, step]).generate_state(2, np.uint64)]
     if data_index is not None:
         seeds[1] = int(np.random.SeedSequence([seeds[1], data_index]).generate_state(1, np.uint64)[0])
-    return tuple(torch.Generator(device=device).manual_seed(s) for s in seeds)
+    return seeds[0], seeds[1]
+
+
+def step_generators(device: torch.device, rng: int, step: int,
+                    data_index: Optional[int] = None):
+    """New (weight quantization, dropout) generators seeded with
+    :func:`step_seeds`."""
+    return tuple(torch.Generator(device=device).manual_seed(s)
+                 for s in step_seeds(rng, step, data_index))
 
 
 def _pmean_dict(tree: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
@@ -369,6 +404,223 @@ def loss_and_grads(
     return loss.detach(), metrics, grads, updates
 
 
+def _leaves(tree) -> list:
+    out = []
+    map_tensors(out.append, tree)
+    return out
+
+
+def _copy_into(dst, src) -> None:
+    """Every tensor of ``src`` into the tensor at its place in ``dst`` (two
+    trees of one structure), skipping a tensor that is its own target."""
+    with torch.no_grad():
+        for d, t in zip(_leaves(dst), _leaves(src), strict=True):
+            if d is not t:
+                d.copy_(t, non_blocking=True)
+
+
+def _state_tensors(state: TrainState) -> list:
+    """The tensors a step reads and writes in place, in a fixed order."""
+    opt = state.opt_state
+    return _leaves([state.params, opt.mu, opt.nu, state.batch_stats, state.codebooks])
+
+
+def _tree_key(tree, by_address: bool):
+    """A hashable key of a tree of dicts, tuples and lists of tensors: its
+    structure and every tensor's shape, dtype and device (and address, with
+    ``by_address``: ``utils.graphs.signature``)."""
+    if isinstance(tree, dict):
+        return tuple((k, _tree_key(v, by_address)) for k, v in tree.items())
+    if isinstance(tree, (tuple, list)):
+        return (type(tree),) + tuple(_tree_key(v, by_address) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return signature(tree) if by_address else (tuple(tree.shape), tree.dtype, tree.device)
+    return tree
+
+
+def _clone_state(state: TrainState) -> TrainState:
+    """A copy of ``state`` in new tensors (each keeps ``requires_grad``)."""
+
+    def clone(t):
+        return t.detach().clone().requires_grad_(t.requires_grad)
+
+    opt = state.opt_state
+    return state.replace(
+        params=map_tensors(clone, state.params), batch_stats=map_tensors(clone, state.batch_stats),
+        codebooks=map_tensors(clone, state.codebooks), carry=map_tensors(clone, state.carry),
+        opt_state=opt._replace(mu=map_tensors(clone, opt.mu), nu=map_tensors(clone, opt.nu)))
+
+
+@dataclass
+class StepRun:
+    """One signature's buffers: what :meth:`TrainStep.prepare` writes and
+    :meth:`TrainStep.body` reads and writes. ``state`` is the state the
+    body steps in place (the caller's, or with ``donate=False`` the step's
+    own copy); ``batch`` and ``carry`` the inputs (a graph's static ones,
+    or eagerly the call's own tensors); ``hyper`` the optimizer's host
+    values (``Optimizer.hyper_values``); ``metrics`` and ``carry_out`` the
+    static outputs, made by the first body."""
+
+    batch: Dict[str, torch.Tensor]
+    carry: Any
+    hyper: torch.Tensor
+    generators: Tuple[torch.Generator, torch.Generator]
+    state: TrainState
+    metrics: Optional[Dict[str, torch.Tensor]] = None
+    carry_out: Any = None
+    graph: Optional[CapturedStep] = None
+
+
+class TrainStep:
+    """The train step ``(state, batch, rng: int) -> (state, metrics)`` that
+    :func:`make_train_step` builds (see the module docstring):
+    :meth:`prepare` (host), then :meth:`body` (device: :meth:`gradients`,
+    then :meth:`update`), captured as one CUDA graph per signature on the
+    card and replayed after, then :meth:`finish`. ``captures`` counts the graphs captured; at
+    most ``SIZE`` signatures are kept, the least recently used dropped
+    first."""
+
+    SIZE = GraphCache.SIZE
+
+    def __init__(self, task, tx, *, quant, distill, mode, bits_map, mesh, reduce_dtype, mp,
+                 donate, eager, device):
+        self.task, self.tx, self.quant, self.distill = task, tx, quant, distill
+        self.mode, self.bits_map, self.mesh, self.reduce_dtype, self.mp = (
+            mode, bits_map, mesh, reduce_dtype, mp)
+        self.donate, self.device = donate, device
+        self.data_index = None if mesh is None else axis_index(mesh, DATA_AXIS)
+        # a mesh step never captures (see the module docstring)
+        self.graphed = device.type == "cuda" and not eager and mesh is None
+        self.captures = 0
+        self._runs: OrderedDict = OrderedDict()
+
+    def __call__(self, state: TrainState, batch: Batch, rng: int = 0):
+        run = self.prepare(state, batch, rng)
+        if not self.graphed:
+            self.body(run)
+        elif run.graph is None:
+            # the warm-up is this call's step; the capture only records
+            run.graph = CapturedStep(lambda: self.body(run), counted_warmup=True,
+                                     generators=run.generators)
+            self.captures += 1
+        else:
+            run.graph.replay()
+        return self.finish(state, run)
+
+    def prepare(self, state: TrainState, batch: Batch, rng: int = 0) -> StepRun:
+        """The host's part of a step: finds (or makes) the signature's
+        buffers and writes into them the batch, the carry, the learning rate
+        and bias corrections and the generators' seeds; with
+        ``donate=False`` copies the state into the step's own."""
+        if self.mp is not None and set(state.params) - set(self.mp.specs):
+            raise ValueError(f"param_specs lack {sorted(set(state.params) - set(self.mp.specs))}")
+        host = {}
+        for k, v in batch.items():
+            if k != "carry":  # the state's carry is the step's
+                t = torch.as_tensor(v)
+                host[k] = (t, torch.float32 if t.is_floating_point() else torch.int64)
+        key = (tuple((k, tuple(t.shape), dt) for k, (t, dt) in sorted(host.items())),
+               _tree_key(state.carry, False), precision_key(),
+               tuple(_tree_key(t, self.donate) for t in _state_tensors(state)))
+        run = self._runs.get(key)
+        if run is None:
+            run = self._new_run(state, host)
+            self._runs[key] = run
+            while len(self._runs) > self.SIZE:
+                self._runs.popitem(last=False)
+        else:
+            self._runs.move_to_end(key)
+        if self.graphed:  # into the graph's static inputs
+            for k, (t, _) in host.items():
+                run.batch[k].copy_(t, non_blocking=True)
+            _copy_into(run.carry, state.carry)
+        else:  # eagerly, the body reads the batch and the carry where they lie
+            run.batch = {k: t.to(self.device, dt, non_blocking=True)
+                         for k, (t, dt) in host.items()}
+            run.carry = map_tensors(torch.Tensor.detach, state.carry)
+        if self.donate:
+            run.state = state
+        else:
+            _copy_into(_state_tensors(run.state), _state_tensors(state))
+        hyper = self.tx.hyper_values(state.opt_state.count, self.device)
+        run.hyper.copy_(torch.from_numpy(hyper), non_blocking=True)
+        for gen, seed in zip(run.generators, step_seeds(rng, state.step, self.data_index)):
+            gen.manual_seed(seed)
+        return run
+
+    def _new_run(self, state: TrainState, host) -> StepRun:
+        dev = self.device
+
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device=dev) if self.graphed else None
+
+        return StepRun(
+            batch={k: empty(t.shape, dt) for k, (t, dt) in host.items()},
+            carry=map_tensors(lambda t: empty(t.shape, t.dtype), state.carry),
+            hyper=torch.empty(3, dtype=torch.float32, device=dev),
+            generators=(torch.Generator(device=dev), torch.Generator(device=dev)),
+            state=state if self.donate else _clone_state(state))
+
+    def body(self, run: StepRun) -> None:
+        """The device's part of a step: reads only ``run``'s buffers and its
+        state's tensors, and writes them in place."""
+        self.update(run, *self.gradients(run))
+
+    def gradients(self, run: StepRun):
+        """``(loss, metrics, grads, updates)`` of :func:`loss_and_grads` on
+        ``run``'s buffers and state, reduced over ``data`` with a mesh."""
+        st = run.state
+        batch = dict(run.batch)
+        if run.carry is not None:
+            batch["carry"] = run.carry
+        q_gen, drop_gen = run.generators
+        loss, metrics, grads, updates = loss_and_grads(
+            self.task, st.params, batch, quant=self.quant, distill=self.distill,
+            bits_map=self.bits_map, quant_generator=q_gen, dropout_generator=drop_gen,
+            codebooks=st.codebooks, mode=self.mode, batch_stats=st.batch_stats,
+            model_parallel=self.mp,
+        )
+        if self.mesh is not None:
+            loss, metrics, grads, updates = reduce_over_data(loss, metrics, grads, updates,
+                                                             self.mesh, self.reduce_dtype)
+        return loss, metrics, grads, updates
+
+    def update(self, run: StepRun, loss, metrics, grads, updates) -> None:
+        """The optimizer step on ``run``'s state (in place), the new running
+        statistics and carry, and the metrics into the static outputs."""
+        st = run.state
+        wrt = trainable(st.params, st.codebooks, self.mode)
+        norm = global_norm(grads) if self.mp is None else model_parallel_norm(grads, self.mp)
+        opt_updates, _ = self.tx.update(grads, st.opt_state, wrt, norm=norm, hyper=run.hyper)
+        apply_updates(wrt, opt_updates)
+        out = dict(metrics, loss=loss, grad_norm=norm)
+        with torch.no_grad():
+            if st.batch_stats is not None and "batch_stats" in updates:
+                for name, t in st.batch_stats.items():
+                    t.copy_(updates["batch_stats"][name])
+            if "carry" in updates and run.carry_out is None:
+                run.carry_out = map_tensors(lambda t: t.detach().clone(), updates["carry"])
+            elif "carry" in updates:
+                _copy_into(run.carry_out, updates["carry"])
+            if run.metrics is None:
+                run.metrics = {k: v.detach().clone() for k, v in out.items()}
+            else:
+                for k, v in out.items():
+                    run.metrics[k].copy_(v)
+
+    def finish(self, state: TrainState, run: StepRun):
+        """The state after the step that ``run`` ran from ``state``, and its
+        metrics: the metrics and the carry cloned from the static outputs,
+        which the next step overwrites."""
+        new = state if self.donate else _clone_state(run.state)
+        carry = state.carry
+        if run.carry_out is not None:
+            carry = map_tensors(torch.Tensor.clone, run.carry_out)
+        opt = new.opt_state._replace(count=state.opt_state.count + 1)
+        metrics = {k: v.clone() for k, v in run.metrics.items()}
+        return new.replace(step=state.step + 1, opt_state=opt, carry=carry), metrics
+
+
 def make_train_step(
     task: Task,
     tx: Optimizer,
@@ -376,26 +628,34 @@ def make_train_step(
     quant: Optional[QuantSpec] = None,
     distill: Optional[DistillSpec] = None,
     mode: str = "weights",
+    donate: bool = True,
     bits_map: Optional[Dict[str, int]] = None,
     mesh=None,
     grad_reduce_dtype=None,
     param_specs: Optional[Mapping[str, tuple]] = None,
     device="cuda",
-):
-    """The train step ``(state, batch, rng: int) -> (state, metrics)``.
+    _eager: bool = False,
+) -> TrainStep:
+    """The train step ``(state, batch, rng: int) -> (state, metrics)``, a
+    :class:`TrainStep`: one CUDA graph per signature on the card (see the
+    module docstring).
 
     ``metrics`` holds the task's metrics, ``loss`` and ``grad_norm`` (the
     global norm of the trained tensors' gradients before clipping), as 0-dim
-    tensors on the device. What ``mode`` trains (the master weights, the
-    codebooks or both) and the running statistics are updated in place; the
-    returned state holds the new carry.
+    tensors on the device. ``donate=True``: what ``mode`` trains (the master
+    weights, the codebooks or both), the optimizer's moments and the running
+    statistics are updated in place, and the returned state holds them and
+    the new carry. ``donate=False``: the caller's state stays as it was and
+    the returned state holds new tensors. ``_eager=True`` runs the step
+    without a graph on the card (for comparisons, and for tasks with Python
+    side effects, which a replay does not repeat).
 
     ``mesh`` (a ``parallel.make_mesh`` mesh; one process per rank): data
     parallelism over its ``data`` axis on replicated parameters, each rank
     passing its own rows of the batch (``parallel.place_batch``); see the
     module docstring. ``grad_reduce_dtype`` (requires ``mesh``) carries the
     gradient all-reduce in that dtype (``preferred_grad_reduce_dtype``);
-    f32 when None.
+    f32 when None. A step with a mesh runs eagerly.
 
     ``param_specs`` (requires ``mesh``; parameter name → partition spec,
     ``parallel.placed_pspecs`` of the whole parameters): the state's
@@ -406,47 +666,13 @@ def make_train_step(
     _check_mode(mode, quant)
     if grad_reduce_dtype is not None and mesh is None:
         raise ValueError("grad_reduce_dtype requires a mesh")
-    reduce_dtype = grad_reduce_dtype or torch.float32
-    data_index = None if mesh is None else axis_index(mesh, DATA_AXIS)
     mp = _model_parallel(mesh, param_specs)
     if mp is not None and not task.model_parallel:
         raise ValueError("this task does not take parameters split over model "
                          "(nmt_task and lm_task do)")
-
-    def step_fn(state: TrainState, batch: Batch, rng: int = 0):
-        batch = as_batch(batch, dev)
-        if state.carry is not None:
-            batch["carry"] = map_tensors(torch.Tensor.detach, state.carry)
-        q_gen, drop_gen = step_generators(dev, rng, state.step, data_index)
-        if mp is not None and set(state.params) - set(mp.specs):
-            raise ValueError(f"param_specs lack {sorted(set(state.params) - set(mp.specs))}")
-        loss, metrics, grads, updates = loss_and_grads(
-            task, state.params, batch, quant=quant, distill=distill, bits_map=bits_map,
-            quant_generator=q_gen, dropout_generator=drop_gen, codebooks=state.codebooks,
-            mode=mode, batch_stats=state.batch_stats, model_parallel=mp,
-        )
-        if mesh is not None:
-            loss, metrics, grads, updates = reduce_over_data(loss, metrics, grads, updates,
-                                                             mesh, reduce_dtype)
-        wrt = trainable(state.params, state.codebooks, mode)
-        if mp is None:
-            opt_updates, opt_state = tx.update(grads, state.opt_state, wrt)
-            norm = global_norm(grads)
-        else:
-            norm = model_parallel_norm(grads, mp)
-            opt_updates, opt_state = tx.update(grads, state.opt_state, wrt, norm=norm)
-        apply_updates(wrt, opt_updates)
-        metrics = dict(metrics, loss=loss, grad_norm=norm)
-        if state.batch_stats is not None and "batch_stats" in updates:
-            with torch.no_grad():
-                for name, t in state.batch_stats.items():
-                    t.copy_(updates["batch_stats"][name])
-        carry = state.carry
-        if "carry" in updates:
-            carry = map_tensors(torch.Tensor.detach, updates["carry"])
-        return state.replace(step=state.step + 1, opt_state=opt_state, carry=carry), metrics
-
-    return step_fn
+    return TrainStep(task, tx, quant=quant, distill=distill, mode=mode, bits_map=bits_map,
+                     mesh=mesh, reduce_dtype=grad_reduce_dtype or torch.float32, mp=mp,
+                     donate=donate, eager=_eager, device=dev)
 
 
 def _model_parallel(mesh, param_specs) -> Optional[ModelParallel]:
@@ -476,17 +702,23 @@ def make_eval_step(
     quantized_eval: bool = True,
     bits_map: Optional[Dict[str, int]] = None,
     device="cuda",
+    _eager: bool = False,
 ):
     """Eval step ``(state, batch) -> metrics`` on the deployment
     (hard-quantized, with the state's codebooks for a codebook ``quant``)
-    weights and the state's running statistics, as the reference evaluates
-    the quantized model, not the full-precision master copy. A task that
-    threads a carry returns it as ``metrics["carry"]`` (``loops.evaluate``
-    feeds it to the next batch)."""
+    weights and the state's running statistics, as the reference
+    evaluates the quantized model, not the full-precision master copy. A
+    task that threads a carry returns it as ``metrics["carry"]``
+    (``loops.evaluate`` feeds it to the next batch). On the card it runs as
+    one CUDA graph per state (its tensors' addresses) and batch and carry
+    shapes, as the JAX package's is one ``jax.jit`` (``utils.graphs.
+    GraphCache``; ``_eager=True``: without one); the metrics and the carry
+    come back as new tensors."""
     dev = resolve_device(device)
+    graphs = GraphCache()
+    shapes: Dict[Any, Any] = {}  # key → the metrics' tree, its tensors as placeholders
 
-    def eval_fn(state: TrainState, batch: Batch) -> Dict[str, Any]:
-        batch = as_batch(batch, dev)
+    def evaluate_on(state: TrainState, batch: Dict[str, Any]) -> Dict[str, Any]:
         with torch.no_grad():
             params = state.params
             if quant is not None and quantized_eval:
@@ -497,5 +729,26 @@ def make_eval_step(
         if "carry" in updates:
             metrics = dict(metrics, carry=updates["carry"])
         return metrics
+
+    def eval_fn(state: TrainState, batch: Batch) -> Dict[str, Any]:
+        batch = as_batch(batch, dev)
+        if dev.type == "cpu" or _eager:
+            return evaluate_on(state, batch)
+        names = sorted(k for k in batch if k != "carry")
+        carry = batch.get("carry")
+        key = (quant, quantized_eval, tuple(names), _tree_key(carry, False),
+               tuple(signature(t) for t in _state_tensors(state)))
+
+        def run(*inputs):
+            b = dict(zip(names, inputs))
+            if carry is not None:
+                it = iter(inputs[len(names):])
+                b["carry"] = map_tensors(lambda _: next(it), carry)
+            metrics = evaluate_on(state, b)
+            shapes[key] = map_tensors(lambda _: torch.empty(0), metrics)
+            return tuple(_leaves(metrics))
+
+        out = iter(graphs.run(key, run, [batch[k] for k in names] + _leaves(carry)))
+        return map_tensors(lambda _: next(out), shapes[key])
 
     return eval_fn

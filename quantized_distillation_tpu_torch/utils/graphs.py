@@ -6,13 +6,17 @@ card as one graph each, so one replay launches every kernel of a search,
 and the host makes one call where it made hundreds.
 
 A :class:`CapturedCall` copies its inputs into static buffers, replays, and
-returns clones of the graph's outputs. A :class:`CapturedStep` is the
-continuous-batching engine's form: a function with no inputs or outputs
-that updates persistent buffers in place (one decode step of the slot
-grid), replayed as often as asked. The kernel wrappers' launch counters
+returns clones of the graph's outputs. A :class:`CapturedStep` is a
+function with no inputs or outputs that updates persistent buffers in
+place, replayed as often as asked: one decode step of the
+continuous-batching engine's slot grid, or one train step
+(``train.make_train_step``), whose warm-up is the step's first call
+(``counted_warmup``) and whose random generators the graph reads anew at
+each replay (``generators``). The kernel wrappers' launch counters
 count Python calls, so a replay would count nothing: the capture measures
 the launches it recorded, puts the counters back as they were before the
-warm-up and the capture, and every replay adds the captured launches again.
+warm-up and the capture (after the warm-up, where it is counted), and
+every replay adds the captured launches again.
 Other records a replay must repeat (the collectives of the multi-device
 paths) come through a recorder registered with :func:`register_recorder`:
 the warm-up's records are dropped, the capture's kept, and every replay
@@ -84,7 +88,8 @@ def host_syncs_raise():
         torch.cuda.set_sync_debug_mode(mode)
 
 
-def _capture(fn: Callable, args: Sequence[torch.Tensor] = ()):
+def _capture(fn: Callable, args: Sequence[torch.Tensor] = (), *, counted_warmup: bool = False,
+             generators: Sequence[torch.Generator] = ()):
     """``fn(*args)`` captured as a CUDA graph → (graph, outputs, launches a
     replay adds, each recorder's records a replay makes again). One warm-up
     call on a side stream, under
@@ -93,15 +98,23 @@ def _capture(fn: Callable, args: Sequence[torch.Tensor] = ()):
     failed capture raises; nothing falls back to eager calls. The warm-up
     and the capture must launch the same kernels, or the work depends on
     more than the inputs' shapes and the capture raises too. The launch
-    counters end as they were before the warm-up."""
+    counters end as they were before the warm-up, or, with
+    ``counted_warmup`` (the warm-up is a call the caller wanted: a train
+    step's first), as they were after it, and its records are made as a
+    call's are. ``generators`` (CUDA ``torch.Generator``s that ``fn``
+    draws from) are registered with the graph: each replay draws from
+    their seed and offset at that time, as an eager call would."""
     before = launch_counts()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with host_syncs_raise(), torch.cuda.stream(side), _redirected([None] * len(_RECORDERS)):
+    sinks = contextlib.nullcontext() if counted_warmup else _redirected([None] * len(_RECORDERS))
+    with host_syncs_raise(), torch.cuda.stream(side), sinks:
         fn(*args)
     torch.cuda.current_stream().wait_stream(side)
     warm = launch_counts()
     graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
     # An unreachable graph that the cyclic garbage collector frees during the
     # capture (its reset) invalidates the capture: collect first, then hold
     # the collector off until the capture ends.
@@ -116,7 +129,7 @@ def _capture(fn: Callable, args: Sequence[torch.Tensor] = ()):
     finally:
         if gc_was_on:
             gc.enable()
-        set_launch_counts(before)
+        set_launch_counts(warm if counted_warmup else before)
     if launches != _delta(warm, before):
         raise RuntimeError(
             f"capture launched {launches}, its warm-up {_delta(warm, before)}: "
@@ -152,11 +165,15 @@ class CapturedStep:
     """``fn()``, which updates tensors that outlive it in place (inputs and
     outputs are those tensors), captured once as a CUDA graph (see
     :func:`_capture`; the warm-up runs ``fn`` once for real, so capture it
-    where one more call changes nothing that matters). ``replay(n)`` runs
-    it ``n`` times and adds ``n`` times its launches to the counters."""
+    where one more call changes nothing that matters, or pass
+    ``counted_warmup=True`` where the warm-up is the first call that was
+    wanted). ``replay(n)`` runs it ``n`` times and adds ``n`` times its
+    launches to the counters."""
 
-    def __init__(self, fn: Callable[[], None]):
-        self.graph, _, self.launches, self.records = _capture(fn)
+    def __init__(self, fn: Callable[[], None], *, counted_warmup: bool = False,
+                 generators: Sequence[torch.Generator] = ()):
+        self.graph, _, self.launches, self.records = _capture(
+            fn, counted_warmup=counted_warmup, generators=generators)
 
     def replay(self, n: int = 1) -> None:
         for _ in range(n):
@@ -185,6 +202,13 @@ def signature(obj) -> Hashable:
     return obj
 
 
+def precision_key() -> Hashable:
+    """The TF32 settings, which fix the kernels a captured f32 product or
+    convolution runs."""
+    return (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision(),
+            torch.backends.cudnn.allow_tf32)
+
+
 class GraphCache:
     """At most ``SIZE`` captured calls, the least recently used dropped
     first. ``captures`` counts the captures made."""
@@ -200,9 +224,7 @@ class GraphCache:
         and the inputs' shapes, dtypes and devices, captured first if there
         is none. ``key`` must hold everything else that fixes the work
         ``fn`` launches. TF32 settings are part of the key."""
-        key = (key, torch.backends.cuda.matmul.allow_tf32,
-               torch.get_float32_matmul_precision(),
-               tuple((tuple(x.shape), x.dtype, x.device) for x in inputs))
+        key = (key, precision_key(), tuple((tuple(x.shape), x.dtype, x.device) for x in inputs))
         call = self._calls.get(key)
         if call is None:
             call = CapturedCall(fn, inputs)
