@@ -122,8 +122,8 @@ Phases, each printing one JSON line:
    CPU plain path from the trained weights and statistics (the new
    statistics at W_RTOL / W_ATOL); 2 steps in mode ``joint`` (learned
    codebooks, as ``examples/cifar100_wrn_diffquant.py`` trains) that launch
-   no kernel; the graphed step against the eager one (:func:`graph_legs`);
-   the 4-bit and FP32 steps in turns (images/s, ``vs_baseline`` = FP32 /
+   no kernel; the graphed step against the eager one (:func:`graph_legs`,
+   under :func:`cudnn_deterministic`); the 4-bit and FP32 steps in turns (images/s, ``vs_baseline`` = FP32 /
    4-bit seconds), a stage breakdown and a profile;
 14. LM train: the 2x650 teacher → ``student_medium`` LSTM LM at ``bench.py
    --train --family lm``'s shape (V = 10000, bptt 35, B = 256) with
@@ -197,7 +197,17 @@ Phases, each printing one JSON line:
    ``TranslationEngine(mesh=)`` equal to the offline sharded search; a
    full-width KD step (B = 128) with ``grad_reduce_dtype=torch.bfloat16``
    within the JAX package's tolerance of the mesh-less step (loss rtol
-   1e-5, weights rtol 0.05, atol 1e-4), one fake-quant launch each. (b) 4
+   1e-5, weights rtol 0.05, atol 1e-4), one fake-quant launch each, the
+   mesh step graphed; then the mesh KD steps as CUDA graphs
+   (:func:`mesh_graph_legs`, lines ``mesh_*_graph``): DP with the bf16
+   reduce, TP ``weights`` and ``joint`` (seq2seq at phase 7's width,
+   dropout 0.3), the LM TP with the carry threaded (phase 14's width) and
+   WRN-28-10 → WRN-16-4 DP (phase 13's), 10 steps graphed beside three
+   eager runs of 10 from copies of one state: graphed equal to eager bit
+   for bit (the WRN under deterministic cuDNN), one capture, one
+   fake-quant launch a STE step (none in ``joint``), and every replay's
+   collectives those of the eager step; step seconds graphed and eager in
+   turns (median of ``--reps``), busy shares and the graph's pool. (b) 4
    ranks sharing the card over gloo (``parallel.launch.run_ranks``), meshes
    (1, 4) and (2, 2), full width: each rank's fused generator kernel at its
    shard width (N = 8192, 16384) against its plain version at rtol = atol =
@@ -208,13 +218,15 @@ Phases, each printing one JSON line:
    search had a tie of at most 2 ulps (the merged logsumexp sums in another
    order), scores within 1e-4. (c) 2 ranks over gloo: a B = 8 DP step (f32
    reduce) equal to the one-rank step on all 8 rows (loss rtol 1e-5,
-   weights rtol 1e-5, atol 1e-6). Then the generator, uniform and LUT, at
+   weights rtol 1e-5, atol 1e-6), eager (a gloo step is never graphed).
+   Then the generator, uniform and LUT, at
    the shard widths in this process, checked and timed like phase 3.
    (d) tp_train: tensor-parallel KD training (``make_train_step(mesh=,
    param_specs=)`` on ``place_params_seq2seq`` shards, SGD lr 1e-2,
    dropout 0). At mesh (1, 1) over NCCL in (a)'s group, the full-width
    seq2seq step's TP code path (one-rank collectives) equal to the
-   mesh-less step. Over gloo, 4 ranks sharing the card at (1, 4) and (2, 2)
+   mesh-less step, graphed. Over gloo (eager on every rank), 4 ranks
+   sharing the card at (1, 4) and (2, 2)
    (the full-width seq2seq step: teacher 2x500 → student_medium, V =
    32000, B = 128, L = 24, each rank its data rows) and 2 ranks at (1, 2)
    (the LM: 2x650 → student_medium, V = 10000, B = 256 x 35): each rank's
@@ -257,7 +269,8 @@ than ``RELU_FLIP_SHARE`` (1 in 10^5) of the ReLU outputs of a step.
 Then the kernel table as one JSON object (the generator rows also hold
 their sharded launches and times at the shard widths of phase 18; the
 fake-quant row also holds its launches in the graphed legs of phases 7,
-13 and 14 (``graph_launches``), its launches, bucket count and times on
+13 and 14 (``graph_launches``) and in the graphed mesh legs of phase 18
+(``mesh_graph_launches``), its launches, bucket count and times on
 each path of phases 13-15 and its
 launches, bucket counts and times in phase 17's drivers; every row its
 ``artifact_launches`` in phase 16's two searches from disk and its
@@ -354,10 +367,11 @@ from quantized_distillation_tpu_torch.parallel import (
     ModelParallel,
     make_mesh,
     place_batch,
+    place_params_lm,
     place_params_seq2seq,
     placed_pspecs,
 )
-from quantized_distillation_tpu_torch.parallel.comm import collective_budget
+from quantized_distillation_tpu_torch.parallel.comm import capturable, collective_budget
 from quantized_distillation_tpu_torch.parallel.launch import run_ranks
 from quantized_distillation_tpu_torch.parallel.mesh import axis_index, axis_size
 from quantized_distillation_tpu_torch.ops.bucketing import to_buckets
@@ -375,7 +389,6 @@ from quantized_distillation_tpu_torch.serve.beam import BOS, EOS, NEG_INF, PAD
 from quantized_distillation_tpu_torch.serve.sharded import (
     beam_search_sharded,
     generator_shard,
-    graphed,
     make_sharded_decode_step_topk,
     pack_generator_sharded,
     shard_decoder,
@@ -2136,6 +2149,23 @@ def state_tensors(state) -> list:
     return _state_tensors(state) + _leaves(state.carry)
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside the block (the setting is
+    restored after). Its default backward convolutions add with atomics in
+    no fixed order, so two eager runs of a convolutional step part within a
+    few steps and a graphed run could be held only within their spread,
+    one draw of which a fourth run exceeds now and then (1 of 158 WRN
+    tensors past twice the gap of three eager runs); deterministic, the
+    eager runs agree bit for bit and the graphed run must equal them."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
 def step_bytes(run) -> dict:
     """``run()`` → (its result, its device bytes), the allocator's cache
     emptied before and after: the peak allocated above what was allocated
@@ -2154,7 +2184,8 @@ def step_bytes(run) -> dict:
 
 
 def graph_legs(checks, label, task, tx, state, batch, seed, args, *, quant, distill,
-               mode: str = "weights", fq_per_step: int = 1, control: bool = False) -> dict:
+               mode: str = "weights", fq_per_step: int = 1, control: bool = False,
+               **mesh_kw) -> dict:
     """The graphed train step against the eager one (``_eager=True``), at the
     phase's width: from four copies of ``state``, three eager runs and one
     graphed run of ``args.train_steps`` steps on ``batch`` at the same
@@ -2163,38 +2194,57 @@ def graph_legs(checks, label, task, tx, state, batch, seed, args, *, quant, dist
     must equal the first eager run's bit for bit where the eager runs are
     equal bit for bit, and lie within twice the eager-against-eager gap
     elsewhere (a tensor's largest gap between any two of three eager runs;
-    for the losses, the largest over the steps), for cuDNN's backward adds
-    with atomics in no fixed order. The graphed run must launch
+    for the losses, the largest over the steps), for a step whose eager
+    runs differ (the WRN legs run under :func:`cudnn_deterministic`, so
+    theirs should not). The graphed run must launch
     ``fq_per_step`` fake-quant kernels a step and capture one graph. With ``control``, one graphed step
     at another seed must give another loss (the student's dropout masks
     follow the seed). Then the two steps' host seconds in turns (median of
     ``args.reps``), the device's busy share of one call of each
     (:func:`phase_profile`), and the device memory of each
     (:func:`step_bytes`: an eager step's peak above the state, and what
-    the capturing call leaves reserved, the graph's pool)."""
-    kw = dict(quant=quant, distill=distill, mode=mode, device="cuda")
+    the capturing call leaves reserved, the graph's pool). ``mesh_kw``
+    (``mesh``, and ``param_specs`` or ``grad_reduce_dtype``): the steps on
+    that mesh, where each step's collectives (``collective_budget``: kind,
+    bytes, axis, group size) in the graphed run, the capturing call's and
+    every replay's, must equal the first eager run's step for step."""
+    kw = dict(quant=quant, distill=distill, mode=mode, device="cuda", **mesh_kw)
+    mesh = mesh_kw.get("mesh")
     eager = make_train_step(task, tx, _eager=True, **kw)
     graph = make_train_step(task, tx, **kw)
+    checks.require(graph.graphed, f"{label}: the step does not run graphed")
     nbytes = {}
     runs = []
     for step in (eager, eager, eager, graph):
-        st, losses = _clone_state(state), []
+        st, losses, budgets = _clone_state(state), [], []
         zero_counts()
         for i in range(args.train_steps):
             leg = "graph" if step is graph else "eager"
-            if i == 0 and leg not in nbytes:  # the first eager step, the capturing call
-                (st, m), nbytes[leg] = step_bytes(lambda: step(st, batch, seed))
-            else:
-                st, m = step(st, batch, seed)
+            with collective_budget(mesh) as budget:
+                if i == 0 and leg not in nbytes:  # the first eager step, the capturing call
+                    (st, m), nbytes[leg] = step_bytes(lambda: step(st, batch, seed))
+                else:
+                    st, m = step(st, batch, seed)
             losses.append(m["loss"])
-        runs.append((st, torch.stack(losses), read_counts()))
-    g, lg, launches = runs.pop()
+            budgets.append([dataclasses.astuple(op) for op in budget.ops])
+        runs.append((st, torch.stack(losses), read_counts(), budgets))
+    g, lg, launches, g_budgets = runs.pop()
     want = expected(fake_quant_buckets=fq_per_step * args.train_steps)
     checks.require(launches == want, f"{label} graphed launches {launches}, expected {want}")
     checks.require(graph.captures == 1, f"{label}: {graph.captures} captures for one signature")
+    collectives = None
+    if mesh is not None:
+        same = g_budgets == runs[0][3]
+        checks.require(same and bool(g_budgets[0]),
+                       f"{label}: the graphed steps' collectives differ from the eager steps'")
+        kinds = {}
+        for kind, nb, axis, _ in g_budgets[0]:
+            kinds[f"{kind}@{axis}"] = kinds.get(f"{kind}@{axis}", 0) + 1
+        collectives = {"equal_to_eager_every_step": same, "a_step": kinds,
+                       "bytes_a_step": sum(op[1] for op in g_budgets[0])}
     over, record = 0, {}
-    for what, tensors, tg in (("state", [state_tensors(s) for s, _, _ in runs], state_tensors(g)),
-                              ("loss", [list(losses) for _, losses, _ in runs], list(lg))):
+    for what, tensors, tg in (("state", [state_tensors(r[0]) for r in runs], state_tensors(g)),
+                              ("loss", [list(r[1]) for r in runs], list(lg))):
         ta = tensors[0]
         gap_e = [max(float((x - y).abs().max()) for x, y in itertools.combinations(ts, 2))
                  for ts in zip(*tensors, strict=True)]
@@ -2226,6 +2276,7 @@ def graph_legs(checks, label, task, tx, state, batch, seed, args, *, quant, dist
     checks.require(graph.captures == 1, f"{label}: {graph.captures} captures after the timing")
     out = {"phase": f"{label}_graph", "steps": args.train_steps, "mode": mode,
            "launches": launches, "captures": graph.captures, "parity": record,
+           "collectives": collectives,
            "step_seconds_graph": times["graph"], "step_seconds_eager": times["eager"],
            "median_step_seconds_graph": med["graph"], "median_step_seconds_eager": med["eager"],
            "device_busy_share_graph": busy["graph"]["device_busy_share_of_median_run"],
@@ -2269,8 +2320,9 @@ def phase_vision_train(checks, args, smi) -> dict:
     parity = step_parity(checks, "vision_train parity", setup,
                          [vision_batch(args.parity_batch, 32, 100, args.seed + 43, "cpu")],
                          quant, distill)
-    legs = graph_legs(checks, "vision_train", task, tx, state, batch, args.seed, args,
-                      quant=quant, distill=distill)
+    with cudnn_deterministic():  # graphed must equal eager bit for bit
+        legs = graph_legs(checks, "vision_train", task, tx, state, batch, args.seed, args,
+                          quant=quant, distill=distill)
     fp_step = make_train_step(task, tx, quant=None, distill=distill, device=dev)
     state, times, med = legs_in_turns({"4bit": step, "fp32": fp_step}, state, batch, args.seed,
                                       args.reps)
@@ -2721,7 +2773,7 @@ def _mg_serve_rank(rank, world, spec):
         out[str(shape)] = {
             "rows": rows, "N": sdecs[torch.float32].generator.shape[1], "kernel": kern,
             "dequant_matmul": dm, "beam_advance_bit_exact": adv, "step": stp,
-            "launches": read_counts(), "graphed": graphed(mesh, dev),
+            "launches": read_counts(), "graphed": capturable(mesh, dev),
             "gathers": {ax: sum(op.kind == "all-gather" and op.axis == ax for op in budget.ops)
                         for ax in ("model", "data", "unknown")},
             "tokens": toks.cpu().numpy(), "scores": scores.cpu().numpy(),
@@ -2731,7 +2783,8 @@ def _mg_serve_rank(rank, world, spec):
 
 def _mg_kd(a, dev, batch_size, seed, mesh, grad_reduce_dtype):
     """One SGD KD step (lr 1e-2, the JAX package's reduced-precision test)
-    of a fresh seeded student → (loss, params, fake-quant launches)."""
+    of a fresh seeded student → (loss, params, fake-quant launches, whether
+    the step ran graphed)."""
     student, task, batch = kd_setup(a, dev, batch_size, seed)
     quant = QuantSpec(bits=a.bits)
     tx = build_optimizer(TrainConfig(learning_rate=1e-2, optimizer="sgd"))
@@ -2743,7 +2796,7 @@ def _mg_kd(a, dev, batch_size, seed, mesh, grad_reduce_dtype):
     zero_counts()
     state, m = step(state, batch, a.seed)
     launches = read_counts()["fake_quant_buckets"]
-    return float(m["loss"]), state.params, launches
+    return float(m["loss"]), state.params, launches, step.graphed
 
 
 def _params_excess(got, want, rtol, atol) -> float:
@@ -2760,10 +2813,10 @@ def _mg_train_rank(rank, world, spec):
     dev = _rank_setup()
     a = argparse.Namespace(**spec["args"])
     seed = a.seed + 30
-    loss1, params1, _ = _mg_kd(a, dev, a.parity_batch, seed, None, None)
-    loss, params, launches = _mg_kd(a, dev, a.parity_batch, seed, make_mesh(2, 1), None)
+    loss1, params1, _, _ = _mg_kd(a, dev, a.parity_batch, seed, None, None)
+    loss, params, launches, graphed = _mg_kd(a, dev, a.parity_batch, seed, make_mesh(2, 1), None)
     return {"loss": loss, "one_rank_loss": loss1, "fake_quant_launches": launches,
-            "params_excess": _params_excess(params, params1, W_RTOL, W_ATOL)}
+            "graphed": graphed, "params_excess": _params_excess(params, params1, W_RTOL, W_ATOL)}
 
 
 TP_SHAPES = ((1, 4), (2, 2))  # the seq2seq tensor-parallel step: 4 gloo ranks on the card
@@ -2812,6 +2865,7 @@ def _tp_step(a, dev, family, seed, mesh, tensor_parallel: bool) -> dict:
         kinds[f"{op.kind}@{op.axis}"] = kinds.get(f"{op.kind}@{op.axis}", 0) + 1
     return {"loss": loss, "grad_norm": float(m["grad_norm"]), "params": state.params,
             "launches": read_counts()["fake_quant_buckets"], "collectives": kinds,
+            "graphed": step.graphed,
             "wire_bytes_by_axis": budget.bytes_by_axis(wire=True), "seconds": seconds,
             "specs": specs, "mp": None if specs is None else ModelParallel(mesh, specs)}
 
@@ -2891,6 +2945,7 @@ def mg_tp_train(checks, args, smi) -> dict:
                 checks.require(p["params_excess"] <= W_ATOL,
                                f"{tag}: shard {p['params_excess']} past rtol {W_RTOL}")
                 checks.require(p["launches"] == 1, f"{tag}: {p['launches']} fake-quant launches")
+                checks.require(not p["graphed"], f"{tag}: a gloo step ran graphed")
                 checks.require(p["split"] > 0, f"{tag}: no parameter split over model")
                 for k in ("all-gather@model", "reduce-scatter@model", "all-reduce@model"):
                     checks.require(p["collectives"].get(k, 0) > 0, f"{tag}: no {k}")
@@ -2966,6 +3021,72 @@ def shard_kernel_times(checks, args, params, points, group) -> dict:
     return out
 
 
+MESH_GRAPH_LEGS = ("dp_bf16", "tp_weights", "tp_joint", "lm_tp", "vision_dp")
+
+
+def mesh_graph_legs(checks, args, mesh) -> dict:
+    """(a) the KD steps on mesh (1, 1) over NCCL as CUDA graphs, each leg
+    through :func:`graph_legs` (three eager runs and one graphed of
+    ``args.train_steps`` steps from copies of one state, Adam with
+    clipping; then timings, busy shares and pools): the seq2seq (teacher
+    2x500 → ``args.preset``, V = ``args.vocab``, B = ``train_batch``, L =
+    ``src_len``, dropout 0.3) data parallel with the bf16 gradient reduce,
+    then tensor parallel on ``place_params_seq2seq`` shards in modes
+    ``weights`` and ``joint``; the LM (2x650 → student_medium, V =
+    ``lm_vocab``, B = ``lm_batch`` x ``lm_bptt``) tensor parallel with the
+    carry threaded; WRN-28-10 → WRN-16-4 (B = ``vision_batch``) data
+    parallel, its running statistics averaged over ``data`` in the graph.
+    Graphed equal to eager bit for bit (the WRN under
+    :func:`cudnn_deterministic`), one capture, one fake-quant launch a STE
+    step and none in ``joint``, the eager step's collectives at every
+    replay. Returns each leg's line."""
+    dev = torch.device("cuda")
+    cfg = TrainConfig(learning_rate=1e-3, clip_norm=5.0)
+    quant, distill = QuantSpec(bits=args.bits), DistillSpec()
+    cb_quant = QuantSpec(bits=args.bits, method="codebook")
+    out = {}
+
+    def leg(name, task, state, batch, **kw):
+        out[name] = graph_legs(checks, f"mesh_{name}", task, tx, state,
+                               place_batch(batch, mesh, device=dev), args.seed, args,
+                               distill=distill, mesh=mesh, **{"quant": quant, **kw})
+
+    seed = args.seed + 80
+    student, task, batch = kd_setup(args, dev, args.train_batch, seed, dropout=0.3)
+    tx = build_optimizer(cfg)
+    leg("dp_bf16", task, create_train_state(dict(student.named_parameters()), tx, quant=quant,
+                                            device=dev),
+        batch, grad_reduce_dtype=torch.bfloat16, control=True)
+    whole = dict(student.named_parameters())
+    specs = placed_pspecs(whole, mesh)
+    leg("tp_weights", task, create_train_state(place_params_seq2seq(whole, mesh, device=dev), tx,
+                                               quant=quant, device=dev),
+        batch, param_specs=specs)
+    leg("tp_joint", task, create_train_state(place_params_seq2seq(whole, mesh, device=dev), tx,
+                                             quant=cb_quant, mode="joint", mesh=mesh,
+                                             param_specs=specs, device=dev),
+        batch, param_specs=specs, quant=cb_quant, mode="joint", fq_per_step=0)
+    del student, task, whole
+    teacher = make_lm("teacher", args.lm_vocab, device=dev, seed=seed + 10)
+    student = make_lm("student_medium", args.lm_vocab, device=dev, seed=seed + 11)
+    whole = dict(student.named_parameters())
+    leg("lm_tp", lm_task(student, teacher, thread_carry=True, device=dev),
+        create_train_state(place_params_lm(whole, mesh, device=dev), tx, quant=quant,
+                           carry=lm_initial_carry(student, args.lm_batch, teacher), device=dev),
+        lm_batch(args.lm_batch, args.lm_vocab, args.lm_bptt, seed + 12, dev),
+        param_specs=placed_pspecs(whole, mesh))
+    del student, teacher, whole
+    teacher = make_wrn("teacher", 100, device=dev, seed=seed + 20)
+    student = make_wrn("student_medium", 100, device=dev, seed=seed + 21)
+    with cudnn_deterministic():  # graphed must equal eager bit for bit
+        leg("vision_dp", vision_task(student, teacher, device=dev),
+            create_train_state(dict(student.named_parameters()), tx,
+                               batch_stats=dict(student.named_buffers()), quant=quant,
+                               device=dev),
+            vision_batch(args.vision_batch, 32, 100, seed + 22, dev))
+    return out
+
+
 def mg_nccl(checks, args, model, params, points, smi) -> dict:
     """(a): NCCL at world size 1, mesh (1, 1), full width, in this process."""
     dev = torch.device("cuda", 0)
@@ -2980,7 +3101,7 @@ def mg_nccl(checks, args, model, params, points, smi) -> dict:
                                          world_size=1, timeout=timedelta(seconds=MG_TIMEOUT))
     try:
         mesh = make_mesh(1, 1)
-        out = {"backend": "nccl", "mesh": [1, 1], "graphed": graphed(mesh, dev)}
+        out = {"backend": "nccl", "mesh": [1, 1], "graphed": capturable(mesh, dev)}
         checks.require(out["graphed"], "multi_gpu: the NCCL sharded search does not run graphed")
         searches = {}
         for label, kw in (("f32", dict(compute_dtype=torch.float32)),
@@ -3063,9 +3184,11 @@ def mg_nccl(checks, args, model, params, points, smi) -> dict:
                          "all_gathers": budget.count("all-gather"), "graphed": eng._graph
                          is not None, "steps": eng.steps_run}
         # a full-width KD step with the bf16 reduce against the mesh-less step
-        loss_m, params_m, fq_m = _mg_kd(args, dev, args.train_batch, args.seed + 10, mesh,
-                                        torch.bfloat16)
-        loss_1, params_1, fq_1 = _mg_kd(args, dev, args.train_batch, args.seed + 10, None, None)
+        loss_m, params_m, fq_m, graphed_m = _mg_kd(args, dev, args.train_batch, args.seed + 10,
+                                                   mesh, torch.bfloat16)
+        loss_1, params_1, fq_1, _ = _mg_kd(args, dev, args.train_batch, args.seed + 10, None,
+                                           None)
+        checks.require(graphed_m, "multi_gpu KD bf16: the NCCL mesh step did not run graphed")
         excess = _params_excess(params_m, params_1, 0.05, 1e-4)
         checks.require(abs(loss_m - loss_1) <= LOSS_RTOL * abs(loss_1),
                        f"multi_gpu KD bf16 loss {loss_m} vs {loss_1}")
@@ -3073,7 +3196,7 @@ def mg_nccl(checks, args, model, params, points, smi) -> dict:
         checks.require(fq_m == 1 and fq_1 == 1, f"multi_gpu KD fake-quant launches {fq_m}, {fq_1}")
         out["kd_bf16_reduce"] = {"batch": args.train_batch, "loss": loss_m,
                                  "mesh_less_loss": loss_1, "params_excess_over_rtol": excess,
-                                 "fake_quant_launches": fq_m}
+                                 "fake_quant_launches": fq_m, "graphed": graphed_m}
         # the tensor-parallel step's code path at mesh (1, 1) against the
         # mesh-less step (one-rank collectives over NCCL)
         seed = args.seed + 70
@@ -3086,13 +3209,15 @@ def mg_nccl(checks, args, model, params, points, smi) -> dict:
         checks.require(tp_excess <= W_ATOL, f"multi_gpu TP (1, 1) params {tp_excess} past rtol")
         checks.require(tp1["launches"] == 1, f"multi_gpu TP (1, 1): {tp1['launches']} fake-quant "
                                              "launches")
+        checks.require(tp1["graphed"], "multi_gpu TP (1, 1): the NCCL mesh step did not run graphed")
         checks.require(tp1["collectives"].get("reduce-scatter@unknown", 0) > 0,
                        "multi_gpu TP (1, 1): the TP path issued no reduce-scatter")
         out["kd_tp_1x1"] = {"batch": args.train_batch, "loss": tp1["loss"],
                             "mesh_less_loss": one["loss"], "params_excess_over_rtol": tp_excess,
                             "fake_quant_launches": tp1["launches"],
                             "collectives": tp1["collectives"], "seconds": tp1["seconds"],
-                            "mesh_less_seconds": one["seconds"]}
+                            "mesh_less_seconds": one["seconds"], "graphed": tp1["graphed"]}
+        out["graphed_steps"] = mesh_graph_legs(checks, args, mesh)
     finally:
         torch.distributed.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -3155,6 +3280,7 @@ def phase_multi_gpu(checks, args, model, params, points, smi) -> dict:
                        f"multi_gpu DP rank {r}: params {t['params_excess']} past rtol {W_RTOL}")
         checks.require(t["fake_quant_launches"] == 1,
                        f"multi_gpu DP rank {r}: {t['fake_quant_launches']} fake-quant launches")
+        checks.require(not t["graphed"], f"multi_gpu DP rank {r}: a gloo step ran graphed")
     shards = shard_kernel_times(checks, args, params, points, spec["group"])
     tp = mg_tp_train(checks, args, smi)
     emit({"phase": "multi_gpu", "nccl": a, "gloo_serve": b, "gloo_serve_seconds": serve_s,
@@ -3169,11 +3295,14 @@ def phase_multi_gpu(checks, args, model, params, points, smi) -> dict:
     }
     out = {name: {"sharded_launches": launches[name], "shard_widths": shards[name]}
            for name in shards}
-    out["fake_quant_buckets"] = {"tp_launches": {
-        "nccl_1x1": a["kd_tp_1x1"]["fake_quant_launches"],
-        **{f"gloo_{fam}_{shape}": [p["launches"] for p in tp[fam][shape]]
-           for fam, shapes in (("s2s", TP_SHAPES), ("lm", (LM_TP_SHAPE,)))
-           for shape in map(str, shapes)}},
+    out["fake_quant_buckets"] = {
+        "mesh_graph_launches": {leg: r["launches"]["fake_quant_buckets"]
+                                for leg, r in a["graphed_steps"].items()},
+        "tp_launches": {
+            "nccl_1x1": a["kd_tp_1x1"]["fake_quant_launches"],
+            **{f"gloo_{fam}_{shape}": [p["launches"] for p in tp[fam][shape]]
+               for fam, shapes in (("s2s", TP_SHAPES), ("lm", (LM_TP_SHAPE,)))
+               for shape in map(str, shapes)}},
         "tp_gathered_tree": {fam: next(p["fake_quant"] for p in tp[fam][str(shapes[0])]
                                        if "fake_quant" in p)
                              for fam, shapes in (("s2s", TP_SHAPES), ("lm", (LM_TP_SHAPE,)))}}

@@ -244,13 +244,22 @@ def pmean(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return psum(x, mesh, axis) / dist.get_world_size(_group(mesh, axis))
 
 
+def capturable(mesh, device) -> bool:
+    """Whether a path over ``mesh`` on ``device`` runs as a CUDA graph: on
+    the card over NCCL, whose collectives a graph holds (gloo's go through
+    the host). The one rule of every graphed mesh path: the sharded search,
+    the engine and the train step."""
+    return torch.device(device).type == "cuda" and backend(mesh) == "nccl"
+
+
 _warm: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def warm_up(mesh) -> None:
     """One tiny unrecorded all-gather over each mesh axis, once per mesh: NCCL
     creates a group's communicator at its first collective, which a CUDA
-    graph capture cannot hold, so the graphed paths call this first."""
+    graph capture cannot hold, so the graphed paths call this before their
+    first capture."""
     if mesh in _warm:
         return
     nccl = backend(mesh) == "nccl"

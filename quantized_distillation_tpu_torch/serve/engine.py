@@ -69,7 +69,7 @@ import torch
 from .._device import resolve_device
 from ..config import ServeConfig
 from ..kernels.topk_fused import KMAX, topk_sorted
-from ..parallel.comm import all_gather, warm_up
+from ..parallel.comm import all_gather, capturable, warm_up
 from ..parallel.mesh import DATA_AXIS, axis_index, axis_size
 from ..utils.graphs import CapturedStep, host_syncs_raise, signature
 from .beam import (
@@ -89,7 +89,7 @@ from .beam import (
     unroll_ring,
 )
 from .infer import check_whole_vocab, encode_packed, packed_decode_step, packed_decode_step_topk
-from .sharded import graphed, make_sharded_decode_step_topk
+from .sharded import make_sharded_decode_step_topk
 
 
 @dataclass
@@ -281,7 +281,7 @@ class TranslationEngine:
         self._one_step = one_step
         # every slot is inactive here, so the capture's warm-up step changes
         # nothing that extraction reads; a gloo mesh steps eagerly
-        on_graph = dev.type == "cuda" and (mesh is None or graphed(mesh, dev))
+        on_graph = dev.type == "cuda" and (mesh is None or capturable(mesh, dev))
         if on_graph and mesh is not None:
             warm_up(mesh)
         self._graph = CapturedStep(one_step) if on_graph else None

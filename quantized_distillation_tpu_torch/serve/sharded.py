@@ -41,8 +41,8 @@ from .._device import resolve_device
 from ..config import BeamConfig
 from ..kernels.packed import BUCKET, PackedLinear, pack_linear
 from ..kernels.topk_fused import KMAX, dequant_matmul_topk, topk_sorted
-from ..parallel.comm import all_gather, warm_up
-from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_index, axis_size, backend
+from ..parallel.comm import all_gather, capturable, warm_up
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_index, axis_size
 from ..utils.graphs import signature
 
 NEG_BIAS = -1e9
@@ -160,12 +160,6 @@ def make_sharded_decode_step_topk(dec, mesh, k: int, *, with_align: bool = False
     return step
 
 
-def graphed(mesh, dev: torch.device) -> bool:
-    """Whether a sharded path runs as a CUDA graph: on the card over NCCL,
-    whose collectives a graph can hold (gloo's go through the host)."""
-    return dev.type == "cuda" and backend(mesh) == "nccl"
-
-
 def beam_search_sharded(
     model,
     dec,
@@ -220,7 +214,7 @@ def beam_search_sharded(
     groups = tuple(mesh.get_group(axis) for axis in mesh.mesh_dim_names)
     key = ("beam_search_sharded", groups, signature(model), signature(dec), cfg,
            return_attention)
-    eager = _eager or not graphed(mesh, dev)
+    eager = _eager or not capturable(mesh, dev)
     if not eager:
         warm_up(mesh)
     return run_search(search, (src[d * bl:(d + 1) * bl], src_len[d * bl:(d + 1) * bl]), dev,

@@ -100,9 +100,19 @@ init reads the whole leaves. Only tasks built for it (``nmt_task``,
 ``lm_task``) take split parameters, and the teacher runs whole on every
 rank.
 
-A step with a ``mesh`` (data or tensor parallel) runs eagerly and never
-tries a capture. Holding its NCCL collectives inside the graph is later
-work; gloo's cannot be captured.
+A step with a ``mesh`` (data or tensor parallel) is graphed as the
+one-card step is, one CUDA graph per signature, when the mesh's group is
+NCCL's and the step runs on the card (``parallel.comm.capturable``): its
+collectives, the gradient all-reduce in ``grad_reduce_dtype`` and those
+the tensor-parallel operators issue in autograd's backward among them, are
+captured and replayed with the step's kernels, as the JAX package's mesh
+step is one ``jax.jit`` whatever its mesh. ``parallel.comm.warm_up``
+creates the communicators before the first capture, and the mesh's
+process groups are part of a signature, so a graph never outlives nor
+reuses another group's communicator. A gloo group's collectives go
+through the host and cannot be captured: such a step runs eagerly, by
+its backend, on the card as on the CPU. A failed capture on an NCCL mesh
+raises; nothing falls back to eager.
 """
 
 from __future__ import annotations
@@ -117,7 +127,7 @@ import torch
 
 from .._device import resolve_device
 from ..config import DistillSpec, QuantSpec, TrainConfig
-from ..parallel.comm import pmean, psum
+from ..parallel.comm import capturable, pmean, psum, warm_up
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_index, axis_size
 from ..parallel.tensor import ModelParallel
 from ..utils.graphs import CapturedStep, GraphCache, precision_key, signature
@@ -489,8 +499,12 @@ class TrainStep:
             mode, bits_map, mesh, reduce_dtype, mp)
         self.donate, self.device = donate, device
         self.data_index = None if mesh is None else axis_index(mesh, DATA_AXIS)
-        # a mesh step never captures (see the module docstring)
-        self.graphed = device.type == "cuda" and not eager and mesh is None
+        # a gloo mesh steps eagerly, by its backend (see the module docstring)
+        self.graphed = device.type == "cuda" and not eager and (
+            mesh is None or capturable(mesh, device))
+        # the key keeps the groups alive: a graph holds their communicators
+        self._groups = () if mesh is None else tuple(
+            mesh.get_group(axis) for axis in mesh.mesh_dim_names)
         self.captures = 0
         self._runs: OrderedDict = OrderedDict()
 
@@ -499,6 +513,8 @@ class TrainStep:
         if not self.graphed:
             self.body(run)
         elif run.graph is None:
+            if self.mesh is not None:
+                warm_up(self.mesh)  # the communicators, before any capture
             # the warm-up is this call's step; the capture only records
             run.graph = CapturedStep(lambda: self.body(run), counted_warmup=True,
                                      generators=run.generators)
@@ -519,7 +535,8 @@ class TrainStep:
             if k != "carry":  # the state's carry is the step's
                 t = torch.as_tensor(v)
                 host[k] = (t, torch.float32 if t.is_floating_point() else torch.int64)
-        key = (tuple((k, tuple(t.shape), dt) for k, (t, dt) in sorted(host.items())),
+        key = (self._groups,
+               tuple((k, tuple(t.shape), dt) for k, (t, dt) in sorted(host.items())),
                _tree_key(state.carry, False), precision_key(),
                tuple(_tree_key(t, self.donate) for t in _state_tensors(state)))
         run = self._runs.get(key)
@@ -655,7 +672,9 @@ def make_train_step(
     passing its own rows of the batch (``parallel.place_batch``); see the
     module docstring. ``grad_reduce_dtype`` (requires ``mesh``) carries the
     gradient all-reduce in that dtype (``preferred_grad_reduce_dtype``);
-    f32 when None. A step with a mesh runs eagerly.
+    f32 when None. A step with a mesh is one CUDA graph per signature,
+    collectives included, over an NCCL group on the card, and runs eagerly
+    over gloo.
 
     ``param_specs`` (requires ``mesh``; parameter name → partition spec,
     ``parallel.placed_pspecs`` of the whole parameters): the state's
