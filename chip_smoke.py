@@ -258,6 +258,25 @@ Phases, each printing one JSON line:
    (:func:`grid_fake_quant_launches`) and no other. One line per grid with
    its cells, wall seconds and the JAX package's own run beside it (from
    ``BASELINE.md``), and the ``contract_checks``, reported, not gated.
+20. graft: ``graft_entry.entry()`` (the flagship student_medium's 4-bit
+   STE forward, V = 8192, B = 8, 24 x 24) eager and as one CUDA graph
+   (``graft_entry.graphed_entry``): one fake-quant launch each, the graph
+   bit-equal to the eager call, the card's f32 logits within 1e-4 of a CPU
+   run of the same forward on the same weights; then
+   ``graft_entry.dryrun_multichip`` over NCCL at ``torch.cuda.device_count()``
+   ranks (one rank a card; the step and the search graphed; the preset's
+   dropout) and over gloo at 4 ranks sharing the card (mesh (2, 2), eager,
+   dropout 0), both projecting from phase 7's graphed 4-bit step median and
+   without the multi-process smoke (phase 18 runs that command): finite
+   losses, equal on every rank, one fake-quant launch a rank a KD step, the
+   toy student's search and decode step launching 2 dequant-matmul, 1
+   generator (and 1 advance) a step on every rank, each projection line
+   naming the card; each dry run held to the same one on the CPU (the
+   plain versions, the same seeded weights): every rank's search tokens
+   equal, its scores within 1e-4, and the gloo run's losses (f32 and
+   reduced gradient reduce) within 1e-4. One ``graft`` line: forward shape,
+   launches, loss per mesh, backend, card-vs-CPU differences, payloads,
+   efficiencies, budgets, card.
 
 TF32 is off for matmul and cuDNN throughout, so every
 f32 product on the card is a true f32 product, as on the CPU. The card-vs-CPU steps (phases
@@ -274,7 +293,9 @@ fake-quant row also holds its launches in the graphed legs of phases 7,
 each path of phases 13-15 and its
 launches, bucket counts and times in phase 17's drivers; every row its
 ``artifact_launches`` in phase 16's two searches from disk and its
-``quality_launches`` in each script of phase 19), then
+``quality_launches`` in each script of phase 19 and its ``graft_launches``
+in phase 20: the entry's eager and graphed calls, and each dry run's
+ranks), then
 the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. Weights are random, made from a seed. Imports nothing of JAX.
@@ -419,6 +440,7 @@ from quantized_distillation_tpu_torch.train.trainer import (
     quantized_params,
     trainable,
 )
+from quantized_distillation_tpu_torch import graft_entry
 from quantized_distillation_tpu_torch.scripts import accuracy_grid, topk_divergence
 from quantized_distillation_tpu_torch.utils.artifact import load_artifact, save_artifact
 from quantized_distillation_tpu_torch.utils.search_profile import device_profile, span_ms
@@ -511,10 +533,7 @@ def phase_device():
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False", file=sys.stderr)
         sys.exit(2)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+    smi = graft_entry.card_line()
     print(smi, flush=True)
     dev = {
         "platform": "gpu",
@@ -1365,8 +1384,10 @@ def step_breakdown(task, state, batch, quant, distill, tx, reps, mode: str = "we
     return {k: statistics.median(v[1:]) for k, v in times.items()}  # the first warms up
 
 
-def phase_train(checks, args, smi) -> dict:
-    """The full-width 4-bit STE KD train path (see the module docstring)."""
+def phase_train(checks, args, smi) -> tuple:
+    """The full-width 4-bit STE KD train path (see the module docstring) →
+    (the fake-quant kernel's row, the trained state, the graphed 4-bit
+    step's median seconds)."""
     dev = torch.device("cuda")
     quant, distill = QuantSpec(bits=args.bits), DistillSpec()
     cfg = TrainConfig(learning_rate=1e-3, clip_norm=5.0)
@@ -1431,7 +1452,7 @@ def phase_train(checks, args, smi) -> dict:
     legs = graph_legs(checks, "train", d_task, d_tx, d_state, batch, args.seed, args,
                       quant=quant, distill=distill, control=True)
     row["graph_launches"] = {"train": legs["launches"]["fake_quant_buckets"]}
-    return row, holder["state"]
+    return row, holder["state"], med_q
 
 
 def gather_backward_ms(points, w) -> dict:
@@ -3474,6 +3495,152 @@ def phase_quality(checks, smi) -> dict:
             "accuracy_grid": quality_grid(checks, smi)}
 
 
+# -------------------------------------------------------- graft entry (20)
+
+GRAFT_GLOO_RANKS = 4  # dryrun_multichip over gloo: mesh (2, 2), 4 ranks sharing the card
+
+
+def graft_dryrun(checks, label: str, n: int, step_seconds: float, dropout) -> dict:
+    """``graft_entry.dryrun_multichip(n)`` on the card (without the
+    multi-process smoke: phase 18 runs the same command) → its report (None
+    where it raised), with each rank's launches checked (one fake-quant a
+    KD step, the one-layer toy student's search: 2 dequant-matmul, 1
+    generator, 1 advance a step; and decode step) and its results held to
+    the same dry run on the CPU (:func:`graft_vs_cpu`)."""
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            report = graft_entry.dryrun_multichip(n, step_seconds=step_seconds, dropout=dropout,
+                                                  dcn_smoke=False)
+        report["seconds"] = time.perf_counter() - t0
+        report["vs_cpu"] = graft_vs_cpu(checks, label, report, dropout)
+    except Exception:  # recorded: the phase reports what else it can
+        checks.require(False, f"graft {label}: dryrun_multichip({n}) raised:\n"
+                              f"{traceback.format_exc()}\n{out.getvalue()}")
+        return None
+    report["dropout"] = dropout
+    report["lines"] = out.getvalue().splitlines()
+    steps = graft_entry.SEARCH.max_len
+    dm = SEQ2SEQ_PRESETS["student_small"]["num_layers"] + 1
+    want = {"f32": {"fake_quant_buckets": 1}, "reduced": {"fake_quant_buckets": 1},
+            "search": {"dequant_matmul": dm * steps, "dequant_matmul_topk": steps,
+                       "beam_advance": steps},
+            "decode_step": {"dequant_matmul": dm, "dequant_matmul_topk": 1}}
+    for r, launches in enumerate(report["launches"]):
+        checks.require(launches == want, f"graft {label} rank {r}: launches {launches}, "
+                                         f"expected {want}")
+    checks.require(report["backend"] == label, f"graft {label}: backend {report['backend']}")
+    nccl = report["backend"] == "nccl"
+    checks.require(report["graphed"] == [nccl] * n,
+                   f"graft {label}: graphed steps {report['graphed']} over {report['backend']}")
+    checks.require(all(math.isfinite(x) for xs in report["losses"].values() for x in xs),
+                   f"graft {label}: losses {report['losses']}")
+    proj = [line for line in report["lines"] if "1->2 host projection" in line]
+    checks.require(len(proj) == 4 and all(report["card"] in line for line in proj),
+                   f"graft {label}: projection lines {proj} do not name the card")
+    checks.require(not any("TPU" in line or "bench_flagship_train" in line
+                           for line in report["lines"]), f"graft {label}: a TPU figure printed")
+    return report
+
+
+def graft_vs_cpu(checks, label: str, report: dict, dropout) -> dict:
+    """The card's dry run against the same one on the CPU (gloo ranks,
+    every kernel's plain version, the same seeded weights): each rank's
+    search tokens equal and scores within ``F32_TOL`` (rtol = atol), and
+    at dropout 0 each rank's loss with the f32 and the reduced gradient
+    reduce too → the largest differences and the CPU run's seconds."""
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = graft_entry.dryrun_multichip(report["n"], device="cpu", dropout=dropout,
+                                           dcn_smoke=False)
+    pairs = list(zip(report["search"], cpu["search"]))
+    tokens_equal = all(np.array_equal(c["tokens"], h["tokens"]) for c, h in pairs)
+    checks.require(tokens_equal, f"graft {label}: the card's search tokens differ from the CPU's")
+    scores_ok = all(np.allclose(c["scores"], h["scores"], rtol=F32_TOL, atol=F32_TOL)
+                    for c, h in pairs)
+    score_err = max(float(np.abs(c["scores"] - h["scores"]).max()) for c, h in pairs)
+    checks.require(scores_ok, f"graft {label}: search scores card vs CPU max |diff| {score_err}")
+    out = {"tokens_equal": tokens_equal, "scores_max_abs": score_err}
+    if dropout == 0.0:  # with dropout the card's and the host's masks differ
+        losses = [(a, b) for key in ("f32", "reduced")
+                  for a, b in zip(report["losses"][key], cpu["losses"][key])]
+        checks.require(all(math.isclose(a, b, rel_tol=F32_TOL, abs_tol=F32_TOL)
+                           for a, b in losses),
+                       f"graft {label}: losses card vs CPU {losses}")
+        out["losses_max_abs"] = max(abs(a - b) for a, b in losses)
+    out["cpu_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_graft(checks, smi, step_seconds: float) -> dict:
+    """Phase 20: ``graft_entry.entry()`` eager and as a CUDA graph against
+    a CPU run of the same forward, then ``dryrun_multichip`` over NCCL (one
+    rank a card) and over gloo (4 ranks sharing the card), both projecting
+    from ``step_seconds`` (phase 7's graphed 4-bit step) → each kernel's
+    launches in the phase, by run."""
+    t0 = time.perf_counter()
+    fn, example = graft_entry.entry()
+    params, *inputs = example
+    zero_counts()
+    with torch.no_grad():
+        eager = fn(*example)
+    eager_launches = read_counts()
+    call = graft_entry.graphed_entry(fn, example)  # the capture counts nothing
+    zero_counts()
+    graphed = call(*params.values(), *inputs)[0]
+    graph_launches = read_counts()
+    cpu_fn, (_, *cpu_inputs) = graft_entry.entry(device="cpu")
+    with torch.no_grad():
+        cpu = cpu_fn({n: t.cpu() for n, t in params.items()}, *cpu_inputs)
+    err = float((eager.cpu() - cpu).abs().max())
+    one = expected(fake_quant_buckets=1)
+    checks.require(eager_launches == one and graph_launches == one,
+                   f"graft entry launches eager {eager_launches}, graph {graph_launches}, "
+                   f"expected {one}")
+    bit_equal = torch.equal(graphed, eager)
+    checks.require(bit_equal, "graft entry: the graphed forward is not bit-equal to the eager one")
+    checks.require(err <= F32_TOL, f"graft entry: card vs CPU max |diff| {err} > {F32_TOL}")
+    entry_s = time.perf_counter() - t0
+    shape = tuple(eager.shape)
+    del fn, example, params, inputs, eager, graphed, call, cpu_fn, cpu_inputs, cpu
+
+    # the NCCL run at the preset's dropout (the JAX function's call), the
+    # gloo one at 0 so that its losses hold to the CPU's too
+    runs = {"nccl": graft_dryrun(checks, "nccl", torch.cuda.device_count(), step_seconds, None),
+            "gloo": graft_dryrun(checks, "gloo", GRAFT_GLOO_RANKS, step_seconds, 0.0)}
+    done = {k: r for k, r in runs.items() if r is not None}
+    if "gloo" in done:
+        checks.require(done["gloo"]["mesh"] == {"data": 2, "model": 2},
+                       f"graft gloo: mesh {done['gloo']['mesh']}")
+    emit({"phase": "graft", "entry": {"shape": shape, "dtype": "float32",
+                                      "launches_eager": eager_launches["fake_quant_buckets"],
+                                      "launches_graph": graph_launches["fake_quant_buckets"],
+                                      "graph_bit_equal_eager": bit_equal, "card_vs_cpu_max_abs": err,
+                                      "seconds": entry_s},
+          "dryrun": {k: {key: r[key] for key in ("n", "mesh", "backend", "rule", "dropout", "loss",
+                                                  "losses", "graphed", "vs_cpu", "payloads",
+                                                  "projection", "step_seconds", "seconds")}
+                     for k, r in done.items()},
+          "budgets": {k: {key: budget_summary(b) for key, b in r["budgets"].items()}
+                      for k, r in done.items()},
+          "card": smi})
+    out = {}
+    for name in LAUNCH_COUNTERS:
+        out[name] = {"entry_eager": eager_launches[name], "entry_graph": graph_launches[name],
+                     **{k: [sum(stage.get(name, 0) for stage in rank.values())
+                            for rank in r["launches"]] for k, r in done.items()}}
+    return out
+
+
+def budget_summary(budget) -> dict:
+    """Wire bytes by axis and collectives by kind of a ``CommBudget``."""
+    kinds = {}
+    for op in budget.ops:
+        kinds[f"{op.kind}@{op.axis}"] = kinds.get(f"{op.kind}@{op.axis}", 0) + 1
+    return {"wire_bytes_by_axis": budget.bytes_by_axis(), "collectives": kinds}
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", default="student_medium")
@@ -3521,7 +3688,7 @@ def main(argv=None) -> int:
         row["launches"] = launches[row["name"]]
         row["engine_chunk_launches"] = engine_launches[row["name"]]
     del dec
-    fq_row, train_state = phase_train(checks, args, smi)
+    fq_row, train_state, train_step_s = phase_train(checks, args, smi)
     table.append(fq_row)
 
     books = phase_codebook_train(checks, args, smi)
@@ -3559,6 +3726,9 @@ def main(argv=None) -> int:
     for row in table:
         row["quality_launches"] = {script: counts[row["name"]]
                                    for script, counts in quality.items()}
+    graft = phase_graft(checks, smi, train_step_s)
+    for row in table:
+        row["graft_launches"] = graft[row["name"]]
     if checks.failed:
         print(f"{len(checks.failed)} check(s) failed", file=sys.stderr)
         return 1

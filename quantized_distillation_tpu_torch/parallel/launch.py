@@ -120,6 +120,15 @@ def rank_device(device, local_rank: int) -> torch.device:
     return dev
 
 
+def local_backend(device, local_ranks: int) -> str:
+    """The backend of ``local_ranks`` ranks on one host with their tensors
+    on ``device``: NCCL where every local rank has a card of its own (NCCL
+    takes one rank a card), else gloo, the ranks sharing the cards and
+    their collectives going through the host."""
+    cuda = torch.device(device).type == "cuda" and torch.cuda.is_available()
+    return "nccl" if cuda and torch.cuda.device_count() >= local_ranks else "gloo"
+
+
 def env_rank() -> Optional[tuple]:
     """``(rank, world_size, local_rank, local_world_size)`` from
     ``torchrun``'s environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,

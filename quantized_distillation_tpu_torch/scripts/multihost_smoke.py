@@ -39,17 +39,18 @@ from __future__ import annotations
 import argparse
 import sys
 from datetime import timedelta
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..config import DistillSpec, QuantSpec, TrainConfig
-from ..convert import params_to_numpy
+from ..convert import params_from_numpy, params_to_numpy
 from ..models import make_seq2seq
 from ..parallel import make_mesh, place_batch, place_params_seq2seq, placed_pspecs
 from ..parallel.comm import all_gather, psum
-from ..parallel.launch import env_rank, rank_device, run_node, run_ranks
+from ..parallel.launch import env_rank, local_backend, rank_device, run_node, run_ranks
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_index, axis_size
 from ..serve import (
     encode_packed,
@@ -65,6 +66,8 @@ from .comm_budget import kd_batch
 MODEL = 2  # ranks per data group, JAX's devices per process
 KBEAM, DECODE_STEPS = 2, 4
 TIMEOUT = 300.0  # seconds a collective may wait
+TOY_VOCAB, TOY_HIDDEN, TOY_EMBED, TOY_LEN = 64, 32, 32, 6
+QUANT = QuantSpec(bits=4)
 
 
 def parse_args(argv=None):
@@ -76,6 +79,45 @@ def parse_args(argv=None):
     ap.add_argument("--master-addr", default="localhost")
     ap.add_argument("--master-port", type=int, default=0, help="0: a free port (one node)")
     return ap.parse_args(argv)
+
+
+def toy_setup(mesh, dev, batch: int, *, dropout=None, params=None) -> SimpleNamespace:
+    """The toy KD workload of the mesh smokes on ``dev``: the
+    ``student_small`` student (V 64, hidden 32, embed 32) and its hidden-64
+    teacher, seeded or loaded from ``params`` (``{"student": tree,
+    "teacher": tree}`` of numpy arrays in the flax layout), ``dropout``
+    None the preset's; the ``batch`` x 6 KD batch placed over ``data``; the
+    student's 4-bit packed decoder (f32 compute) and its shards over
+    ``mesh``; and ``train_step(grad_reduce_dtype)`` → a fresh 4-bit train
+    state on a copy of the placed shards (the student's own weights stay as
+    they are) and the tensor- and data-parallel KD step (Adam 1e-3, clip
+    5)."""
+    drop = {} if dropout is None else {"dropout": dropout}
+    student = make_seq2seq("student_small", TOY_VOCAB, TOY_VOCAB, hidden=TOY_HIDDEN,
+                           embed_dim=TOY_EMBED, device=dev, seed=0, **drop)
+    teacher = make_seq2seq("student_small", TOY_VOCAB, TOY_VOCAB, hidden=2 * TOY_HIDDEN,
+                           embed_dim=TOY_EMBED, device=dev, seed=1, **drop)
+    if params is not None:
+        student.load_params(params_from_numpy(params["student"]))
+        teacher.load_params(params_from_numpy(params["teacher"]))
+    whole = dict(student.named_parameters())
+    specs = placed_pspecs(whole, mesh)
+    tx = build_optimizer(TrainConfig(learning_rate=1e-3, clip_norm=5.0))
+    task = nmt_task(student, teacher, device=dev)
+    host = params_to_numpy(student)
+    dec = pack_decoder(host, student.cfg, 4, compute_dtype=torch.float32, device=dev)
+    sdec = shard_decoder(dec, mesh, host["generator"]["kernel"], host["generator"]["bias"])
+
+    def train_step(grad_reduce_dtype=None):
+        local = {n: x.clone() for n, x in place_params_seq2seq(whole, mesh, device=dev).items()}
+        state = create_train_state(local, tx, quant=QUANT, device=dev)
+        step = make_train_step(task, tx, quant=QUANT, distill=DistillSpec(), mesh=mesh,
+                               param_specs=specs, grad_reduce_dtype=grad_reduce_dtype,
+                               device=dev)
+        return state, step
+
+    return SimpleNamespace(student=student, dec=dec, sdec=sdec, train_step=train_step,
+                           batch=place_batch(kd_batch(batch, TOY_LEN), mesh, device=dev))
 
 
 def worker(rank: int, world: int, spec: dict) -> str:
@@ -92,20 +134,10 @@ def worker(rank: int, world: int, spec: dict) -> str:
         raise AssertionError(f"psum {float(total)} != {expect}")
 
     # 2. one tensor- and data-parallel fake-quant KD step (tiny shapes)
-    vocab, hidden, b, t = 64, 32, 2 * nprocs, 6
-    student = make_seq2seq("student_small", vocab, vocab, hidden=hidden, embed_dim=32,
-                           device=dev, seed=0)
-    teacher = make_seq2seq("student_small", vocab, vocab, hidden=2 * hidden, embed_dim=32,
-                           device=dev, seed=1)
-    whole = dict(student.named_parameters())
-    specs = placed_pspecs(whole, mesh)
-    quant = QuantSpec(bits=4)
-    tx = build_optimizer(TrainConfig(learning_rate=1e-3, clip_norm=5.0))
-    state = create_train_state(place_params_seq2seq(whole, mesh, device=dev), tx, quant=quant,
-                               device=dev)
-    step = make_train_step(nmt_task(student, teacher, device=dev), tx, quant=quant,
-                           distill=DistillSpec(), mesh=mesh, param_specs=specs, device=dev)
-    state, metrics = step(state, place_batch(kd_batch(b, t), mesh, device=dev), 0)
+    b, t = 2 * nprocs, TOY_LEN
+    toy = toy_setup(mesh, dev, b)
+    state, step = toy.train_step()
+    state, metrics = step(state, toy.batch, 0)
     loss = float(metrics["loss"])
     losses = all_gather(metrics["loss"].reshape(1), mesh, DATA_AXIS)
     if not np.isfinite(loss) or not bool((all_gather(losses, mesh, MODEL_AXIS) == loss).all()):
@@ -113,10 +145,8 @@ def worker(rank: int, world: int, spec: dict) -> str:
 
     # 3. sharded serving decode: vocab over model, sentence x beam rows over
     # data; each rank's rows against the one-process packed step
-    params = params_to_numpy(student)
-    dec = pack_decoder(params, student.cfg, 4, compute_dtype=torch.float32, device=dev)
-    sdec = shard_decoder(dec, mesh, params["generator"]["kernel"], params["generator"]["bias"])
-    src = torch.from_numpy(np.random.default_rng(7).integers(3, vocab, (b, t))).to(dev)
+    student, dec, sdec = toy.student, toy.dec, toy.sdec
+    src = torch.from_numpy(np.random.default_rng(7).integers(3, TOY_VOCAB, (b, t))).to(dev)
     sl = torch.full((b,), t, device=dev)
     dp, d = axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS)
     bl = b // dp
@@ -144,19 +174,13 @@ def worker(rank: int, world: int, spec: dict) -> str:
             f"(rows {b * KBEAM} over data, vocab-TP {MODEL})")
 
 
-def _backend(args, local_ranks: int) -> str:
-    """NCCL where every local rank has a card of its own, else gloo."""
-    cuda = torch.device(args.device).type == "cuda" and torch.cuda.is_available()
-    return "nccl" if cuda and torch.cuda.device_count() >= local_ranks else "gloo"
-
-
 def main(argv=None) -> int:
     args = parse_args(argv)
     spec = {"device": args.device}
     env = env_rank()
     if env is not None:  # torchrun: this process is one rank
         rank, world, spec["local_rank"], local_world = env
-        dist.init_process_group(_backend(args, local_world), init_method="env://",
+        dist.init_process_group(local_backend(args.device, local_world), init_method="env://",
                                 timeout=timedelta(seconds=TIMEOUT))
         try:
             # one write: the ranks share the output stream
@@ -169,7 +193,7 @@ def main(argv=None) -> int:
         return 0
     world = MODEL * args.procs
     local = world // args.nnodes
-    backend = _backend(args, local)
+    backend = local_backend(args.device, local)
     if args.nnodes == 1 and not args.master_port:
         lines = run_ranks(worker, world, args=(spec,), backend=backend, timeout=TIMEOUT,
                           join_timeout=3 * TIMEOUT)

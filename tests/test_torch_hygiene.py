@@ -39,6 +39,7 @@ def test_port_and_chip_smoke_load_no_jax():
     assert "quantized_distillation_tpu_torch.serve.infer" in out
     assert "quantized_distillation_tpu_torch.train.trainer" in out
     assert "quantized_distillation_tpu_torch.utils.metrics" in out
+    assert "quantized_distillation_tpu_torch.graft_entry" in out
     assert "chip_smoke" in out
     assert [m for m in out if _forbidden(m)] == []
 
@@ -112,3 +113,16 @@ def test_train_entry_points_default_to_the_card():
             call()
     make_train_step(task, tx, device="cpu")
     make_eval_step(task, device="cpu")
+
+
+def test_graft_entry_points_default_to_the_card():
+    from quantized_distillation_tpu_torch import graft_entry
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present, so the default device works")
+    with pytest.raises(RuntimeError, match="cuda"):
+        graft_entry.entry()
+    with pytest.raises(RuntimeError, match="cuda"):
+        graft_entry.dryrun_multichip(1)
+    with pytest.raises(RuntimeError, match="cuda"):
+        graft_entry.main([])
