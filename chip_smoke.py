@@ -276,7 +276,24 @@ Phases, each printing one JSON line:
    equal, its scores within 1e-4, and the gloo run's losses (f32 and
    reduced gradient reduce) within 1e-4. One ``graft`` line: forward shape,
    launches, loss per mesh, backend, card-vs-CPU differences, payloads,
-   efficiencies, budgets, card.
+   efficiencies, budgets, card;
+21. bench: ``quantized_distillation_tpu_torch.bench.main`` in this process
+   at full width with short chains (``--lo 1 --hi 2 --trials 1``): serving,
+   ``--engine`` and ``--train --family seq2seq|wrn|lm``, each line with
+   ``bench.py``'s keys (in its order) and finite, positive values; the
+   launches of each run: 3 dequant-matmul, 1 generator and 1 advance a
+   packed search step and nothing else in serving (so none in the FP32
+   leg), the same 3 / 1 / 1 ratio in the engine, one fake-quant launch a
+   4-bit train step and nothing else in training; the flagship record
+   (``bench_flagship_train_torch.json``) written with ``bench.py``'s keys
+   and the card; the bench's own loops: a chain of 3 packed searches
+   launches 3 x (72 / 24 / 24), a chain of 2 dense FP32 searches none, and
+   each leg's device ms a search (CUDA events around one replay); last
+   ``kernels.topk_fused.topk_sorted``, the dense search's top-k, at its
+   shape ([B, K * V] = [256, 160000]) on rows with injected ties, -inf runs
+   and ±0, indices and values equal to ``torch.sort(stable=True)``'s, and
+   its device ms against the sort's and one ``torch.topk``'s (CUDA graphs
+   of 20 calls).
 
 TF32 is off for matmul and cuDNN throughout, so every
 f32 product on the card is a true f32 product, as on the CPU. The card-vs-CPU steps (phases
@@ -293,9 +310,9 @@ fake-quant row also holds its launches in the graphed legs of phases 7,
 each path of phases 13-15 and its
 launches, bucket counts and times in phase 17's drivers; every row its
 ``artifact_launches`` in phase 16's two searches from disk and its
-``quality_launches`` in each script of phase 19 and its ``graft_launches``
+``quality_launches`` in each script of phase 19, its ``graft_launches``
 in phase 20: the entry's eager and graphed calls, and each dry run's
-ranks), then
+ranks, and its ``bench_launches`` in each run of phase 21), then
 the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. Weights are random, made from a seed. Imports nothing of JAX.
@@ -306,6 +323,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import itertools
 import json
@@ -440,7 +458,8 @@ from quantized_distillation_tpu_torch.train.trainer import (
     quantized_params,
     trainable,
 )
-from quantized_distillation_tpu_torch import graft_entry
+from quantized_distillation_tpu_torch import bench, graft_entry
+from quantized_distillation_tpu_torch.kernels.topk_fused import topk_sorted
 from quantized_distillation_tpu_torch.scripts import accuracy_grid, topk_divergence
 from quantized_distillation_tpu_torch.utils.artifact import load_artifact, save_artifact
 from quantized_distillation_tpu_torch.utils.search_profile import device_profile, span_ms
@@ -3633,6 +3652,129 @@ def phase_graft(checks, smi, step_seconds: float) -> dict:
     return out
 
 
+# ------------------------------------------------------------- bench (21)
+
+BENCH_CHAINS = ["--lo", "1", "--hi", "2", "--trials", "1"]
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]  # bench.py:18
+BENCH_ENGINE_KEYS = BENCH_KEYS + [  # bench.py:423-448
+    "offline_same_process_tokens_per_s", "vs_offline_same_process", "occupancy_at_0.9_load",
+    "steady_state_occupancy", "offered_load", "arrival", "stage_ahead", "requests_churned",
+    "idle_frac_queue_empty", "idle_frac_midchunk_est"]
+FLAGSHIP_KEYS = ["workload", "device", "card", "train_step_seconds", "fp32_step_seconds",
+                 "grad_payload_f32_bytes", "written_by", "timestamp"]  # bench.py:226-236 + card
+BENCH_RUNS = {"serve": [], "engine": ["--engine"],
+              **{f"train_{f}": ["--train", "--family", f] for f in ("seq2seq", "wrn", "lm")}}
+
+
+def bench_run(checks, label: str, flags, units: int, step_launches: dict) -> dict:
+    """``bench.main(BENCH_CHAINS + flags)`` → its line, wall seconds and
+    launches, with the line's keys and values checked and the launches
+    held to ``units`` (the 4-bit or packed units the run chains) times
+    ``step_launches`` (the engine: its 3 / 1 / 1 ratio)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            line = bench.main(BENCH_CHAINS + flags)
+    except Exception:  # recorded: the phase reports what else it can
+        checks.require(False, f"bench {label}: raised\n{traceback.format_exc()}")
+        return {"line": None, "launches": {}}
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    keys, positive = BENCH_KEYS, ["value", "vs_baseline"]
+    if label == "engine":  # vs_baseline is null without --offline-tok-s
+        keys, positive = BENCH_ENGINE_KEYS, ["value", "offline_same_process_tokens_per_s",
+                                             "vs_offline_same_process", "occupancy_at_0.9_load",
+                                             "steady_state_occupancy"]
+    checks.require(list(line) == keys, f"bench {label}: keys {list(line)}, expected {keys}")
+    values = {k: line.get(k) for k in positive}
+    checks.require(all(isinstance(v, float) and math.isfinite(v) and v > 0
+                       for v in values.values()),
+                   f"bench {label}: values {values} not finite and positive")
+    if label == "engine":
+        k = launches["dequant_matmul_topk"]
+        want = expected(dequant_matmul=3 * k, dequant_matmul_topk=k, beam_advance=k)
+        checks.require(k > 0 and launches == want,
+                       f"bench engine launches {launches}: not 3 / 1 / 1 a step")
+    else:
+        want = expected(**{n: units * c for n, c in step_launches.items()})
+        checks.require(launches == want, f"bench {label} launches {launches}, expected {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"line": line, "seconds": wall, "launches": launches}
+
+
+def bench_topk(checks, rows: int, width: int, k: int) -> dict:
+    """``topk_sorted`` on the card at [rows, width] with ties, -inf runs and
+    ±0 against ``torch.sort(stable=True)``, and its device ms against the
+    sort's and one ``torch.topk``'s."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.round(torch.randn(rows, width, device="cuda", generator=gen) * 8) / 8  # ties
+    x[0] = -math.inf
+    x[1, : width // 2] = -math.inf
+    x[2] = torch.where(x[2] > 0, 0.0, -0.0)  # ±0 only
+    x[3, ::7] = x[3].max()  # the row's largest value many times over
+    sort_v, sort_i = torch.sort(x, dim=-1, descending=True, stable=True)
+    with torch.no_grad():
+        v, i = topk_sorted(x, k)
+    idx_equal = torch.equal(i, sort_i[:, :k])
+    val_equal = torch.equal(v.view(torch.int32), sort_v[:, :k].contiguous().view(torch.int32))
+    checks.require(idx_equal and val_equal,
+                   f"topk_sorted at [{rows}, {width}] differs from the stable sort "
+                   f"(indices equal {idx_equal}, values {val_equal})")
+    ms = graph_ms(lambda: topk_sorted(x, k))
+    sort_ms = graph_ms(lambda: torch.sort(x, dim=-1, descending=True, stable=True))
+    library_ms = graph_ms(lambda: torch.topk(x, k, dim=-1))
+    read_ms, _ = bound(0, x.numel() * x.element_size())
+    return {"shape": [rows, width], "k": k, "indices_equal": idx_equal, "values_equal": val_equal,
+            "ms": ms, "stable_sort_ms": sort_ms, "torch_topk_ms": library_ms,
+            "bound_ms_read_once": read_ms}
+
+
+def phase_bench(checks, args, smi) -> dict:
+    """Phase 21 (see the module docstring) → each run's launches."""
+    t0 = time.perf_counter()
+    steps = args.src_len
+    search = {"dequant_matmul": 3 * steps, "dequant_matmul_topk": steps, "beam_advance": steps}
+    ns = bench.parse_args(BENCH_CHAINS)
+    units = (ns.lo + ns.hi) * (1 + ns.trials)  # warm-up chains, then each trial's
+    runs = {}
+    for label, flags in BENCH_RUNS.items():
+        per_unit = search if label == "serve" else {"fake_quant_buckets": 1}
+        runs[label] = bench_run(checks, label, flags, units, per_unit)
+    record = None
+    if bench.FLAGSHIP_FILE.exists():
+        record = json.loads(bench.FLAGSHIP_FILE.read_text())
+    checks.require(record is not None and list(record) == FLAGSHIP_KEYS
+                   and record["card"] == smi and record["train_step_seconds"] > 0,
+                   f"bench flagship record {record}")
+
+    # the bench's own serving loops: launches of one chain, device ms a search
+    fp_loop, q_loop = bench.build(bench.parse_args([]))
+    loops = {}
+    for name, loop, n, per_search in (("packed", q_loop, 3, search), ("dense_fp32", fp_loop, 2,
+                                                                        {})):
+        float(loop(1))  # captures the search's graph
+        zero_counts()
+        float(loop(n))
+        launches = read_counts()
+        want = expected(**{c: n * m for c, m in per_search.items()})
+        checks.require(launches == want, f"bench {name} chain of {n}: launches {launches}, "
+                                         f"expected {want}")
+        loops[name] = {"chain": n, "launches": launches,
+                       "device_ms_a_search": span_ms(lambda: loop(1))}
+    del fp_loop, q_loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    topk = bench_topk(checks, args.batch, args.beam * args.vocab, args.beam)
+    emit({"phase": "bench", "flags": BENCH_CHAINS,
+          "runs": {label: {"line": r["line"], "seconds": r.get("seconds"),
+                           "launches": r["launches"]} for label, r in runs.items()},
+          "flagship_record": record, "loops": loops, "topk_sorted": topk,
+          "seconds": time.perf_counter() - t0, "card": smi})
+    return {label: r["launches"] for label, r in runs.items()}
+
+
 def budget_summary(budget) -> dict:
     """Wire bytes by axis and collectives by kind of a ``CommBudget``."""
     kinds = {}
@@ -3729,6 +3871,10 @@ def main(argv=None) -> int:
     graft = phase_graft(checks, smi, train_step_s)
     for row in table:
         row["graft_launches"] = graft[row["name"]]
+    bench_launches = phase_bench(checks, args, smi)
+    for row in table:
+        row["bench_launches"] = {run: counts.get(row["name"], 0)
+                                 for run, counts in bench_launches.items()}
     if checks.failed:
         print(f"{len(checks.failed)} check(s) failed", file=sys.stderr)
         return 1

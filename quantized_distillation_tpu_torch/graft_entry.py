@@ -28,9 +28,12 @@ exact gradient payload of ``student_medium`` at V = 32000 from the port's
 own parameter shapes (pure data parallel, and with the leaves that
 ``seq2seq_pspecs`` splits over ``model`` carrying 1/model of their bytes)
 over an assumed 25 GB/s link, against a step time measured on the card
-(``--measure-step``: :func:`measure_flagship_step`; or ``step_seconds``).
-Without a step time it prints the payloads and "step not measured". Last it
-runs ``scripts.multihost_smoke --procs 2`` as a subprocess.
+(``--measure-step``: :func:`measure_flagship_step`; ``--step-from PATH``:
+the 4-bit step of the record ``bench --train --family seq2seq`` writes,
+``bench_flagship_train_torch.json``, read by :func:`read_step`; or
+``step_seconds``). Without a step time it prints the payloads and "step not
+measured". Last it runs ``scripts.multihost_smoke --procs 2`` as a
+subprocess.
 
 Backend: NCCL with one rank a card where ``n`` is at most the cards
 PyTorch sees, else gloo with the ranks sharing the cards (collectives
@@ -38,6 +41,7 @@ through the host); gloo on ``device="cpu"``. A rank that fails, a check
 that fails and a smoke that exits non-zero fail the call.
 
     python -m quantized_distillation_tpu_torch.graft_entry --measure-step
+    python -m quantized_distillation_tpu_torch.graft_entry --step-from bench_flagship_train_torch.json
     python -m quantized_distillation_tpu_torch.graft_entry --device cpu --n 8
 """
 
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import json
 import math
 import os
 import statistics
@@ -86,6 +91,7 @@ from .train import (
     preferred_grad_reduce_dtype,
 )
 from .utils.graphs import CapturedCall
+from .utils.profiling import card_line
 
 ENTRY_VOCAB, ENTRY_B, ENTRY_LEN = 8192, 8, 24
 FLAGSHIP_VOCAB, FLAGSHIP_B, FLAGSHIP_LEN = 32000, 128, 24  # scripts.comm_budget's shape
@@ -127,14 +133,6 @@ def graphed_entry(fn, example_args) -> CapturedCall:
         return (fn(dict(zip(names, tensors[:len(names)])), *tensors[len(names):]),)
 
     return CapturedCall(flat, list(params.values()) + inputs)
-
-
-def card_line() -> str:
-    """The card's name and power limit as ``nvidia-smi`` prints them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def measure_flagship_step(*, device="cuda", reps: int = 5) -> float:
@@ -238,19 +236,38 @@ def flagship_payloads(model_par: int) -> dict:
             f"f32, tp={model_par} sharded": tp, f"bf16, tp={model_par} sharded": tp // 2}
 
 
-def projection(payloads: dict, step_seconds: Optional[float], card: str) -> dict:
+def read_step(path) -> dict:
+    """The flagship record that ``bench --train --family seq2seq`` writes
+    (``bench.FLAGSHIP_FILE``); raises unless it holds a positive, finite
+    ``train_step_seconds``."""
+    with open(path) as f:
+        record = json.load(f)
+    step = record.get("train_step_seconds")
+    if not isinstance(step, (int, float)) or not math.isfinite(step) or step <= 0:
+        raise ValueError(f"{path}: no positive train_step_seconds ({step!r})")
+    return record
+
+
+def projection(payloads: dict, step_seconds: Optional[float], card: str,
+               record: Optional[dict] = None) -> dict:
     """Print the flagship 1 → 2 host projection of each payload → name →
     ``{"payload_bytes", "serialized", "overlapped"}`` (efficiencies None
     without a step time). Ring all-reduce over 2 hosts sends the payload
-    once a host."""
+    once a host. ``record`` (:func:`read_step`'s) says where the step was
+    measured, in place of this run's ``card`` and the
+    :func:`measure_flagship_step` shape."""
+    if record is not None:
+        card = record["card"]
+        what = f"{record['workload']}, written by {record['written_by']}"
+    else:
+        what = (f"the graphed 4-bit KD step at teacher 2x500 -> student_medium, V "
+                f"{FLAGSHIP_VOCAB}, B {FLAGSHIP_B}, L {FLAGSHIP_LEN}")
     if step_seconds is None:
         print("  flagship step provenance: step not measured (run with --measure-step or "
               "pass step_seconds): payloads only, no efficiency")
     else:
-        print(f"  flagship step provenance: {step_seconds * 1e3:.3f} ms, the graphed 4-bit KD "
-              f"step at teacher 2x500 -> student_medium, V {FLAGSHIP_VOCAB}, B {FLAGSHIP_B}, "
-              f"L {FLAGSHIP_LEN}, measured on {card}; link {LINK_BYTES_PER_S / 1e9:.0f} GB/s "
-              "assumed, not measured")
+        print(f"  flagship step provenance: {step_seconds * 1e3:.3f} ms, {what}, measured on "
+              f"{card}; link {LINK_BYTES_PER_S / 1e9:.0f} GB/s assumed, not measured")
     out = {}
     for name, payload in payloads.items():
         budget = CommBudget([CollectiveOp("all-reduce", payload, DATA_AXIS, 2)])
@@ -297,6 +314,7 @@ def dryrun_multichip(
     dropout: Optional[float] = None,
     params: Optional[dict] = None,
     step_seconds: Optional[float] = None,
+    step_record: Optional[dict] = None,
     dcn_smoke: bool = True,
 ) -> dict:
     """One sharded KD step, its budgets, the flagship projection, the
@@ -310,7 +328,8 @@ def dryrun_multichip(
     (the smoke's last line, or None). ``dropout`` None is the preset's
     (0.3); ``params`` (``{"student": tree, "teacher": tree}`` of numpy
     arrays in the flax layout) replaces the seeded weights; ``step_seconds``
-    is the flagship step measured on the card."""
+    is the flagship step measured on the card, ``step_record`` the record it
+    was read from (:func:`read_step`), if any."""
     resolve_device(device)
     dev_type = torch.device(device).type
     n = int(n_devices)
@@ -348,7 +367,7 @@ def dryrun_multichip(
     print(format_budget(budgets["reduced"]))
     card = card_line() if dev_type == "cuda" else "no card (device cpu)"
     payloads = flagship_payloads(model_par)
-    proj = projection(payloads, step_seconds, card)
+    proj = projection(payloads, step_seconds, card, step_record)
     toy = scaling_estimate(budgets["f32"], 1.0, hosts=2)["dcn_bytes_per_step"]
     print(f"  toy-shapes data-axis wire at 2 hosts: {toy / 1e6:.3f}MB/step (no step time at "
           "these shapes: no efficiency)")
@@ -396,6 +415,10 @@ def parse_args(argv=None):
                       help="the flagship 4-bit KD step, measured on the card")
     step.add_argument("--measure-step", action="store_true",
                       help="measure the flagship step on the card first")
+    step.add_argument("--step-from", default=None, metavar="PATH",
+                      help="the flagship step from the record that `python -m "
+                      "quantized_distillation_tpu_torch.bench --train --family seq2seq` writes "
+                      "(bench_flagship_train_torch.json)")
     return ap.parse_args(argv)
 
 
@@ -411,11 +434,14 @@ def main(argv=None) -> int:
         print("entry forward (CUDA graph):", tuple(graphed.shape), graphed.dtype,
               "bit-equal to eager:", torch.equal(graphed, out))
     del fn, example, out
-    step_seconds = args.step_seconds
+    step_seconds, record = args.step_seconds, None
     if args.measure_step:
         step_seconds = measure_flagship_step(device=dev)
+    elif args.step_from:
+        record = read_step(args.step_from)
+        step_seconds = record["train_step_seconds"]
     n = args.n or (torch.cuda.device_count() if dev.type == "cuda" else 8)
-    dryrun_multichip(n, device=dev.type, step_seconds=step_seconds)
+    dryrun_multichip(n, device=dev.type, step_seconds=step_seconds, step_record=record)
     return 0
 
 

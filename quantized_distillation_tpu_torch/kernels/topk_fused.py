@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Tuple
 
 import torch
@@ -49,10 +50,26 @@ _PLAN_KEYS = ("BM", "BN", "stages", "tiles_per_split", "splits", "blocks", "smem
 
 def topk_sorted(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k along the last dim in ``jax.lax.top_k``'s order: values
-    descending, equal values by ascending index (a stable descending sort;
-    bare ``torch.topk`` does not keep that order)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    descending, equal values by ascending index (what a stable descending
+    sort of the row gives; NaN ranks first, -0.0 equals +0.0), without
+    sorting the row: k rounds of ``argmax``, which returns the lowest index
+    of the row's largest value (NaN counting as largest), each taking its
+    pick out of a copy of the rows by writing -inf there. Once only -inf is
+    left, a taken entry would look like an untaken one, so the lowest-index
+    untaken -inf entry comes from a mask of the row's -inf entries."""
+    k = min(k, x.shape[-1])
+    left = x.to(torch.float32, copy=True)
+    neg_inf = (x == -math.inf).view(torch.uint8)  # the -inf entries not yet taken
+    picks = []
+    for _ in range(k):
+        pick = left.argmax(dim=-1, keepdim=True)
+        first_neg_inf = neg_inf.argmax(dim=-1, keepdim=True)
+        pick = torch.where(left.gather(-1, pick) == -math.inf, first_neg_inf, pick)
+        left.scatter_(-1, pick, -math.inf)
+        neg_inf.scatter_(-1, pick, 0)
+        picks.append(pick)
+    pos = torch.cat(picks, dim=-1)
+    return x.gather(-1, pos), pos
 
 
 def pick_generator_group(

@@ -17,6 +17,7 @@ from __future__ import annotations
 import contextlib
 import os
 import statistics
+import subprocess
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -39,6 +40,15 @@ def detect_chip(device="cuda") -> str:
     if dev.type != "cuda":
         raise ValueError(f"detect_chip needs a CUDA device, not {device!r}")
     return torch.cuda.get_device_properties(dev).name
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def peaks(chip: str) -> Dict[str, float]:

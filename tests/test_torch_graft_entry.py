@@ -33,6 +33,7 @@ graph bit-equal to its eager call with one fake-quant launch each, and
 import contextlib
 import dataclasses
 import io
+import json
 
 import numpy as np
 import pytest
@@ -262,6 +263,39 @@ def test_smoke_and_projection_without_a_step(dry):
     assert any("step not measured" in line and "provenance" in line for line in lines)
     text = "\n".join(lines)
     assert "bench_flagship_train" not in text and "TPU" not in text
+
+
+def test_step_from_the_port_bench_record(tmp_path, capsys):
+    """``--step-from``: the 4-bit step of the record the port bench writes,
+    and the card and workload it names, not this run's."""
+    from quantized_distillation_tpu_torch import bench
+
+    record = {"workload": "wmt13_kd_4bit_ste_train (teacher 2x500 -> student_medium, B=256, "
+                          "L=24, V=32000)", "device": "a card", "card": "a card, 650.00 W",
+              "train_step_seconds": 0.05, "fp32_step_seconds": 0.06,
+              "grad_payload_f32_bytes": 1, "written_by": "python -m "
+              "quantized_distillation_tpu_torch.bench --train --family seq2seq",
+              "timestamp": "now"}
+    path = tmp_path / bench.FLAGSHIP_FILE.name
+    path.write_text(json.dumps(record))
+    args = graft_entry.parse_args(["--step-from", str(path)])
+    assert graft_entry.read_step(args.step_from) == record
+    rows = graft_entry.projection({"f32, pure-DP upper bound": 100_000_000}, 0.05,
+                                  "this run's card", graft_entry.read_step(path))
+    assert rows["f32, pure-DP upper bound"]["serialized"] is not None
+    out = capsys.readouterr().out
+    assert "50.000 ms" in out and "B=256" in out and "bench --train --family seq2seq" in out
+    assert "a card, 650.00 W" in out and "this run's card" not in out
+    with pytest.raises(SystemExit):
+        graft_entry.parse_args(["--step-from", str(path), "--measure-step"])
+
+
+@pytest.mark.parametrize("step", [None, 0.0, -1.0, float("nan"), "0.05"])
+def test_step_from_refuses_a_record_without_a_step(tmp_path, step):
+    path = tmp_path / "record.json"
+    path.write_text(json.dumps({"train_step_seconds": step}))
+    with pytest.raises(ValueError, match="train_step_seconds"):
+        graft_entry.read_step(path)
 
 
 def test_projection_with_a_step_time(capsys):

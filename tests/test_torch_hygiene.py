@@ -40,6 +40,7 @@ def test_port_and_chip_smoke_load_no_jax():
     assert "quantized_distillation_tpu_torch.train.trainer" in out
     assert "quantized_distillation_tpu_torch.utils.metrics" in out
     assert "quantized_distillation_tpu_torch.graft_entry" in out
+    assert "quantized_distillation_tpu_torch.bench" in out
     assert "chip_smoke" in out
     assert [m for m in out if _forbidden(m)] == []
 
