@@ -293,7 +293,15 @@ Phases, each printing one JSON line:
    shape ([B, K * V] = [256, 160000]) on rows with injected ties, -inf runs
    and ±0, indices and values equal to ``torch.sort(stable=True)``'s, and
    its device ms against the sort's and one ``torch.topk``'s (CUDA graphs
-   of 20 calls).
+   of 20 calls);
+22. multi_card: where PyTorch sees at least ``MULTI_CARDS`` (4) cards,
+   ``python -m quantized_distillation_tpu_torch.scripts.multicard_smoke
+   --cards 4`` as a subprocess (one NCCL rank a card: the sharded search
+   at meshes (1, 4), (2, 2) and (4, 1), the mesh engine, the graphed DP
+   and TP KD steps, ``dryrun_multichip(4)``; see its docstring), which
+   must exit 0; one ``multi_card`` line with its last lines and each
+   kernel's launches a rank by mesh. With fewer cards, the one line
+   ``{"phase": "multi_card", "ran": false, "cards": n}`` and nothing else.
 
 TF32 is off for matmul and cuDNN throughout, so every
 f32 product on the card is a true f32 product, as on the CPU. The card-vs-CPU steps (phases
@@ -312,7 +320,8 @@ launches, bucket counts and times in phase 17's drivers; every row its
 ``artifact_launches`` in phase 16's two searches from disk and its
 ``quality_launches`` in each script of phase 19, its ``graft_launches``
 in phase 20: the entry's eager and graphed calls, and each dry run's
-ranks, and its ``bench_launches`` in each run of phase 21), then
+ranks, its ``bench_launches`` in each run of phase 21 and, where phase
+22 ran, its ``multi_card_launches`` a rank by mesh and search), then
 the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 that line. Weights are random, made from a seed. Imports nothing of JAX.
@@ -402,7 +411,6 @@ from quantized_distillation_tpu_torch.models import (
 )
 from quantized_distillation_tpu_torch import native
 from quantized_distillation_tpu_torch.parallel import (
-    DATA_AXIS,
     ModelParallel,
     make_mesh,
     place_batch,
@@ -412,23 +420,18 @@ from quantized_distillation_tpu_torch.parallel import (
 )
 from quantized_distillation_tpu_torch.parallel.comm import capturable, collective_budget
 from quantized_distillation_tpu_torch.parallel.launch import run_ranks
-from quantized_distillation_tpu_torch.parallel.mesh import axis_index, axis_size
 from quantized_distillation_tpu_torch.ops.bucketing import to_buckets
 from quantized_distillation_tpu_torch.ops.sizes import model_size_report
 from quantized_distillation_tpu_torch.serve import (
     TranslationEngine,
     beam_search,
     beam_search_packed,
-    encode_packed,
-    expand_to_beams,
     pack_decoder,
-    packed_decode_step_topk,
 )
-from quantized_distillation_tpu_torch.serve.beam import BOS, EOS, NEG_INF, PAD
+from quantized_distillation_tpu_torch.serve.beam import EOS, PAD
 from quantized_distillation_tpu_torch.serve.sharded import (
     beam_search_sharded,
     generator_shard,
-    make_sharded_decode_step_topk,
     pack_generator_sharded,
     shard_decoder,
 )
@@ -452,7 +455,6 @@ from quantized_distillation_tpu_torch.train.optim import apply_updates, global_n
 from quantized_distillation_tpu_torch.train.trainer import (
     Task,
     _clone_state,
-    _state_tensors,
     as_batch,
     map_tensors,
     quantized_params,
@@ -461,6 +463,20 @@ from quantized_distillation_tpu_torch.train.trainer import (
 from quantized_distillation_tpu_torch import bench, graft_entry
 from quantized_distillation_tpu_torch.kernels.topk_fused import topk_sorted
 from quantized_distillation_tpu_torch.scripts import accuracy_grid, topk_divergence
+from quantized_distillation_tpu_torch.scripts.multicard_smoke import (
+    F32_TOL,
+    Checks,
+    advance_inputs,
+    check_advance,
+    check_dequant_matmul,
+    check_topk,
+    cudnn_deterministic,
+    decode_matrices,
+    lut_points,
+    serve_inputs,
+    sharded_step_check,
+    state_tensors,
+)
 from quantized_distillation_tpu_torch.utils.artifact import load_artifact, save_artifact
 from quantized_distillation_tpu_torch.utils.search_profile import device_profile, span_ms
 from quantized_distillation_tpu_torch.utils.profiling import CHIP_PEAKS, graph_ms
@@ -469,14 +485,11 @@ from quantized_distillation_tpu_torch.utils.profiling import CHIP_PEAKS, graph_m
 PEAK_BF16 = CHIP_PEAKS["H100"]["bf16_tflops"] * 1e12  # dense bf16 tensor-core FLOP/s
 PEAK_F32 = CHIP_PEAKS["H100"]["f32_tflops"] * 1e12  # f32 FLOP/s outside the tensor cores
 HBM = CHIP_PEAKS["H100"]["hbm_gbs"] * 1e9  # device memory, bytes/s
-F32_TOL = 1e-4  # rtol = atol, as tests/test_kernels.py states for f32 compute
 # train-step parity, as tests/test_torch_train.py states it for f32: loss and
 # metrics rtol 1e-5; gradients within 1e-4 of the tensor's largest |gradient|;
 # updated weights rtol 1e-5, atol 1e-6
 LOSS_RTOL, GRAD_TOL, W_RTOL, W_ATOL = 1e-5, 1e-4, 1e-5, 1e-6
 RELU_FLIP_SHARE = 1e-5  # card-vs-CPU ReLU sign flips: at most this share of the outputs a step
-BF16_REL = 2e-2  # bf16 values: relative to the row's largest |value|
-BF16_TIE = 4 * 2.0 ** -8  # bf16 tie band (TestCrossKernelNumerics), times max(|logit|, 1)
 
 DESIGN = "tensor cores (wgmma)"
 DESIGN_TOPK = "tensor cores (wgmma), x resident in shared memory, top-k and lse from registers"
@@ -503,19 +516,6 @@ def expected(**counts) -> dict:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-class Checks:
-    """Collects failed checks; any failure makes the run exit non-zero."""
-
-    def __init__(self):
-        self.failed = []
-
-    def require(self, ok: bool, what: str) -> bool:
-        if not ok:
-            self.failed.append(what)
-            print(f"CHECK FAILED: {what}", file=sys.stderr, flush=True)
-        return ok
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -670,61 +670,6 @@ def phase_sass(checks):
               "instances": [[f["function"][:60], f["HGMMA"], f["HMMA"]] for f in found]})
 
 
-def check_values(checks, name, got, want, cd, exact_products=False):
-    """f32 compute, or bf16 with ``exact_products``: |got - want| <= F32_TOL
-    * (1 + |want|). That holds the dequant-matmul at bf16 as the GPU tests
-    do: kernel and plain version round the same operands to bf16 and sum
-    products that are exact in f32, so only the summation order differs.
-    Other bf16 values: within BF16_REL of the row's largest |want|. Returns
-    the max abs error."""
-    err = (got - want).abs()
-    if cd == torch.float32 or exact_products:
-        ok = bool((err <= F32_TOL * (1 + want.abs())).all())
-    else:
-        scale = want.abs().amax(dim=-1, keepdim=True).clamp_min(1.0)
-        ok = bool((err <= BF16_REL * scale).all())
-    checks.require(ok, f"{name}: values outside tolerance (max abs err {float(err.max())})")
-    return float(err.max())
-
-
-def check_topk_indices(checks, name, v, i, rv, ri, cd):
-    """Index lists equal, except where the disagreeing values lie within the
-    tie band of the compute type. Returns (rows equal, rows in the band)."""
-    rows_equal = (i == ri).all(dim=1)
-    scale = rv.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
-    band = (BF16_TIE if cd == torch.bfloat16 else F32_TOL) * scale
-    in_band = ((v - rv).abs() <= band).all(dim=1) & ~rows_equal
-    ok = bool((rows_equal | in_band).all())
-    checks.require(ok, f"{name}: top-k indices differ outside the tie band")
-    return int(rows_equal.sum()), int(in_band.sum())
-
-
-def decode_matrices(dec):
-    """The three dequant-matmul weights of a decode step and the dtype of
-    the activation each gets."""
-    bf16 = torch.bfloat16
-    return (("lstm_0", dec.cells[0].w, bf16),  # [x_emb; feed; h] arrives in bf16
-            ("lstm_1", dec.cells[1].w, bf16),
-            ("attn_out", dec.attn_out, torch.float32))  # [context f32; h]
-
-
-def lut_points(bits: int, gen) -> torch.Tensor:
-    """A trained-looking codebook: out of order, partly outside [0, 1]."""
-    return torch.rand(1 << bits, generator=gen) * 1.2 - 0.1
-
-
-def check_dequant_matmul(checks, name, x, q) -> dict:
-    """The dequant-matmul kernel against its plain version on one input, f32
-    and bf16 compute, at F32_TOL (see :func:`check_values`) → the max abs
-    error of each compute type."""
-    out = {}
-    for cd in (torch.float32, torch.bfloat16):
-        got = dequant_matmul(x, q, compute_dtype=cd)
-        want = dequant_matmul_reference(x, q, compute_dtype=cd)
-        out[str(cd)] = check_values(checks, f"{name}/{cd}", got, want, cd, True)
-    return out
-
-
 def kernel_dequant_matmul(checks, name, replaces, dec, rows, gen, lut_bits=()):
     """The dequant-matmul kernel at the three decode-step shapes of ``dec``
     against its plain version (f32 and bf16 compute; with ``lut_bits``, also
@@ -787,21 +732,6 @@ def kernel_dequant_matmul(checks, name, replaces, dec, rows, gen, lut_bits=()):
         "design": DESIGN,
         "per": "one decode step: lstm_0 + lstm_1 + attn_out",
     }
-
-
-def check_topk(checks, name, x, g, k_top, cd) -> dict:
-    """The generator against its plain version on one input: values and lse
-    at F32_TOL for both compute types (at bf16 both round the same operands
-    and sum products exact in f32), indices up to the tie band, no index at
-    or past the logical width."""
-    v, i, lse = dequant_matmul_topk(x, g, k_top, compute_dtype=cd)
-    rv, ri, rlse = dequant_matmul_topk_reference(x, g, k_top, compute_dtype=cd)
-    err = max(check_values(checks, f"{name}/{cd}/values", v, rv, cd, True),
-              check_values(checks, f"{name}/{cd}/lse", lse, rlse, cd, True))
-    eq, band = check_topk_indices(checks, f"{name}/{cd}", v, i, rv, ri, cd)
-    checks.require(0 <= int(i.min()) and int(i.max()) < g.shape[1],
-                   f"{name}: an index outside [0, N) was chosen")
-    return {"max_abs_err": err, "rows_equal": eq, "rows_in_tie_band": band}
 
 
 def ragged_topk(checks, name, gen, lut: bool) -> dict:
@@ -914,42 +844,6 @@ def phase_kernels(checks, dec, rows, gen):
     return table
 
 
-def advance_inputs(b, k, kc, t_max, gen):
-    """A decode step's candidates and a beam state as the beam advance gets
-    them, on the card: values on a coarse grid (exact ties within and across
-    beams; half the sentences share one lse, so whole blocks tie), EOS among
-    the candidates, NEG_INF blocks, a third of the beams finished."""
-    vals = -torch.sort(torch.randint(0, 6, (b * k, kc), generator=gen).float() * 0.5,
-                       dim=1).values
-    vals[torch.rand(b * k, generator=gen) < 0.15] = NEG_INF
-    idx = torch.randint(4, 32000, (b * k, kc), generator=gen, dtype=torch.int32)
-    idx[torch.rand(b * k, kc, generator=gen) < 0.2] = EOS
-    lse = torch.rand(b * k, 1, generator=gen) * 1.5 + 0.5
-    lse[(torch.rand(b, generator=gen) < 0.5).repeat_interleave(k)] = 1.25
-    state = (
-        -torch.randint(0, 8, (b, k), generator=gen).float(),  # scores
-        torch.rand(b, k, generator=gen) < 0.3,  # finished
-        torch.randint(0, 5, (b, k), generator=gen, dtype=torch.int32),  # lengths
-        torch.zeros(b, k, dtype=torch.int64),  # last_token
-        torch.randint(0, 32000, (t_max, b * k), generator=gen, dtype=torch.int32),  # sym
-        torch.zeros(t_max, b * k, dtype=torch.int8),  # parent
-    )
-    return tuple(x.cuda() for x in (vals, idx, lse)), tuple(x.cuda() for x in state)
-
-
-def check_advance(checks, name, b, k, kc, t, t_max, gen) -> bool:
-    """The beam-advance kernel against its plain version on the inputs of
-    :func:`advance_inputs` at step ``t``: bit-exact in every output (the new
-    beam state, the history rows, the flat parent rows)."""
-    cand, state = advance_inputs(b, k, kc, t_max, gen)
-    mine, ref = [x.clone() for x in state], [x.clone() for x in state]
-    rows = beam_advance(*cand, *mine, t, eos_id=EOS, pad_id=PAD)
-    want = beam_advance_reference(*cand, *ref, t, eos_id=EOS, pad_id=PAD)
-    ok = torch.equal(rows, want) and all(torch.equal(x, y) for x, y in zip(mine, ref))
-    checks.require(ok, f"{name} B={b} K={k} kc={kc} t={t}: not bit-exact")
-    return ok
-
-
 def kernel_beam_advance(checks, b, k, gen) -> dict:
     """The beam-advance kernel against its plain version, bit-exact in every
     output (the new beam state, the history rows, the flat parent rows): at
@@ -1029,14 +923,6 @@ def searches_in_turns(legs: dict, reps: int) -> dict:
         for name in (list(legs) if i % 2 == 0 else list(legs)[::-1]):
             times[name] += timed_runs(legs[name], 1)
     return times
-
-
-def serve_inputs(args):
-    """The serving phases' seeded sources: B sentences of ``src_len``
-    tokens."""
-    gen = torch.Generator().manual_seed(args.seed + 1)
-    src = torch.randint(4, args.vocab, (args.batch, args.src_len), generator=gen)
-    return src, torch.full((args.batch,), args.src_len, dtype=torch.int64)
 
 
 def phase_main_path(checks, args, model, params, smi):
@@ -2183,29 +2069,6 @@ def legs_in_turns(legs: dict, state, batch, seed, reps) -> tuple:
     return holder["state"], times, {k: statistics.median(v) for k, v in times.items()}
 
 
-def state_tensors(state) -> list:
-    """Every tensor of a train state: parameters, moments, running
-    statistics, codebooks, carry."""
-    return _state_tensors(state) + _leaves(state.carry)
-
-
-@contextlib.contextmanager
-def cudnn_deterministic():
-    """cuDNN's deterministic algorithms inside the block (the setting is
-    restored after). Its default backward convolutions add with atomics in
-    no fixed order, so two eager runs of a convolutional step part within a
-    few steps and a graphed run could be held only within their spread,
-    one draw of which a fourth run exceeds now and then (1 of 158 WRN
-    tensors past twice the gap of three eager runs); deterministic, the
-    eager runs agree bit for bit and the graphed run must equal them."""
-    was = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = was
-
-
 def step_bytes(run) -> dict:
     """``run()`` → (its result, its device bytes), the allocator's cache
     emptied before and after: the peak allocated above what was allocated
@@ -2729,7 +2592,6 @@ def lm_batch(n, vocab, bptt, seed, device) -> dict:
 MG_SHAPES = ((1, 4), (2, 2))  # the 4 gloo ranks sharing the card
 MG_TIMEOUT = 300  # seconds a collective may wait; the spawns' join limit is 600
 MG_STEPS = 4  # decode steps of the sharded step against the unsharded one
-STEP_ATOL = 1e-4  # its values and lse, as the CPU tests hold the step
 
 
 def _rank_setup():
@@ -2738,35 +2600,6 @@ def _rank_setup():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda", 0)
-
-
-def sharded_step_check(checks, name, model, dec, sdec, mesh, src, src_len, k, steps) -> dict:
-    """The sharded decode step beside the unsharded one on this rank's rows
-    (its data slice of the sentences, ``k`` beams each): from the encoder's
-    state, then ``steps - 1`` more steps along the unsharded step's top-1
-    tokens. Indices equal, values and lse within STEP_ATOL. Both steps run
-    the same state, so no tie broken apart upstream can hide a fault of the
-    merge."""
-    dp, d = axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS)
-    bl, dev = src.shape[0] // dp, dec.device
-    step = make_sharded_decode_step_topk(sdec, mesh, k)
-    idx_equal, err = True, 0.0
-    with torch.no_grad():
-        keys, enc_out, enc_mask, st = encode_packed(
-            model, dec, src[d * bl:(d + 1) * bl].to(dev), src_len[d * bl:(d + 1) * bl].to(dev))
-        state = expand_to_beams(st, k)
-        tokens = torch.full((bl * k,), BOS, dtype=torch.int64, device=dev)
-        for _ in range(steps):
-            _, (sv, si, slse) = step(state, tokens, keys, enc_out, enc_mask)
-            state, (v, i, lse) = packed_decode_step_topk(dec, state, tokens, keys, enc_out,
-                                                         enc_mask, k)
-            idx_equal = idx_equal and torch.equal(si, i)
-            err = max(err, float((sv - v).abs().max()), float((slse - lse).abs().max()))
-            tokens = i[:, 0].long()
-    checks.require(idx_equal and err <= STEP_ATOL,
-                   f"{name}: the sharded step differs from the unsharded one (indices equal "
-                   f"{idx_equal}, values and lse {err} apart)")
-    return {"rows": bl * k, "steps": steps, "idx_equal": idx_equal, "max_abs_err": err}
 
 
 def _mg_serve_rank(rank, world, spec):
@@ -3024,16 +2857,17 @@ def run_script(checks, name: str, argv, timeout: float) -> dict:
 
 
 def shard_kernel_times(checks, args, params, points, group) -> dict:
-    """The fused generator (uniform and LUT) at the shard widths of MG_SHAPES,
-    one process on the card: against its plain version, and timed like
-    phase 3 (kernel, plain version, one PyTorch call, bound)."""
+    """The fused generator (uniform and LUT) at the shard widths of MG_SHAPES
+    and of (4, 1) (320 rows at the whole vocab, phase 22's data-parallel
+    mesh), one process on the card: against its plain version, and timed
+    like phase 3 (kernel, plain version, one PyTorch call, bound)."""
     dev = torch.device("cuda")
     gk, gb = params["generator"]["kernel"], params["generator"]["bias"]
     gen = torch.Generator().manual_seed(args.seed + 50)
     out = {}
     for lut in (False, True):
         name = "dequant_matmul_topk_lut" if lut else "dequant_matmul_topk"
-        for dp, mp in MG_SHAPES:
+        for dp, mp in MG_SHAPES + ((4, 1),):
             full = pack_generator_sharded(gk, gb, args.bits, mp, points=points if lut else None)
             g = generator_shard(full, 0, mp).to(dev)
             rows = args.batch * args.beam // dp
@@ -3775,6 +3609,48 @@ def phase_bench(checks, args, smi) -> dict:
     return {label: r["launches"] for label, r in runs.items()}
 
 
+# ------------------------------------------------------------ multi-card (22)
+
+MULTI_CARDS = 4
+
+
+def phase_multi_card(checks, smi) -> dict:
+    """Phase 22 (see the module docstring) → each kernel's launches a rank,
+    by mesh and search; empty where it did not run."""
+    n = torch.cuda.device_count()
+    if n < MULTI_CARDS:
+        emit({"phase": "multi_card", "ran": False, "cards": n})
+        return {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_multicard_"))
+    try:
+        res = run_script(checks, "multicard_smoke",
+                         ["--cards", str(MULTI_CARDS), "--out", str(root / "report.json")],
+                         timeout=3000)
+        report = json.loads((root / "report.json").read_text()) if res["rc"] == 0 else None
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {}
+    for mesh, s in (report or {}).get("searches", {}).items():
+        for label in ("f32", "bf16", "lut_f32"):
+            for name in LAUNCH_COUNTERS:
+                per = [r[name] for r in s[label]["launches_a_rank"]]
+                if any(per):
+                    launches.setdefault(name, {})[f"{mesh} {label}"] = per
+        if "engine" in s:
+            for name in LAUNCH_COUNTERS:
+                per = [r[name] for r in s["engine"]["launches_a_rank"]]
+                if any(per):
+                    launches.setdefault(name, {})[f"{mesh} engine"] = per
+    for leg, rec in (report or {}).get("train", {}).items():
+        if rec["launches"]["fake_quant_buckets"]:
+            launches.setdefault("fake_quant_buckets", {})[f"{leg} rank 0"] = \
+                rec["launches"]["fake_quant_buckets"]
+    emit({"phase": "multi_card", "ran": True, "cards": n, "rc": res["rc"],
+          "seconds": res["seconds"], "last_lines": res["last_lines"], "launches": launches,
+          "card": smi})
+    return launches
+
+
 def budget_summary(budget) -> dict:
     """Wire bytes by axis and collectives by kind of a ``CommBudget``."""
     kinds = {}
@@ -3875,6 +3751,10 @@ def main(argv=None) -> int:
     for row in table:
         row["bench_launches"] = {run: counts.get(row["name"], 0)
                                  for run, counts in bench_launches.items()}
+    multi_card = phase_multi_card(checks, smi)
+    for row in table:
+        if multi_card:
+            row["multi_card_launches"] = multi_card.get(row["name"], {})
     if checks.failed:
         print(f"{len(checks.failed)} check(s) failed", file=sys.stderr)
         return 1

@@ -8,12 +8,14 @@ and an unchanged one is loaded as it is. :func:`build_all` starts one
 ``nvcc`` per source, all at once. A failed build raises; nothing falls back.
 
 Host code (``csrc/<name>.cpp``: the ``.qdt`` codec) compiles the same way
-with ``g++`` (:func:`load_host`), under a file lock, since several
-processes (test workers) may load it at once.
+with ``g++`` (:func:`load_host`). Both builds run under a file lock, since
+several processes (test workers, the ranks of a mesh) may load a library
+at once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -25,7 +27,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator
 
 import torch
 
@@ -81,12 +83,26 @@ def _start(name: str, out: Path):
     return name, out, tmp, start_nvcc(CSRC / f"{name}.cu", tmp)
 
 
+@contextlib.contextmanager
+def _file_lock(name: str) -> Iterator[None]:
+    """This process's thread lock and the file lock ``_build/<name>.lock``
+    (``fcntl``, released when the file closes, also when the process dies),
+    so that one thread of one process builds at a time."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _lock, open(BUILD_DIR / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
 def build_all(names: Iterable[str] = KERNELS, force: bool = False) -> Dict[str, str]:
     """Compile every kernel library that is not built yet (with ``force``,
-    every one), one ``nvcc`` per source, all started together. Returns each
-    compiler log (``-Xptxas -v`` prints registers, shared memory and spills
-    per kernel); an empty dict when all were built already."""
-    with _lock:
+    every one), one ``nvcc`` per source, all started together, under a file
+    lock: processes that load a kernel for the first time at once (the ranks
+    of a mesh) build each library once, and the later ones find it built.
+    Returns each compiler log (``-Xptxas -v`` prints registers, shared
+    memory and spills per kernel); an empty dict when all were built
+    already."""
+    with _file_lock("kernels"):
         jobs = [_start(n, _lib_path(n)) for n in names if force or not _lib_path(n).exists()]
         logs, errors = {}, []
         for name, out, tmp, proc in jobs:
@@ -126,9 +142,7 @@ def load_host(name: str) -> ctypes.CDLL:
     src = CSRC / f"{name}.cpp"
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + src.read_bytes())
     path = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with _lock, open(BUILD_DIR / f"{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+    with _file_lock(name):
         if not path.exists():
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)

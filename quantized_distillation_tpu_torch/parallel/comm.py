@@ -38,7 +38,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.graphs import register_recorder
-from .mesh import DATA_AXIS, backend
+from .mesh import DATA_AXIS, axis_size, backend
 
 
 @dataclass
@@ -253,20 +253,33 @@ def capturable(mesh, device) -> bool:
 
 
 _warm: "weakref.WeakSet" = weakref.WeakSet()
+# elements a rank of each warm-up collective: NCCL picks its protocol and
+# algorithm by size, so each kind is issued at a few sizes
+WARM_SIZES = (1, 1 << 14, 1 << 22)
 
 
 def warm_up(mesh) -> None:
-    """One tiny unrecorded all-gather over each mesh axis, once per mesh: NCCL
-    creates a group's communicator at its first collective, which a CUDA
-    graph capture cannot hold, so the graphed paths call this before their
-    first capture."""
+    """Every collective kind a graphed path holds, unrecorded, over each mesh
+    axis at each of ``WARM_SIZES``, once per mesh: an all-gather, an
+    all-reduce sum in f32 and in bf16 (the reduced gradient reduce), an
+    all-reduce max and a reduce-scatter. NCCL creates a group's communicator
+    at its first collective and may set up a kind's buffers at its first
+    call, neither of which a CUDA graph capture can hold, so the graphed
+    paths call this before their first capture."""
     if mesh in _warm:
         return
     nccl = backend(mesh) == "nccl"
     dev = torch.device("cuda", torch.cuda.current_device()) if nccl else torch.device("cpu")
     with redirected(None):
         for axis in mesh.mesh_dim_names:
-            all_gather(torch.zeros(1, device=dev), mesh, axis)
+            g = axis_size(mesh, axis)
+            for n in WARM_SIZES:
+                x = torch.zeros(n * g, device=dev)
+                all_gather(x, mesh, axis)
+                psum(x, mesh, axis)
+                psum(x, mesh, axis, dtype=torch.bfloat16)
+                pmax(x, mesh, axis)
+                reduce_scatter(x, mesh, axis, 0)
     if nccl:
         torch.cuda.synchronize(dev)
     _warm.add(mesh)

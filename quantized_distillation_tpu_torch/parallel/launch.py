@@ -7,7 +7,10 @@ under a fresh directory (no port to collide with other runs), each group
 has a timeout, the parent waits at most ``join_timeout`` seconds, and a
 rank that fails ends the run: the others are killed and the failure is
 raised with the rank's traceback, so no rank is left blocked in a
-collective. The function must be importable by name (a module-level
+collective. Over NCCL (one rank a card; fewer cards than local ranks
+raise) each rank's card is made current before its group is initialised,
+and every CUDA graph the rank still holds is freed before the group is
+destroyed. The function must be importable by name (a module-level
 function): spawned children import its module again, not the caller's
 ``__main__`` block.
 
@@ -34,17 +37,30 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from ..utils.graphs import release_graphs
 
-def _child(call, rank, world, backend, init_method, timeout, out):
+
+def _child(call, rank, local, world, backend, init_method, timeout, out):
     try:
         with open(call, "rb") as f:
             fn, args = pickle.load(f)
         torch.set_num_threads(1)  # the ranks share the host's cores
+        if backend == "nccl":
+            # the rank's card is current before the group exists, so that no
+            # communicator or barrier binds to card 0; and every connection is
+            # made when a communicator is created, never inside a graph capture
+            # (the first collective of a kind may otherwise connect its peers)
+            torch.cuda.set_device(local % torch.cuda.device_count())
+            os.environ.setdefault("NCCL_RUNTIME_CONNECT", "0")
         dist.init_process_group(backend, init_method=init_method, rank=rank,
                                 world_size=world, timeout=timedelta(seconds=timeout))
         try:
             result = fn(rank, world, *args)
         finally:
+            # a graph holding collectives goes before its communicators
+            release_graphs()
+            if backend == "nccl":
+                torch.cuda.synchronize()
             dist.destroy_process_group()
         out.put((rank, True, result))
     except BaseException:  # reported to the parent, which raises it
@@ -144,6 +160,9 @@ def env_rank() -> Optional[tuple]:
 def _spawn(fn, ranks, world_size, args, backend, init_method, timeout, join_timeout, tmp):
     """Start one child per global rank in ``ranks``, wait for all of their
     results (raising the first failure) and end every child."""
+    if backend == "nccl" and torch.cuda.device_count() < len(ranks):
+        raise RuntimeError(f"NCCL takes one rank a card: {len(ranks)} local ranks, "
+                           f"{torch.cuda.device_count()} card(s) visible")
     ctx = mp.get_context("spawn")
     # the function and its arguments go through a file: a spawned child reads
     # its start-up pipe only after importing the caller's main module, so a
@@ -154,8 +173,8 @@ def _spawn(fn, ranks, world_size, args, backend, init_method, timeout, join_time
     out = ctx.Queue()
     procs = {
         r: ctx.Process(target=_child, daemon=True,
-                       args=(call, r, world_size, backend, init_method, timeout, out))
-        for r in ranks
+                       args=(call, r, i, world_size, backend, init_method, timeout, out))
+        for i, r in enumerate(ranks)
     }
     results: dict = {}
     try:

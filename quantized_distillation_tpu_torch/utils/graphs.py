@@ -30,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import weakref
 from collections import OrderedDict
 from typing import Callable, Dict, Hashable, List, Optional, Sequence, Tuple
 
@@ -181,6 +182,19 @@ class CapturedStep:
         _count(self.launches, self.records, n)
 
 
+_CACHES: "weakref.WeakSet[GraphCache]" = weakref.WeakSet()
+
+
+def release_graphs() -> None:
+    """Free every graph that nothing but a :class:`GraphCache` or a
+    reference cycle holds: each cache emptied, then the cyclic garbage
+    collected. A process calls it before it destroys the process groups
+    whose collectives its graphs hold."""
+    for cache in list(_CACHES):
+        cache.clear()
+    gc.collect()
+
+
 def signature(obj) -> Hashable:
     """What a captured graph reads of ``obj``: the address, shape, dtype and
     device of every tensor (a graph reads its operands at the addresses it
@@ -218,6 +232,11 @@ class GraphCache:
     def __init__(self):
         self.captures = 0
         self._calls: OrderedDict = OrderedDict()
+        _CACHES.add(self)
+
+    def clear(self) -> None:
+        """Drop every captured call."""
+        self._calls.clear()
 
     def run(self, key: Hashable, fn: Callable, inputs: Sequence[torch.Tensor]):
         """``fn(*inputs)`` through the captured call stored under ``key``
