@@ -40,6 +40,7 @@ from ..config import BeamConfig
 from ..kernels.beam_combine import NEG_INF, beam_advance, record_step, write_row
 from ..kernels.topk_fused import topk_sorted
 from ..utils.graphs import GraphCache, signature
+from ..utils.tracing import spanned
 
 # Token ids of the JAX package's data/translation.py vocabulary.
 PAD, BOS, EOS, UNK = 0, 1, 2, 3
@@ -373,6 +374,7 @@ def run_search(search: Callable, inputs, dev: torch.device, eager: bool, key):
     return SEARCH_GRAPHS.run(key, search, inputs)
 
 
+@spanned("serve.search")
 def beam_search(
     model,
     src: torch.Tensor,

@@ -48,6 +48,7 @@ from ..kernels.packed import PackedLinear, pack_linear
 from ..kernels.topk_fused import KMAX, dequant_matmul_topk
 from ..models.seq2seq import DecoderState, Seq2SeqConfig
 from ..utils.graphs import signature
+from ..utils.tracing import spanned
 from .beam import _check_cfg, beam_decode, expand_to_beams, run_search
 from .sharded import pack_generator_sharded
 
@@ -269,6 +270,7 @@ def check_whole_vocab(dec: PackedDecoder) -> None:
                          "beam_search_sharded or TranslationEngine(mesh=...)")
 
 
+@spanned("serve.search")
 def beam_search_packed(
     model,
     dec: PackedDecoder,

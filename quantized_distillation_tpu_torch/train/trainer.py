@@ -22,7 +22,9 @@ shape and dtype; the batch's shapes and dtypes; the TF32 settings) runs
 warm-up is that call's step, and the capture after it only records. Later
 calls run ``prepare`` and replay. A failed capture raises; nothing runs
 eagerly in its place. On the CPU, and with ``_eager=True`` on the card,
-``prepare`` and ``body`` run eagerly.
+``prepare`` and ``body`` run eagerly. Under a profiler a call is the span
+``train.step`` around ``train.prepare``, the graph's ``graph.replay`` (or
+capture) and ``train.finish`` (``utils.tracing``).
 
 ``donate=True`` (the default, as in JAX) steps the caller's state in
 place, so neither keeps the old weights; ``donate=False`` leaves the
@@ -131,6 +133,7 @@ from ..parallel.comm import capturable, pmean, psum, warm_up
 from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_index, axis_size
 from ..parallel.tensor import ModelParallel
 from ..utils.graphs import CapturedStep, GraphCache, precision_key, signature
+from ..utils.tracing import count, span
 from . import quantize_tree as qt
 from .optim import (
     OptState,
@@ -509,19 +512,22 @@ class TrainStep:
         self._runs: OrderedDict = OrderedDict()
 
     def __call__(self, state: TrainState, batch: Batch, rng: int = 0):
-        run = self.prepare(state, batch, rng)
-        if not self.graphed:
-            self.body(run)
-        elif run.graph is None:
-            if self.mesh is not None:
-                warm_up(self.mesh)  # the communicators, before any capture
-            # the warm-up is this call's step; the capture only records
-            run.graph = CapturedStep(lambda: self.body(run), counted_warmup=True,
-                                     generators=run.generators)
-            self.captures += 1
-        else:
-            run.graph.replay()
-        return self.finish(state, run)
+        with span("train.step"):
+            with span("train.prepare"):
+                run = self.prepare(state, batch, rng)
+            if not self.graphed:
+                self.body(run)
+            elif run.graph is None:
+                if self.mesh is not None:
+                    warm_up(self.mesh)  # the communicators, before any capture
+                # the warm-up is this call's step; the capture only records
+                run.graph = CapturedStep(lambda: self.body(run), counted_warmup=True,
+                                         generators=run.generators)
+                self.captures += 1
+            else:
+                run.graph.replay()
+            with span("train.finish"):
+                return self.finish(state, run)
 
     def prepare(self, state: TrainState, batch: Batch, rng: int = 0) -> StepRun:
         """The host's part of a step: finds (or makes) the signature's
@@ -545,6 +551,7 @@ class TrainStep:
             self._runs[key] = run
             while len(self._runs) > self.SIZE:
                 self._runs.popitem(last=False)
+                count("graph.evictions")
         else:
             self._runs.move_to_end(key)
         if self.graphed:  # into the graph's static inputs

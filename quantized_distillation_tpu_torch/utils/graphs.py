@@ -23,6 +23,10 @@ the warm-up's records are dropped, the capture's kept, and every replay
 makes them again.
 A :class:`GraphCache` keeps a few captured calls, keyed by everything that
 fixes the captured work (see :func:`signature`).
+Under a profiler, captures, replays and a call's input copies and output
+clones are spans (``graph.capture``, ``graph.replay``, ``graph.inputs``,
+``graph.outputs``; :mod:`.tracing`), and the counters ``graph.captures``,
+``graph.replays`` and ``graph.evictions`` count them always.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import torch
 from torch import nn
 
 from ..kernels import launch_counts, set_launch_counts
+from .tracing import count, span
 
 # (redirected, replay) of each registered recorder, in registration order
 _RECORDERS: List[Tuple[Callable, Callable]] = []
@@ -136,6 +141,7 @@ def _capture(fn: Callable, args: Sequence[torch.Tensor] = (), *, counted_warmup:
             f"capture launched {launches}, its warm-up {_delta(warm, before)}: "
             "the captured work depends on more than the inputs' shapes"
         )
+    count("graph.captures")
     return graph, outputs, launches, records
 
 
@@ -152,14 +158,19 @@ class CapturedCall:
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor]):
         self.inputs = tuple(x.clone() for x in inputs)
-        self.graph, self.outputs, self.launches, self.records = _capture(fn, self.inputs)
+        with span("graph.capture"):
+            self.graph, self.outputs, self.launches, self.records = _capture(fn, self.inputs)
 
     def __call__(self, *inputs: torch.Tensor):
-        for static, x in zip(self.inputs, inputs):
-            static.copy_(x)
-        self.graph.replay()
+        with span("graph.inputs"):
+            for static, x in zip(self.inputs, inputs):
+                static.copy_(x)
+        with span("graph.replay"):
+            self.graph.replay()
         _count(self.launches, self.records, 1)
-        return _map(torch.clone, self.outputs)
+        count("graph.replays")
+        with span("graph.outputs"):
+            return _map(torch.clone, self.outputs)
 
 
 class CapturedStep:
@@ -173,13 +184,16 @@ class CapturedStep:
 
     def __init__(self, fn: Callable[[], None], *, counted_warmup: bool = False,
                  generators: Sequence[torch.Generator] = ()):
-        self.graph, _, self.launches, self.records = _capture(
-            fn, counted_warmup=counted_warmup, generators=generators)
+        with span("graph.capture"):
+            self.graph, _, self.launches, self.records = _capture(
+                fn, counted_warmup=counted_warmup, generators=generators)
 
     def replay(self, n: int = 1) -> None:
         for _ in range(n):
-            self.graph.replay()
+            with span("graph.replay"):
+                self.graph.replay()
         _count(self.launches, self.records, n)
+        count("graph.replays", n)
 
 
 _CACHES: "weakref.WeakSet[GraphCache]" = weakref.WeakSet()
@@ -251,6 +265,7 @@ class GraphCache:
             self._calls[key] = call
             while len(self._calls) > self.SIZE:
                 self._calls.popitem(last=False)
+                count("graph.evictions")
         else:
             self._calls.move_to_end(key)
         return call(*inputs)
