@@ -492,7 +492,8 @@ LOSS_RTOL, GRAD_TOL, W_RTOL, W_ATOL = 1e-5, 1e-4, 1e-5, 1e-6
 RELU_FLIP_SHARE = 1e-5  # card-vs-CPU ReLU sign flips: at most this share of the outputs a step
 
 DESIGN = "tensor cores (wgmma)"
-DESIGN_TOPK = "tensor cores (wgmma), x resident in shared memory, top-k and lse from registers"
+DESIGN_TOPK = ("tensor cores (wgmma), x resident in shared memory, lse from registers, "
+               "top-k by a filter, then a merge by each row's quad")
 RAGGED = (77, 200, 700)  # M, K, N: K not a multiple of 16, N of 64
 RAGGED_TOPK_K = (200, 77)  # the generator also at K = 77: x rows off 16-byte alignment
 

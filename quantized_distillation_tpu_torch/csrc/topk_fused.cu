@@ -34,12 +34,30 @@
 // after wgmma.wait_group 0, each thread folds its accumulators straight
 // into its rows' state: in wgmma's layout a thread holds 16 columns of each
 // of 2 MT rows, and the 4 lanes of a quad share the rows. One exponential
-// per logit (the tile's max first, one rescale a tile); a cheap test
-// against the list's last entry before any insertion. At the end of the
-// split the quad's lists merge by shuffles. The logits never touch shared
-// or device memory. Where K is so large that x cannot stay resident even
-// for 64 rows, topk_tc_stream_kernel streams x per slab through
-// tc::tile_mma_tc instead (the ring then drains at every tile).
+// per logit (the tile's max first, one rescale a tile). Where K is so large
+// that x cannot stay resident even for 64 rows, topk_tc_stream_kernel
+// streams x per slab through tc::tile_mma_tc instead (the ring then drains
+// at every tile).
+//
+// The selection (select_tile) is filter, then merge. Every lane of a quad
+// holds its row's list alike, and one compare a logit against the list's
+// k-th value drops nearly everything: beyond a split's first tiles a
+// value rarely enters a row's top-k (about k ln(n / k) of a split's n
+// columns do). A split's first tile, where the list is empty, and any tile
+// where a quad has many survivors (a run of records) are filtered again by
+// the k-th of the 8 pairs that are the quad's lanes' two best: a bound from
+// the tile alone. The survivors merge into the list once a tile: the lanes
+// store the row's values in the B tiles (free between a tile's last product
+// and the next tile's dequant, so shared memory, and with it the plan, is
+// what it was) and each lane of the quad inserts the quad's survivors, in
+// one order, into its copy of the list; the loop runs as often as the
+// warp's busiest quad has survivors. At the end of the split lane 0 of each
+// quad writes the row's list; (max, sum) merge by shuffles. The logits
+// never reach device memory. What bounds the selection is its share of the
+// CUDA cores' time between one tile's products and the next, which it does
+// not overlap: an exponential and a compare a logit, the scratch stores
+// where a warp has a survivor, and one insert (a few selects deep) a
+// survivor. On an H100 at the serving shape it is ~74 us of a ~160 us call.
 //
 // f32 compute stays on the CUDA cores (topk_partial_kernel over tile_mma,
 // logits through a shared-memory tile, 4 threads a row): the tensor cores
@@ -59,9 +77,15 @@
 // and the f32 activations read once, the candidates written), ~3,600
 // operations per byte, so the bf16 tensor-core rate bounds it: 21.7 us at
 // 989 TFLOP/s. Beyond the products, every block unpacks and dequantizes
-// its split's weights once (5 row tiles of 256 rows: 42 M weights a call)
+// its split's weights once (10 row tiles of 128 rows: 84 M weights a call)
 // and the CUDA cores take one exponential and one compare per logit
 // (41.9 M logits); both run beside the tensor cores, not on them.
+//
+// The generator's device work stays in kernels whose names hold
+// topk_tc_kernel, topk_tc_stream_kernel, topk_partial_kernel or
+// topk_merge_kernel: the benchmark's generator_roofline finds the
+// generator's time by those names, so a renamed or added kernel would drop
+// its time from the share and inflate it.
 
 #include <limits.h>
 #include <math.h>
@@ -219,10 +243,16 @@ __global__ void __launch_bounds__(THREADS)
 
 // ----------------------------------------------- bf16 compute, tensor cores
 
-// The state of R rows of one thread: an exact top-KMAX of (value, index) in
-// (value desc, index asc) order, its k-th value (the entry below which
-// nothing can reach the row's top-k), and an online (max, sum of
-// exp(x - max)).
+constexpr unsigned FULL = 0xffffffffu;
+// Survivors of a quad above which a tile is filtered again by its own best
+// pairs before the merge (the first tile of a split, a run of records).
+constexpr int HEAVY = 2 * KMAX;
+
+// The state of R rows of one thread. The 4 lanes of a quad share their
+// rows in wgmma's layout and hold each row's list alike: its exact top-KMAX
+// so far of (value, index) in (value desc, index asc) order, and its
+// ktop-th value, the filter's threshold. Each lane keeps its own online
+// (max, sum of exp(x - max)) over its columns.
 template <int R>
 struct Rows {
   float tv[R][KMAX];
@@ -241,6 +271,82 @@ struct Rows {
     }
   }
 };
+
+// Column of value e of a thread's row of a tile, less 2 (lane % 4), in
+// wgmma's layout (sub-tile e / 16, column 8 c + 2 (lane % 4) + u where
+// e % 16 = 2 c + u). It grows with e.
+__device__ __forceinline__ unsigned col_of(unsigned e) { return e / 16 * 64 + e % 16 / 2 * 8 + e % 2; }
+
+// Inserts (v, i), a pair not in the list, into a list kept in (value desc,
+// index asc) order. Every entry is compared with it at once, then each is
+// kept, replaced or shifted down: a few selects deep, where a chain of
+// compare-and-swaps is KMAX steps deep.
+__device__ __forceinline__ void insert_wide(float (&tv)[KMAX], int (&ti)[KMAX], float v, int i) {
+  bool ahead[KMAX];
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) ahead[j] = better(tv[j], ti[j], v, i);
+#pragma unroll
+  for (int j = KMAX - 1; j > 0; --j) {
+    tv[j] = ahead[j] ? tv[j] : ahead[j - 1] ? v : tv[j - 1];
+    ti[j] = ahead[j] ? ti[j] : ahead[j - 1] ? i : ti[j - 1];
+  }
+  tv[0] = ahead[0] ? tv[0] : v;
+  ti[0] = ahead[0] ? ti[0] : i;
+}
+
+// e^x through the MUFU's ex2, subnormal results flushed to 0: a term under
+// 2^-126 of a sum whose largest term is 1 moves nothing, and __expf spends 4
+// more instructions a value keeping them.
+__device__ __forceinline__ float exp_ftz(float x) {
+#ifdef __CUDA_ARCH__
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+#else
+  return expf(x);
+#endif
+}
+
+__device__ __forceinline__ int quad_sum(int x) {
+  x += __shfl_xor_sync(FULL, x, 1);
+  return x + __shfl_xor_sync(FULL, x, 2);
+}
+
+// Pair (x, xi) ahead of (y, yi) in the list order; equal pairs (only empty
+// ones, (-inf, INT_MAX)) by the order of their slots, `first` when x's slot
+// comes first.
+__device__ __forceinline__ int ahead_of(float x, int xi, float y, int yi, bool first) {
+  return better(x, xi, y, yi) || (first && x == y && xi == yi);
+}
+
+// The ktop-th (<= 8) of the 8 pairs that a quad's lanes give, each its two
+// best of a row's tile, (a1, n1) before (a2, n2): 8 actual pairs of the row,
+// so at least ktop of its pairs are at or ahead of it. The 8 ranks are 0..7
+// and one lane holds rank ktop - 1; every lane of the quad returns it.
+__device__ __forceinline__ void quad_kth(float a1, int n1, float a2, int n2, int ktop, float& kv,
+                                         int& ki) {
+  const int q = threadIdx.x % 4;
+  int r1 = 0, r2 = 1;
+#pragma unroll
+  for (int d = 1; d < 4; ++d) {
+    const float b1 = __shfl_xor_sync(FULL, a1, d), b2 = __shfl_xor_sync(FULL, a2, d);
+    const int m1 = __shfl_xor_sync(FULL, n1, d), m2 = __shfl_xor_sync(FULL, n2, d);
+    const bool first = (q ^ d) < q;
+    r1 += ahead_of(b1, m1, a1, n1, first) + ahead_of(b2, m2, a1, n1, first);
+    r2 += ahead_of(b1, m1, a2, n2, first) + ahead_of(b2, m2, a2, n2, first);
+  }
+  int has = r1 == ktop - 1 || r2 == ktop - 1;
+  kv = r1 == ktop - 1 ? a1 : a2;
+  ki = r1 == ktop - 1 ? n1 : n2;
+#pragma unroll
+  for (int d = 1; d < 4; d *= 2) {
+    const float ov = __shfl_xor_sync(FULL, kv, d);
+    const int oi = __shfl_xor_sync(FULL, ki, d), oh = __shfl_xor_sync(FULL, has, d);
+    kv = has ? kv : ov;
+    ki = has ? ki : oi;
+    has |= oh;
+  }
+}
 
 // The bias of this thread's columns of the tile at col0 in wgmma's layout
 // (sub-tile sub, column 8 c + 2 (lane % 4) + u at b[sub][2 c + u]); -inf at
@@ -263,64 +369,137 @@ __device__ __forceinline__ void load_bias(const float* __restrict__ bias, int co
 // holds acc[mt * NSUB + sub][4 c + 2 h + u] at column sub * 64 + 8 c +
 // 2 (lane % 4) + u: value e = 16 sub + 2 c + u of the row), b its bias
 // (load_bias). Per row: the tile's max, one rescale and one exponential a
-// value; then a bitmask of the values at or above the largest k-th value
-// of the quad (any value below it has k better ones in one lane's list, so
-// it cannot reach the row's top-k), and an insertion for each set bit
-// only. Masked columns (-inf) are never inserted.
+// value; then filter, then merge.
+//
+// Filter: a bitmask of the values above the row's ktop-th value. Exact for
+// any input: a value below it has ktop better ones in the list, and one
+// equal to it loses the tie, since the tile's columns come after all of the
+// list's. Where a quad's survivors exceed HEAVY (the list is empty at a split's
+// first tile, or the tile is a run of records), the tile is filtered again
+// by the better of the list's ktop-th pair and the ktop-th of the 8 pairs
+// that are its lanes' two best (quad_kth, one past it so that it passes),
+// pair by pair, so ties keep only what the lower index can still win.
+//
+// Merge: where any lane of the warp has a survivor, each lane stores its
+// row's values in `scratch` (VALS floats a thread) and the quad's 4 masks
+// go to every lane of the quad; each lane reads the quad's survivors in one
+// order and inserts them into its copy of the list (insert_wide), so the 4
+// copies stay equal. The loop runs as often as the warp's busiest quad has
+// survivors, not its busiest lane's values. Masked columns (-inf) never
+// pass.
 template <int MT, int NSUB>
 __device__ __forceinline__ void select_tile(const float (&acc)[MT * NSUB][32],
                                             const float (&b)[NSUB][16], int col0, int ktop,
-                                            Rows<2 * MT>& rows) {
+                                            float* scratch, Rows<2 * MT>& rows) {
   constexpr int VALS = 16 * NSUB;  // values of a row in this thread
+  constexpr int CH = VALS / 4;     // their 16-byte chunks
   static_assert(VALS <= 32, "one mask bit a value");
-  const int q = threadIdx.x % 4;
+  const int q = threadIdx.x % 4, lane = threadIdx.x % 32;
+  const int base = col0 + 2 * q;  // column of value e: base + col_of(e)
+  // value e of thread row r (= 2 mt + h)
+  auto value = [&](int r, int e) {
+    return acc[r / 2 * NSUB + e / 16][4 * (e % 16 / 2) + 2 * (r % 2) + e % 2] + b[e / 16][e % 16];
+  };
+  // every row's (max, sum) and filter first, in straight-line code; then
+  // the merges, which branch
+  uint32_t cands[2 * MT];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int r = 0; r < 2 * MT; ++r) {
+    float v[VALS];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = 2 * mt + h;
-      float v[VALS];
+    for (int e = 0; e < VALS; ++e) v[e] = value(r, e);
+    float mx4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};  // 4 independent chains
+#pragma unroll
+    for (int e = 0; e < VALS; ++e) mx4[e % 4] = fmaxf(mx4[e % 4], v[e]);
+    const float mx = fmaxf(fmaxf(mx4[0], mx4[1]), fmaxf(mx4[2], mx4[3]));
+    const float nm = fmaxf(rows.m[r], mx);  // -inf while every column so far was masked
+    const float ref = nm == -INFINITY ? 0.f : nm;
+    float sum4[4] = {rows.s[r] * exp_ftz(rows.m[r] - ref), 0.f, 0.f, 0.f};  // one rescale a tile
+#pragma unroll
+    for (int e = 0; e < VALS; ++e) sum4[e % 4] += exp_ftz(v[e] - ref);
+    rows.s[r] = (sum4[0] + sum4[1]) + (sum4[2] + sum4[3]);
+    rows.m[r] = nm;
+    cands[r] = 0;
+#pragma unroll
+    for (int e = 0; e < VALS; ++e) cands[r] |= (uint32_t)(v[e] > rows.kth[r]) << e;
+  }
+#pragma unroll
+  for (int r = 0; r < 2 * MT; ++r) {
+    float v[VALS];
+#pragma unroll
+    for (int e = 0; e < VALS; ++e) v[e] = value(r, e);
+    uint32_t cand = cands[r];
+    if (__any_sync(FULL, quad_sum(__popc(cand)) > HEAVY)) {
+      float a1 = -INFINITY, a2 = -INFINITY;
+      int e1 = 0, e2 = 0;
+#pragma unroll
+      for (int e = 0; e < VALS; ++e) {  // strict: the lower column keeps a tie
+        const bool gt1 = v[e] > a1, gt2 = v[e] > a2;
+        a2 = gt1 ? a1 : gt2 ? v[e] : a2;
+        e2 = gt1 ? e1 : gt2 ? e : e2;
+        a1 = gt1 ? v[e] : a1;
+        e1 = gt1 ? e : e1;
+      }
+      float kv;
+      int ki;
+      quad_kth(a1, a1 == -INFINITY ? INT_MAX : base + col_of(e1), a2,
+               a2 == -INFINITY ? INT_MAX : base + col_of(e2), ktop, kv, ki);
+      ki += ki != INT_MAX;  // so that the pair itself passes
+      float lv = rows.tv[r][0];
+      int li = rows.ti[r][0];
+#pragma unroll
+      for (int j = 1; j < KMAX; ++j) {
+        lv = j == ktop - 1 ? rows.tv[r][j] : lv;
+        li = j == ktop - 1 ? rows.ti[r][j] : li;
+      }
+      if (better(lv, li, kv, ki)) kv = lv, ki = li;
+      const int lim = ki - base;
+      cand = 0;
 #pragma unroll
       for (int e = 0; e < VALS; ++e)
-        v[e] = acc[mt * NSUB + e / 16][4 * (e % 16 / 2) + 2 * h + e % 2] + b[e / 16][e % 16];
-      // max and sum in 4 independent chains: at 8 warps an SM this code is
-      // bound by latency, not by instruction throughput
-      float mx4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-#pragma unroll
-      for (int e = 0; e < VALS; ++e) mx4[e % 4] = fmaxf(mx4[e % 4], v[e]);
-      const float mx = fmaxf(fmaxf(mx4[0], mx4[1]), fmaxf(mx4[2], mx4[3]));
-      const float nm = fmaxf(rows.m[r], mx);  // -inf while every column so far was masked
-      const float ref = nm == -INFINITY ? 0.f : nm;
-      float sum4[4] = {rows.s[r] * __expf(rows.m[r] - ref), 0.f, 0.f, 0.f};  // one rescale a tile
-#pragma unroll
-      for (int e = 0; e < VALS; ++e) sum4[e % 4] += __expf(v[e] - ref);
-      rows.s[r] = (sum4[0] + sum4[1]) + (sum4[2] + sum4[3]);
-      rows.m[r] = nm;
-      float thr = rows.kth[r];
-      thr = fmaxf(thr, __shfl_xor_sync(0xffffffffu, thr, 1));
-      thr = fmaxf(thr, __shfl_xor_sync(0xffffffffu, thr, 2));
-      uint32_t cand = 0;
-#pragma unroll
-      for (int e = 0; e < VALS; ++e) cand |= (uint32_t)(v[e] >= thr && v[e] != -INFINITY) << e;
-      while (cand) {
-        const int c = __ffs(cand) - 1;
-        cand &= cand - 1;
-        float vc = 0.f;
-#pragma unroll
-        for (int e = 0; e < VALS; ++e) vc = e == c ? v[e] : vc;
-        insert(rows.tv[r], rows.ti[r], vc, col0 + (c / 16) * 64 + 8 * (c % 16 / 2) + 2 * q + c % 2);
-        float kv = rows.tv[r][0];
-#pragma unroll
-        for (int j = 1; j < KMAX; ++j) kv = j == ktop - 1 ? rows.tv[r][j] : kv;
-        rows.kth[r] = kv;
-      }
+        cand |= (uint32_t)((v[e] > kv) | ((v[e] == kv) & ((int)col_of(e) < lim)) & (v[e] != -INFINITY))
+                << e;
     }
+    if (__any_sync(FULL, cand != 0)) {
+      // the warp's values chunk-major ([16-byte chunk][lane]): a quarter
+      // warp's stores fill 128 consecutive bytes
+      float* const warp = scratch + threadIdx.x / 32 * 32 * VALS;
+#pragma unroll
+      for (int c = 0; c < CH; ++c)
+        reinterpret_cast<float4*>(warp)[c * 32 + lane] =
+            make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+      __syncwarp();
+      uint64_t w0 = 0, w1 = 0;  // bit VALS j + e of (w1, w0): value e of lane j of the quad
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint64_t m = (uint64_t)__shfl_sync(FULL, cand, (lane & ~3) | j) << (j * VALS % 64);
+        if (j * VALS < 64) w0 |= m;
+        else w1 |= m;
+      }
+      const unsigned qlane = lane & ~3u;
+      while (w0 | w1) {
+        const bool high = w0 == 0;
+        const uint64_t word = high ? w1 : w0;
+        const unsigned bit = __ffsll((long long)word) - 1 + (high ? 64 : 0);
+        if (high) w1 = word & (word - 1);
+        else w0 = word & (word - 1);
+        const unsigned j = bit / VALS, c = bit % VALS;
+        insert_wide(rows.tv[r], rows.ti[r], warp[(c / 4 * 32 + qlane + j) * 4 + c % 4],
+                    col0 + 2 * j + col_of(c));
+      }
+      __syncwarp();  // the quad's reads, before the next row's stores
+      float kv = rows.tv[r][0];
+#pragma unroll
+      for (int j = 1; j < KMAX; ++j) kv = j == ktop - 1 ? rows.tv[r][j] : kv;
+      rows.kth[r] = kv;
+    }
+  }
 }
 
-// End of a split: merges the lists and (max, sum) of the 4 lanes of each
-// quad (they share rows in wgmma's layout) into lane q = 0, which writes the
-// split's entry of each of its rows below M. Thread row 2 mt + h is global
-// row rowp + 64 mt + 8 h.
+// End of a split: merges the (max, sum) of the 4 lanes of each quad (they
+// share rows in wgmma's layout, and hold the rows' lists alike) into lane
+// q = 0, which writes the split's entry of each of its rows below M. Thread
+// row 2 mt + h is global row rowp + 64 mt + 8 h.
 template <int MT>
 __device__ __forceinline__ void write_split(Rows<2 * MT>& rows, int rowp, int M, int split,
                                             int splits, const Parts& out) {
@@ -329,20 +508,9 @@ __device__ __forceinline__ void write_split(Rows<2 * MT>& rows, int rowp, int M,
   for (int r = 0; r < 2 * MT; ++r) {
 #pragma unroll
     for (int off = 2; off >= 1; off /= 2) {
-      float ov[KMAX];
-      int oi[KMAX];
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j) {
-        ov[j] = __shfl_down_sync(0xffffffffu, rows.tv[r][j], off);
-        oi[j] = __shfl_down_sync(0xffffffffu, rows.ti[r][j], off);
-      }
-      const float om = __shfl_down_sync(0xffffffffu, rows.m[r], off);
-      const float os = __shfl_down_sync(0xffffffffu, rows.s[r], off);
-      if (q < off) {
-#pragma unroll
-        for (int j = 0; j < KMAX; ++j) insert(rows.tv[r], rows.ti[r], ov[j], oi[j]);
-        lse_merge(rows.m[r], rows.s[r], om, os);
-      }
+      const float om = __shfl_down_sync(FULL, rows.m[r], off);
+      const float os = __shfl_down_sync(FULL, rows.s[r], off);
+      if (q < off) lse_merge(rows.m[r], rows.s[r], om, os);
     }
     const int row = rowp + 64 * (r / 2) + 8 * (r % 2);
     if (q == 0 && row < M) {
@@ -428,6 +596,7 @@ struct Gen : tc::WSide<LUT, BITS, BN, WG * tc::WG_THREADS> {
   static constexpr int A_OFF = gen_fixed_bytes(LUT, BITS, BN);
   static_assert(BN % 64 == 0, "vocab tiles are whole m64n64 sub-tiles");
   static_assert(BAR_OFF + 8 * STAGES <= A_OFF && A_OFF % 1024 == 0, "layout and size disagree");
+  static_assert(W::THREADS * W::BN <= 2 * W::B_BYTES, "select_tile's scratch fits in the B tiles");
   static constexpr int smem(int ks) { return gen_smem_bytes(ROWS, LUT, BITS, BN, ks); }
 };
 
@@ -520,7 +689,8 @@ __global__ void __launch_bounds__(WG * tc::WG_THREADS)
     for (int u = 0; u < MT * W::NSUB; ++u)
 #pragma unroll
       for (int e = 0; e < 32; ++e) tc::fence_operand(acc[u][e]);
-    select_tile<MT, W::NSUB>(acc, b, col0, ktop, rows);
+    __syncthreads();  // every warpgroup's products are done: the B tiles are scratch until the next dequant
+    select_tile<MT, W::NSUB>(acc, b, col0, ktop, reinterpret_cast<float*>(b_tiles), rows);
   }
   const int lane = tid % 32, warp = (tid % tc::WG_THREADS) / 32;
   write_split<MT>(rows, row0 + tc::BM * MT * wg + 16 * warp + lane / 4, M, blockIdx.y, splits,
@@ -537,6 +707,7 @@ __global__ void __launch_bounds__(tc::WG_THREADS)
                           int M, int K, int N, int64_t row_bytes, int tiles_per_split,
                           int splits, int ktop, Parts out) {
   using T = tc::Tile<XT, LUT, BITS, 64, 1, 1>;
+  static_assert(T::THREADS * 64 <= 2 * T::B_BYTES, "select_tile's scratch fits in the B tiles");
   extern __shared__ uint8_t dyn[];
   uint8_t* smem = dyn + ((1024 - (tc::smem_addr(dyn) & 1023)) & 1023);
   if constexpr (LUT) load_lut(points, BITS, reinterpret_cast<float*>(smem + T::LUT_OFF));
@@ -552,7 +723,8 @@ __global__ void __launch_bounds__(tc::WG_THREADS)
     for (int e = 0; e < 32; ++e) acc[0][e] = 0.f;
     tc::tile_mma_tc<XT, LUT, BITS, 64, 1, 1>(x, M, K, packed, scale, offset, row_bytes, N, row0,
                                              t * 64, false, nullptr, acc, smem);
-    select_tile<1, 1>(acc, b, t * 64, ktop, rows);
+    __syncthreads();  // every warp's products are done: the B tiles are scratch until the next dequant
+    select_tile<1, 1>(acc, b, t * 64, ktop, reinterpret_cast<float*>(smem + T::B_OFF), rows);
   }
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   write_split<1>(rows, row0 + 16 * warp + lane / 4, M, blockIdx.y, splits, out);

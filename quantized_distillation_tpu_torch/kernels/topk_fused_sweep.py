@@ -2,6 +2,7 @@
 
     python -m quantized_distillation_tpu_torch.kernels.topk_fused_sweep tiles
     python -m quantized_distillation_tpu_torch.kernels.topk_fused_sweep ablate [--bits 2,4,8]
+    python -m quantized_distillation_tpu_torch.kernels.topk_fused_sweep count
 
 Builds variants of ``csrc/topk_fused.cu`` that differ from the sources in
 ``csrc/`` by the edits of one preset below, each of which replaces one
@@ -10,10 +11,12 @@ started together). Nothing in the package imports this module. Then it
 times every variant's whole call (pass 1 and the merge) with
 :func:`graph_ms` at the serving shape (student_medium: 1280 rows, K = 256,
 x f32 as the decode step gives it, k = 5), on the uniform generator (N =
-32768 with a -1e9 bias past 32000) and on a codebook generator (N = 32000
-packed to 32768 with edge weights, masked in the kernel), beside one
-PyTorch call computing the same function (bf16 ``torch.matmul`` on the
-dequantized weight, + bias, ``torch.topk``, ``torch.logsumexp``). It prints
+32768 with a -1e9 bias past 32000), on the same weights under a climbing
+bias (every column a record: the selection's worst case) and on a codebook
+generator (N = 32000 packed to 32768 with edge weights, masked in the
+kernel), beside one PyTorch call computing the same function (bf16
+``torch.matmul`` on the dequantized weight, + bias, ``torch.topk``,
+``torch.logsumexp``). It prints
 the card's name and power limit, then one JSON line per generator: for each
 variant its plan (rows per block, columns per tile, splits, blocks,
 blocks per SM), microseconds per call and whether values and lse match the
@@ -21,7 +24,10 @@ plain version within the tests' 1e-4 with equal indices. ``tiles`` compares
 configuration tables (``GEN_SHAPES``), ring depth and splits; ``ablate``
 takes one stage of pass 1 out at a time, which shows where the chosen
 kernel's time goes (those variants compute something else, so they do not
-match). Needs a card and ``nvcc``.
+match); ``count`` builds the selection's counters in (they cost time, so
+its timing is not the kernel's) and adds, per generator, the share of the
+logits that passed the filter and the tiles merged and taken by the heavy
+path per row and split. Needs a card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -64,12 +70,42 @@ def _waves(expr: str):
     return _gen(_WAVE, _WAVE.replace("tc::sm_count() * max(per_sm, 1)", expr))
 
 
-_NO_SELECT = _gen("select_tile<MT, W::NSUB>(acc, b, col0, ktop, rows);", ";")
-_NO_LSE = _gen("for (int e = 0; e < VALS; ++e) sum4[e % 4] += __expf(v[e] - ref);", ";")
-_NO_INSERT = _gen("while (cand) {", "while (cand && false) {")
+_NO_SELECT = _gen("select_tile<MT, W::NSUB>(acc, b, col0, ktop, reinterpret_cast<float*>(b_tiles), rows);", ";")
+_NO_LSE = _gen("for (int e = 0; e < VALS; ++e) sum4[e % 4] += exp_ftz(v[e] - ref);", ";")
+# the whole top-k stage: nothing passes the filter, so no heavy path and no merge
+_NO_FILTER = _gen("for (int e = 0; e < VALS; ++e) cands[r] |= (uint32_t)(v[e] > rows.kth[r]) << e;", ";")
+# the tile's own key off: a split's first tile merges every value
+_NO_HEAVY = _gen("if (__any_sync(FULL, quad_sum(__popc(cand)) > HEAVY)) {", "if (false) {")
+# no inserts: the threshold stays at the first tile's key, never refreshed,
+# so the filter and the scratch stores run at least as often as chosen's
+_NO_MERGE = [_gen("rows.kth[r] = kv;", ";"),
+             _gen("if (better(lv, li, kv, ki)) kv = lv, ki = li;",
+                  "if (better(lv, li, kv, ki)) kv = lv, ki = li;\n        rows.kth[r] = kv;"),
+             _gen("while (w0 | w1) {", "while (false && (w0 | w1)) {")]
 _NO_DEQUANT = _gen("tc::transform_b<W>(task, p_stage(st), so_stage(st), lut, table, bt);", ";")
 _NO_MMA = _gen("for (int k16 = 0; k16 < tc::BK / 16; ++k16) {", "for (int k16 = 0; k16 < 0; ++k16) {")
 _NO_X = _gen("load_x_resident<XT, G::ROWS, W::THREADS>(x, M, K, row0, ks, vec, a_tiles);", ";")
+# Counters, read by qdt_topk_fused_counts: values that passed the filter,
+# (row, tile)s merged, (row, tile)s that took the heavy path
+_COUNT = [
+    _gen("constexpr int HEAVY = 2 * KMAX;",
+         "constexpr int HEAVY = 2 * KMAX;\n__device__ unsigned long long sel_counts[3];\n"
+         "__device__ __forceinline__ void sel_count(int k, unsigned n) {\n"
+         "  n = __reduce_add_sync(FULL, n);\n"
+         "  if (threadIdx.x % 32 == 0 && n) atomicAdd(&sel_counts[k], (unsigned long long)n);\n}"),
+    _gen("ki += ki != INT_MAX;", "sel_count(2, threadIdx.x % 4 == 0);\n        ki += ki != INT_MAX;"),
+    _gen("float* const warp = scratch + threadIdx.x / 32 * 32 * VALS;",
+         "sel_count(0, __popc(cand));\n"
+         "      sel_count(1, (quad_sum(__popc(cand)) > 0) & (threadIdx.x % 4 == 0));\n"
+         "      float* const warp = scratch + threadIdx.x / 32 * 32 * VALS;"),
+    _gen('extern "C" int qdt_topk_fused_plan(',
+         'extern "C" int qdt_topk_fused_counts(unsigned long long* host, int reset) {\n'
+         "  cudaError_t e = cudaMemcpyFromSymbol(host, qdt::sel_counts, sizeof(qdt::sel_counts));\n"
+         "  const unsigned long long zero[3] = {};\n"
+         "  if (e == cudaSuccess && reset) e = cudaMemcpyToSymbol(qdt::sel_counts, zero, sizeof(zero));\n"
+         "  return static_cast<int>(e);\n}\n"
+         'extern "C" int qdt_topk_fused_plan('),
+]
 _NO_COPY = [_gen("tc::mbar_expect_tx(tma && tid == 0, &full[st], W::P_BYTES + W::SO_BYTES);", ";"),
             ("dequant_tile_tc.cuh", "const bool lead = tid == 0;", "const bool lead = tid < 0;"),
             _gen("if (tma) tc::mbar_wait(&full[st], (i / G::STAGES) & 1);  // or the TMA's", ";")]
@@ -90,13 +126,16 @@ PRESETS = {
         "chosen": [],
         "no_select": [_NO_SELECT],
         "no_lse": [_NO_LSE],
-        "no_insert": [_NO_INSERT],
+        "no_filter": [_NO_FILTER],
+        "no_heavy": [_NO_HEAVY],
+        "no_merge": _NO_MERGE,
         "no_dequant": [_NO_DEQUANT],
         "no_wgmma": [_NO_MMA],
         "no_x_load": [_NO_X],
         "no_copy": _NO_COPY,
         "loop_only": _NO_COPY + [_NO_DEQUANT, _NO_MMA, _NO_SELECT, _NO_X],
     },
+    "count": {"count": _COUNT},
 }
 
 ROWS, K, V, K_TOP = 1280, 256, 32000, 5  # B = 256 x beam 5; student_medium; WMT vocab
@@ -104,15 +143,38 @@ PADDED = 32768  # the vocab padded to the generator group (pick_generator_group(
 
 
 def generators(bits: int, gen: torch.Generator):
-    """The uniform serving generator (N padded, -1e9 bias past V) and a
-    codebook one (N = V, padded with edge weights, masked in the kernel)."""
+    """The uniform serving generator (N padded, -1e9 bias past V), the same
+    weights under a bias that climbs 16 a column (every column below V a
+    new record: the selection's worst case) and a codebook generator (N =
+    V, padded with edge weights, masked in the kernel)."""
     bias = torch.randn(PADDED, generator=gen)
     bias[V:] = -1e9
-    uni = pack_linear(torch.randn(K, PADDED, generator=gen) * 0.1, bits, bias=bias)
+    w = torch.randn(K, PADDED, generator=gen) * 0.1
+    uni = pack_linear(w, bits, bias=bias)
+    climb = bias.clone()
+    climb[:V] = 16.0 * torch.arange(V, dtype=torch.float32)
+    ascending = pack_linear(w, bits, bias=climb)
     pts = torch.rand(1 << bits, generator=gen) * 1.2 - 0.1
     lut = pack_linear(torch.randn(K, V, generator=gen) * 0.1, bits, bias=bias[:V].clone(),
                       points=pts, max_group=16)
-    return {"uniform": uni.to("cuda"), "lut": lut.to("cuda")}
+    return {"uniform": uni.to("cuda"), "uniform_ascending": ascending.to("cuda"),
+            "lut": lut.to("cuda")}
+
+
+def selection_counts(lib, call, variant: str, n: int, splits: int) -> dict:
+    """The counting variant's engagement counters over one call: the share
+    of the logits that passed the filter, and per row and split the tiles
+    merged and the tiles that took the heavy path."""
+    counts = (ctypes.c_ulonglong * 3)()
+    read = _build.bind(lib, "qdt_topk_fused_counts", [ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int])
+    _build.check(read(counts, 1), variant)  # and reset
+    call()
+    torch.cuda.synchronize()
+    _build.check(read(counts, 0), variant)
+    passed, merged, heavy = (int(c) for c in counts)
+    return {"passed": passed, "passed_share": passed / (ROWS * n),
+            "merges_per_row_split": merged / (ROWS * splits),
+            "heavy_per_row_split": heavy / (ROWS * splits)}
 
 
 def sweep(preset: str, bits_list=(4,), seed: int = 0) -> None:
@@ -161,6 +223,8 @@ def sweep(preset: str, bits_list=(4,), seed: int = 0) -> None:
                 row[variant] = {"us": graph_ms(call) * 1e3, "match": match,
                                 "plan": [plan[k] for k in ("BM", "BN", "splits", "blocks",
                                                            "blocks_per_sm")]}
+                if preset == "count":
+                    row[variant].update(selection_counts(lib, call, variant, n, splits))
             print(json.dumps(row), flush=True)
 
 

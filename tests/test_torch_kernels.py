@@ -298,7 +298,7 @@ class TestDequantMatmulWrapper:
             for fname, old, _ in edits:
                 assert (_build.CSRC / fname).read_text().count(old) == 1, (name, fname, old)
 
-    @pytest.mark.parametrize("preset", ["tiles", "ablate"])
+    @pytest.mark.parametrize("preset", ["tiles", "ablate", "count"])
     def test_topk_sweep_edits_each_match_the_sources_once(self, preset):
         from quantized_distillation_tpu_torch.kernels import _build
         from quantized_distillation_tpu_torch.kernels.topk_fused_sweep import PRESETS
@@ -553,6 +553,55 @@ def test_gpu_topk_fused_bf16_ties_exact(cuda, lut):
     want = dequant_matmul_topk_reference(x, p, 8, compute_dtype=torch.bfloat16)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     torch.testing.assert_close(got[2], want[2], rtol=1e-4, atol=1e-4)
+
+
+def _adversarial_bias(pattern, n, rng):
+    """Bias streams built against the selection's filter: every column a
+    record, every column worse than the first, one value everywhere (with
+    zero weights: ties across lanes, quads, tiles and splits), distinct
+    integers with the row's best in the last column."""
+    if pattern == "ascending":
+        return np.arange(n, dtype=np.float32)
+    if pattern == "descending":
+        return -np.arange(n, dtype=np.float32)
+    if pattern == "equal":
+        return np.full(n, 0.5, np.float32)
+    bias = rng.permutation(n).astype(np.float32)
+    bias[n - 1] = n + 100.0
+    return bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["ascending", "descending", "equal", "best_last"])
+@pytest.mark.parametrize("shape", [(1280, 256, 32768), (130, 256, 5000), (65, 2048, 700)])
+@pytest.mark.parametrize("lut", [False, True])
+def test_gpu_topk_fused_bf16_adversarial_exact(cuda, pattern, shape, lut):
+    """The tensor-core generator on streams that defeat a threshold, at the
+    serving shape, a ragged N (not a multiple of any vocab tile) and K =
+    2048 (the streamed-x instance), k = 1, 5 and 8. The bias sets the order
+    (gaps of 1 or more) and x @ W adds at most ~0.3, so the order is exact
+    in bf16: indices equal, values and lse at rtol = atol = 1e-4."""
+    m, k, n = shape
+    rng = np.random.default_rng(m + k + n + lut + len(pattern))
+    pts = _points(rng, 4)
+    pts[3] = 0.0  # zero weights dequantize to exactly 0 through the codebook too
+    kw = dict(points=torch.from_numpy(pts), lut_mode="exact", max_group=16) if lut else {}
+    w = np.zeros((k, n), np.float32) if pattern == "equal" else rng.standard_normal((k, n))
+    p = pack_linear(torch.from_numpy(w.astype(np.float32)), 4,
+                    bias=torch.from_numpy(_adversarial_bias(pattern, n, rng)), **kw).to(cuda)
+    if pattern == "equal":
+        assert not dequantize_linear(p).any()
+    x = torch.from_numpy((rng.standard_normal((m, k)) * 0.05 / np.sqrt(k)).astype(np.float32)).to(cuda)
+    for k_top in (1, 5, 8):
+        counts = (dequant_matmul_topk.launches, dequant_matmul_topk.launches_lut)
+        v, i, lse = dequant_matmul_topk(x, p, k_top, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert (dequant_matmul_topk.launches, dequant_matmul_topk.launches_lut) == (
+            (counts[0], counts[1] + 1) if lut else (counts[0] + 1, counts[1]))
+        rv, ri, rlse = dequant_matmul_topk_reference(x, p, k_top, compute_dtype=torch.bfloat16)
+        assert torch.equal(i, ri), (k_top, pattern)
+        torch.testing.assert_close(v, rv, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(lse, rlse, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
