@@ -48,7 +48,16 @@ Phases, each printing one JSON line:
 6. train kernel: the fake-quant kernel at the train step's shape (every
    quantizable leaf of student_medium: 105,984 buckets x 256), bit-exact
    against its plain version for 2/4/8 bits x linear/abs-max and on
-   constant and zero buckets, timed against the plain version;
+   constant and zero buckets, timed against the plain version; then the
+   grouped expert matmul (``csrc/grouped_matmul.cu``) at the DeepSeek-V2
+   cell's shapes (:func:`phase_grouped_kernel`: T = 16,384 tokens, P = 6T
+   pairs, 8 uneven held groups with an empty one and a discard group after
+   them, 2048 -> 1408 with the rows gathered and 1408 -> 2048 without):
+   forward, data and weight gradient against the plain versions on the
+   same inputs (f32: rtol 1e-5, atol 2e-5 of the largest |value|), the
+   discard rows 0, the rows each group's tiles covered, the launches (2
+   products and 1 weight gradient a direction, counters zeroed just
+   before), and the device ms of a forward and of a forward + backward;
 7. train path: 4-bit STE knowledge distillation of student_medium from the
    2x500 teacher at ``bench.py --train --family seq2seq``'s shape (V=32000,
    B=128, L=24, Adam 1e-3, clip 5, KD w=0.7 T=5): ``nmt_task`` →
@@ -393,6 +402,8 @@ from quantized_distillation_tpu_torch.kernels import (
     dequantize_linear,
     fake_quant_buckets,
     fake_quant_buckets_reference,
+    grouped_matmul,
+    grouped_matmul_reference,
     launch_counts,
     pack_linear,
     pick_generator_group,
@@ -1079,6 +1090,74 @@ def phase_train_kernel(checks, student, gen) -> dict:
         "bound_ms": bms, "bound_by": by, "library_ms": None,
         "library": "no single PyTorch call computes bucketed min/max fake-quant",
     }
+
+
+GROUPED_TOKENS = 16384  # the dsv2lite cell's tokens a step (4 x 4096), 6 pairs each
+GROUPED_SIZES = [2900, 0, 4100, 17, 1, 1500, 3001, 900]  # 8 held experts' rows
+GROUPED_RTOL, GROUPED_ATOL = 1e-5, 2e-5  # f32 sums in another order; atol x max |value|
+
+
+def phase_grouped_kernel(checks, seed: int) -> dict:
+    """The grouped expert matmul at the DeepSeek-V2 cell's shapes (phase 6):
+    each direction's forward, data gradient and weight gradient against
+    the plain versions (``grouped_matmul_reference``, ``grouped_wgrad_
+    reference``) on the same inputs, the discard rows, the covered rows,
+    the launches; then device ms."""
+    from quantized_distillation_tpu_torch.kernels.grouped_matmul import grouped_wgrad_reference
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t, p, hidden, width = GROUPED_TOKENS, 6 * GROUPED_TOKENS, 2048, 1408
+    held = sum(GROUPED_SIZES)
+    offsets = torch.tensor([0, *itertools.accumulate(GROUPED_SIZES)], dtype=torch.int64,
+                           device=dev)
+    rows = torch.randint(0, t, (p,), generator=gen, device=dev)
+    result = {}
+    for name, k, n, gather in (("gate", hidden, width, True), ("down", width, hidden, False)):
+        x = torch.randn(t if gather else p, k, generator=gen, device=dev)
+        w = torch.randn(len(GROUPED_SIZES), k, n, generator=gen, device=dev) / k ** 0.5
+        dy = torch.randn(p, n, generator=gen, device=dev)
+        r = rows if gather else None
+        xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+        covered = torch.zeros(len(GROUPED_SIZES), dtype=torch.int64, device=dev)
+        zero_counts()
+        y = grouped_matmul(xg, r, wg, offsets, covered)
+        y.backward(dy)
+        counts = read_counts()
+        checks.require(counts == expected(grouped_matmul=2, grouped_matmul_wgrad=1),
+                       f"grouped_matmul {name}: launches {counts}")
+        checks.require(covered.tolist() == GROUPED_SIZES,
+                       f"grouped_matmul {name}: covered {covered.tolist()}")
+        checks.require(not y[held:].any(), f"grouped_matmul {name}: discard rows written")
+        dxp = grouped_matmul_reference(dy, None, w.transpose(1, 2), offsets)
+        want = {"forward": grouped_matmul_reference(x, r, w, offsets),
+                "dgrad": dxp if r is None else torch.zeros_like(x).index_add_(0, r, dxp),
+                "wgrad": grouped_wgrad_reference(x, r, dy, offsets, w.shape)}
+        errs = {}
+        for part, got in (("forward", y.detach()), ("dgrad", xg.grad), ("wgrad", wg.grad)):
+            scale = float(want[part].abs().max())
+            errs[part] = float((got - want[part]).abs().max()) / scale
+            ok = torch.allclose(got, want[part], rtol=GROUPED_RTOL, atol=GROUPED_ATOL * scale)
+            checks.require(ok, f"grouped_matmul {name} {part}: max error {errs[part]:.3g} "
+                               "of the largest |value|")
+
+        xt, wt = x.detach().requires_grad_(), w.detach().requires_grad_()
+
+        def both():  # returns the gradients: no AccumulateGrad outside the capture
+            return torch.autograd.grad(grouped_matmul(xt, r, wt, offsets), (xt, wt), dy)
+
+        fwd_ms = graph_ms(lambda: grouped_matmul(x, r, w, offsets), calls=5)
+        both_ms = graph_ms(both, calls=5)
+        flops = 2.0 * held * k * n
+        result[name] = {"k": k, "n": n, "gather": gather, "rel_err": errs,
+                        "forward_ms": fwd_ms, "forward_tflops": flops / fwd_ms * 1e-9,
+                        "forward_f32_peak_share": flops / (fwd_ms * 1e-3) / PEAK_F32,
+                        "fwd_bwd_ms": both_ms,
+                        "fwd_bwd_f32_peak_share": 3 * flops / (both_ms * 1e-3) / PEAK_F32}
+        del x, w, dy, xg, wg, xt, wt, y, want, dxp
+    emit({"phase": "kernel", "name": "grouped_matmul", "tokens": t, "pairs": p, "held": held,
+          "sizes": GROUPED_SIZES, **result})
+    return result
 
 
 def kd_setup(args, device, batch_size, seed, dropout: float = 0.0):
@@ -3709,6 +3788,7 @@ def main(argv=None) -> int:
     del dec
     fq_row, train_state, train_step_s = phase_train(checks, args, smi)
     table.append(fq_row)
+    phase_grouped_kernel(checks, args.seed + 5)
 
     books = phase_codebook_train(checks, args, smi)
     points = books["generator/kernel"].cpu()

@@ -1,5 +1,5 @@
-"""Packed weight format, the hand-written serving kernels and the
-fake-quant kernel of the train step.
+"""Packed weight format, the hand-written serving kernels, the fake-quant
+kernel of the train step and the grouped expert matmul.
 
 Each kernel wrapper dispatches on its input's device: a CPU tensor runs the
 plain PyTorch version beside it, a CUDA tensor launches the CUDA kernel
@@ -19,6 +19,7 @@ from .beam_combine import (
 )
 from .dequant_matmul import dequant_matmul, dequant_matmul_plan, dequant_matmul_reference
 from .fake_quant import fake_quant_buckets, fake_quant_buckets_reference
+from .grouped_matmul import grouped_matmul, grouped_matmul_reference
 from .packed import (
     BUCKET,
     PackedLinear,
@@ -44,6 +45,8 @@ LAUNCH_COUNTERS = {
     "beam_combine_topk": (beam_combine_topk, "launches"),
     "beam_advance": (beam_advance, "launches"),
     "fake_quant_buckets": (fake_quant_buckets, "launches"),
+    "grouped_matmul": (grouped_matmul, "launches"),
+    "grouped_matmul_wgrad": (grouped_matmul, "launches_wgrad"),
 }
 
 
@@ -87,6 +90,8 @@ __all__ = [
     "dequantize_linear",
     "fake_quant_buckets",
     "fake_quant_buckets_reference",
+    "grouped_matmul",
+    "grouped_matmul_reference",
     "launch_counts",
     "launches_since",
     "pack_linear",

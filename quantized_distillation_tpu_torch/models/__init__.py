@@ -1,9 +1,11 @@
 """Model families of the PyTorch port: the LSTM seq2seq, the CIFAR CNN, the
 WideResNet, the ImageNet ResNets and the LSTM language model, under the JAX
-package's names."""
+package's names, and the DeepSeek-V2 decoder (MLA and mixture of experts),
+which the port alone has."""
 
 from .cnn import PRESETS as CNN_PRESETS
 from .cnn import CNNSpec, ConvForwardNet, make_cnn
+from .deepseek_v2 import DeepseekV2, DeepseekV2Config, make_deepseek_v2
 from .lm import LM_PRESETS, LMConfig, LSTMLanguageModel, make_lm
 from .resnet import RESNET_PRESETS, BottleneckBlock, ResNet, ResNetBlock, make_resnet
 from .seq2seq import (
@@ -22,6 +24,9 @@ __all__ = [
     "CNNSpec",
     "ConvForwardNet",
     "make_cnn",
+    "DeepseekV2",
+    "DeepseekV2Config",
+    "make_deepseek_v2",
     "LM_PRESETS",
     "LMConfig",
     "LSTMLanguageModel",
