@@ -33,7 +33,8 @@ Phases, each printing one JSON line:
    as published: 2 layers), which runs the search as one CUDA graph: checks
    the launch counters on the capturing call and on a replay (3
    dequant-matmul, 1 fused top-k, 1 beam advance per decode step, no
-   standalone combine), finite scores, and f32 tokens and scores of the
+   standalone combine; the LSTM cell kernel once an encoder layer and
+   source position), finite scores, and f32 tokens and scores of the
    graph equal to the eager loop's on the card, the tokens also to the
    port's CPU plain path, on 16 sentences; then the packed bf16 path and
    the dense FP32 ``beam_search``, each eager and graphed, in turns: host
@@ -58,6 +59,19 @@ Phases, each printing one JSON line:
    discard rows 0, the rows each group's tiles covered, the launches (2
    products and 1 weight gradient a direction, counters zeroed just
    before), and the device ms of a forward and of a forward + backward;
+   then the LSTM cell (``csrc/lstm_cell.cu``, :func:`phase_lstm_kernel`) at
+   the cells' B x W (256 / 128 / 64 rows x the students' 256, the nmt
+   teacher's 500 and the LM teacher's 650, the scalar path) and a
+   tensor-parallel shard's (64 of 256 over 4), on random and saturating
+   inputs, the per-step input a strided slice: ``lstm_gates`` forward (with
+   and without autograd) and the gradients of all five inputs, with both
+   outputs and with either absent, ``torch.equal`` to the composite on the
+   card (the kernels repeat its roundings in its order); one
+   launch a call each way after the counters are zeroed; one graphed KD
+   step of each LSTM family (seq2seq at phase 7's shape, the LM at phase
+   14's) and its replay, whose cell launches must follow from the models'
+   layers and steps; and device us a call, kernel against composite,
+   forward and forward + backward;
 7. train path: 4-bit STE knowledge distillation of student_medium from the
    2x500 teacher at ``bench.py --train --family seq2seq``'s shape (V=32000,
    B=128, L=24, Adam 1e-3, clip 5, KD w=0.7 T=5): ``nmt_task`` →
@@ -405,12 +419,15 @@ from quantized_distillation_tpu_torch.kernels import (
     grouped_matmul,
     grouped_matmul_reference,
     launch_counts,
+    lstm_cell,
+    lstm_cell_reference,
     pack_linear,
     pick_generator_group,
     set_launch_counts,
 )
 from quantized_distillation_tpu_torch.models import (
     CNN_PRESETS,
+    LM_PRESETS,
     SEQ2SEQ_PRESETS,
     ConvForwardNet,
     Seq2Seq,
@@ -420,6 +437,7 @@ from quantized_distillation_tpu_torch.models import (
     make_seq2seq,
     make_wrn,
 )
+from quantized_distillation_tpu_torch.models.seq2seq import lstm_gates
 from quantized_distillation_tpu_torch import native
 from quantized_distillation_tpu_torch.parallel import (
     ModelParallel,
@@ -475,6 +493,7 @@ from quantized_distillation_tpu_torch import bench, graft_entry
 from quantized_distillation_tpu_torch.kernels.topk_fused import topk_sorted
 from quantized_distillation_tpu_torch.scripts import accuracy_grid, topk_divergence
 from quantized_distillation_tpu_torch.scripts.multicard_smoke import (
+    CELL_COUNTERS,
     F32_TOL,
     Checks,
     advance_inputs,
@@ -484,6 +503,7 @@ from quantized_distillation_tpu_torch.scripts.multicard_smoke import (
     cudnn_deterministic,
     decode_matrices,
     lut_points,
+    path_counts,
     serve_inputs,
     sharded_step_check,
     state_tensors,
@@ -517,13 +537,21 @@ def zero_counts() -> None:
 
 
 def read_counts() -> dict:
+    """The serving and train kernels' counters (the LSTM cell's are read by
+    :func:`cell_counts`: they follow each model's layers and steps)."""
     torch.cuda.synchronize()
-    return launch_counts()
+    return path_counts(launch_counts())
+
+
+def cell_counts() -> dict:
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    return {name: counts[name] for name in CELL_COUNTERS}
 
 
 def expected(**counts) -> dict:
-    """Every counter at 0 except those given."""
-    return {name: counts.get(name, 0) for name in LAUNCH_COUNTERS}
+    """Every counter of :func:`read_counts` at 0 except those given."""
+    return path_counts({name: counts.get(name, 0) for name in LAUNCH_COUNTERS})
 
 
 def emit(obj) -> None:
@@ -947,11 +975,15 @@ def phase_main_path(checks, args, model, params, smi):
 
     steps = cfg.max_len
     want = expected(dequant_matmul=3 * steps, dequant_matmul_topk=steps, beam_advance=steps)
+    # the encoder's LSTM: one cell launch a layer and source position
+    want_cells = {"lstm_cell": len(model.encoder.cells) * src.shape[1], "lstm_cell_backward": 0}
     for call in ("capture", "replay"):  # the first call captures the graph, then replays it
         zero_counts()
         toks, scores = beam_search_packed(model, dec, src, src_len, cfg, device=dev)
-        launches = read_counts()
+        launches, cells = read_counts(), cell_counts()
         checks.require(launches == want, f"main path launches ({call}) {launches}, expected {want}")
+        checks.require(cells == want_cells,
+                       f"main path cell launches ({call}) {cells}, expected {want_cells}")
     checks.require(tuple(toks.shape) == (args.batch, steps), f"tokens shape {tuple(toks.shape)}")
     checks.require(bool(torch.isfinite(scores).all()), "main path scores not finite")
     checks.require(bool(((toks >= 0) & (toks < args.vocab)).all()), "token ids out of range")
@@ -988,7 +1020,7 @@ def phase_main_path(checks, args, model, params, smi):
     emit({
         "phase": "main_path", "preset": args.preset, "vocab": args.vocab, "batch": args.batch,
         "beam": args.beam, "max_len": steps, "bits": args.bits, "generator_group": group,
-        "launches": launches, "f32_graph_equals_eager": graph_eq,
+        "launches": launches, "cell_launches": cells, "f32_graph_equals_eager": graph_eq,
         "f32_tokens_equal_cpu": tok_equal, "f32_sentences": ns,
         "f32_score_max_abs_diff": score_err,
         "packed_bf16_tokens_per_s": ntok / med["packed_graph"],
@@ -1158,6 +1190,155 @@ def phase_grouped_kernel(checks, seed: int) -> dict:
     emit({"phase": "kernel", "name": "grouped_matmul", "tokens": t, "pairs": p, "held": held,
           "sizes": GROUPED_SIZES, **result})
     return result
+
+
+# (rows, width of h, cell width W): the students at the nmt buckets' batches
+# and the LM's, the nmt teacher's 500 (float4 path) and the LM teacher's 650
+# (the scalar path), a tensor-parallel shard (64 of 256 over 4)
+LSTM_SHAPES = [(256, 256, 256), (128, 256, 256), (64, 256, 256), (256, 500, 500),
+               (128, 500, 500), (64, 500, 500), (256, 650, 650), (256, 256, 64)]
+LSTM_T = 35  # steps of the [B, T, 4W] product each call's xw is a slice of
+
+
+def _cell_grads(fn, inputs, dc, dh):
+    """``fn``'s (c', h') on ``inputs`` (wh, bh, c, h, a [B, T, 4W] product
+    sliced at one step) and the gradients of all five, ``dc``/``dh`` None
+    where that output takes no part."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    wh, bh, c, h, xw_all = leaves
+    c_new, h_new = fn(wh, bh, c, h, xw_all[:, 1])
+    sum((y * d).sum() for y, d in ((c_new, dc), (h_new, dh)) if d is not None).backward()
+    return [c_new.detach(), h_new.detach()] + [t.grad for t in leaves]
+
+
+def _composite_gates(wh, bh, c, h, xw):
+    return lstm_cell_reference(h @ wh, bh, xw, c)
+
+
+def lstm_cell_shape(checks, key, b, hidden, width, gen) -> dict:
+    """The cell at one shape against the composite on the card: values with
+    and without autograd, the gradients with both outputs and with either
+    absent, random and saturating inputs; then device ms a call."""
+    dev = torch.device("cuda")
+    rec = {}
+    for kind, scale in (("random", 1.0), ("saturating", 20.0)):
+        inputs = [torch.randn(hidden, 4 * width, generator=gen, device=dev) / hidden ** 0.5,
+                  torch.randn(4 * width, generator=gen, device=dev),
+                  scale * torch.randn(b, width, generator=gen, device=dev),
+                  torch.randn(b, hidden, generator=gen, device=dev),
+                  scale * torch.randn(b, LSTM_T, 4 * width, generator=gen, device=dev)]
+        wh, bh, c, h, xw_all = inputs
+        with torch.no_grad():
+            zero_counts()
+            got = lstm_gates(wh, bh, c, h, xw_all[:, 1])
+            calls = cell_counts()
+            want = _composite_gates(wh, bh, c, h, xw_all[:, 1])
+        plain_equal = all(map(torch.equal, got, want))
+        checks.require(plain_equal, f"lstm_cell {key} {kind}: forward without autograd differs "
+                                    "from the composite")
+        checks.require(calls == {"lstm_cell": 1, "lstm_cell_backward": 0},
+                       f"lstm_cell {key}: launches without autograd {calls}")
+        grads = {}
+        for outputs in ("both", "h_only", "c_only"):
+            dc = torch.randn(b, width, generator=gen, device=dev) if outputs != "h_only" else None
+            dh = torch.randn(b, width, generator=gen, device=dev) if outputs != "c_only" else None
+            zero_counts()
+            got = _cell_grads(lstm_gates, inputs, dc, dh)
+            calls = cell_counts()
+            want = _cell_grads(_composite_gates, inputs, dc, dh)
+            equal = dict(zip(["c", "h", "d_wh", "d_bh", "d_c", "d_h", "d_xw"],
+                             (torch.equal(g, w) for g, w in zip(got, want))))
+            tag = f"lstm_cell {key} {kind} {outputs}"
+            checks.require(all(equal.values()), f"{tag}: differs from the composite: {equal}")
+            checks.require(calls == {"lstm_cell": 1, "lstm_cell_backward": 1},
+                           f"{tag}: launches {calls}")
+            grads[outputs] = equal
+        rec[kind] = {"no_grad_bit_equal": plain_equal, "autograd_bit_equal": grads}
+
+    # device ms a call: the pointwise part alone (the product is the same
+    # torch.matmul on both sides), then with its backward
+    hw = (h @ wh).detach()
+    xw = xw_all[:, 1]
+    leaves = [t.detach().clone().requires_grad_() for t in (hw, bh, xw_all, c)]
+    dc, dh = torch.randn(b, width, generator=gen, device=dev), torch.randn(b, width, generator=gen,
+                                                                           device=dev)
+
+    def both(fn):
+        hw_, bh_, xa_, c_ = leaves
+        return torch.autograd.grad(fn(hw_, bh_, xa_[:, 1], c_), leaves, (dc, dh))
+
+    # the yardstick: PyTorch's fused cell of nn.LSTMCell (takes both biases)
+    xw_c, zero_b = xw.contiguous(), torch.zeros_like(bh)
+    ms = {"forward": graph_ms(lambda: lstm_cell(hw, bh, xw, c)),
+          "plain_forward": graph_ms(lambda: lstm_cell_reference(hw, bh, xw, c)),
+          "library_forward": graph_ms(
+              lambda: torch.ops.aten._thnn_fused_lstm_cell(xw_c, hw, c, bh, zero_b)),
+          "forward_backward": graph_ms(lambda: both(lstm_cell)),
+          "plain_forward_backward": graph_ms(lambda: both(lstm_cell_reference))}
+    # bytes a call reads and writes once: hw, xw, c and bh in, c' and h' out
+    # (forward); the saved gates and tanh(c') out and back in, c, dh, dc in,
+    # dz and dc out (the backward)
+    fwd_bytes = 4 * (b * 9 * width + 4 * width + b * 2 * width)
+    both_bytes = fwd_bytes + 4 * b * (5 * width + 5 * width + 3 * width + 5 * width)
+    rec["device_ms"] = ms
+    rec["bound_ms"] = {"forward": fwd_bytes / HBM * 1e3, "forward_backward": both_bytes / HBM * 1e3}
+    return rec
+
+
+def kd_cell_launches(checks, label, task, tx, state, batch, quant, seed, fwd, bwd) -> dict:
+    """Two calls of the graphed KD step (capture, then a replay) with the
+    counters zeroed: ``fwd`` forward and ``bwd`` backward cell launches a
+    step, one fake-quant launch."""
+    step = make_train_step(task, tx, quant=quant, distill=DistillSpec(), device="cuda")
+    zero_counts()
+    for _ in range(2):
+        state, m = step(state, batch, seed)
+    cells, path = cell_counts(), read_counts()
+    want = {"lstm_cell": 2 * fwd, "lstm_cell_backward": 2 * bwd}
+    checks.require(cells == want and path == expected(fake_quant_buckets=2),
+                   f"{label} KD step launches {cells} {path}, expected {want} and 2 fake-quant")
+    checks.require(step.captures == 1 and math.isfinite(float(m["loss"])),
+                   f"{label} KD step: {step.captures} captures, loss {float(m['loss'])}")
+    return {"steps": 2, "cell_launches": cells, "per_step": {"forward": fwd, "backward": bwd}}
+
+
+def phase_lstm_kernel(checks, args) -> dict:
+    """The LSTM cell kernels (phase 6, see the module docstring)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 6)
+    shapes = {}
+    for b, hidden, width in LSTM_SHAPES:
+        key = f"{b}x{width}" + ("" if hidden == width else f"_of_{hidden}")
+        shapes[key] = lstm_cell_shape(checks, key, b, hidden, width, gen)
+    quant = QuantSpec(bits=args.bits)
+    tx = build_optimizer(TrainConfig(learning_rate=1e-3, clip_norm=5.0))
+
+    # seq2seq at phase 7's shape: source and target of src_len, every cell
+    # of student and teacher forward, the student's backward
+    student, task, batch = kd_setup(args, dev, args.train_batch, args.seed + 60)
+    state = create_train_state(dict(student.named_parameters()), tx, quant=quant, device=dev)
+    layers = (SEQ2SEQ_PRESETS[args.preset]["num_layers"], SEQ2SEQ_PRESETS["teacher"]["num_layers"])
+    cells = [2 * n * args.src_len for n in layers]  # encoder + decoder
+    kd = {"seq2seq": kd_cell_launches(checks, "seq2seq", task, tx, state, batch, quant, args.seed,
+                                      sum(cells), cells[0])}
+    del student, task, state
+
+    # the LM at phase 14's shape
+    v, b = args.lm_vocab, args.lm_batch
+    teacher = make_lm("teacher", v, device=dev, seed=args.seed + 61)
+    student = make_lm("student_medium", v, device=dev, seed=args.seed + 62)
+    task = lm_task(student, teacher, thread_carry=True, device=dev)
+    state = create_train_state(dict(student.named_parameters()), tx, quant=quant,
+                               carry=lm_initial_carry(student, b, teacher), device=dev)
+    cells = [LM_PRESETS[p]["num_layers"] * args.lm_bptt for p in ("student_medium", "teacher")]
+    kd["lm"] = kd_cell_launches(checks, "lm", task, tx, state,
+                                lm_batch(b, v, args.lm_bptt, args.seed + 63, dev), quant,
+                                args.seed, sum(cells), cells[0])
+    del student, teacher, task, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "lstm_cell", "shapes": shapes, "kd_steps": kd})
+    return {"shapes": shapes, "kd_steps": kd}
 
 
 def kd_setup(args, device, batch_size, seed, dropout: float = 0.0):
@@ -3367,7 +3548,8 @@ def quality_topk(checks, smi) -> dict:
                 "exact": {"dequant_matmul": (dm + 1) * n}}
     want = expected(dequant_matmul=(2 * dm + 1) * n + (dm + 1) * walk,
                     dequant_matmul_topk=n + walk, beam_advance=n)
-    checks.require(report["search_launches"] == searches and launches == want,
+    got = {name: path_counts(c) for name, c in report["search_launches"].items()}
+    checks.require(got == searches and launches == want,
                    f"topk_divergence launches: searches {report['search_launches']}, expected "
                    f"{searches}; run {launches}, expected {want}")
     emit({"phase": "quality", "script": "topk_divergence", "rc": rc, "wall_seconds": wall,
@@ -3400,7 +3582,7 @@ def quality_grid(checks, smi) -> dict:
         values = [g["teacher_bleu" if label == "nmt" else "teacher_acc"], *g["cells"].values()]
         checks.require(all(math.isfinite(v) and 0.0 <= v <= hi for v in values),
                        f"accuracy_grid {label}: values {values} not finite in [0, {hi}]")
-        got = report[label]["launches"]
+        got = path_counts(report[label]["launches"])
         checks.require(got == ({"fake_quant_buckets": want[label]} if want[label] else {}),
                        f"accuracy_grid {label}: launches {got}, expected {want[label]} fake-quant")
         emit({"phase": "quality", "script": "accuracy_grid", "grid": key, "flags": argv,
@@ -3461,6 +3643,7 @@ def graft_dryrun(checks, label: str, n: int, step_seconds: float, dropout) -> di
                        "beam_advance": steps},
             "decode_step": {"dequant_matmul": dm, "dequant_matmul_topk": 1}}
     for r, launches in enumerate(report["launches"]):
+        launches = {key: path_counts(c) for key, c in launches.items()}
         checks.require(launches == want, f"graft {label} rank {r}: launches {launches}, "
                                          f"expected {want}")
     checks.require(report["backend"] == label, f"graft {label}: backend {report['backend']}")
@@ -3559,7 +3742,7 @@ def phase_graft(checks, smi, step_seconds: float) -> dict:
                       for k, r in done.items()},
           "card": smi})
     out = {}
-    for name in LAUNCH_COUNTERS:
+    for name in expected():
         out[name] = {"entry_eager": eager_launches[name], "entry_graph": graph_launches[name],
                      **{k: [sum(stage.get(name, 0) for stage in rank.values())
                             for rank in r["launches"]] for k, r in done.items()}}
@@ -3712,12 +3895,12 @@ def phase_multi_card(checks, smi) -> dict:
     launches = {}
     for mesh, s in (report or {}).get("searches", {}).items():
         for label in ("f32", "bf16", "lut_f32"):
-            for name in LAUNCH_COUNTERS:
+            for name in expected():
                 per = [r[name] for r in s[label]["launches_a_rank"]]
                 if any(per):
                     launches.setdefault(name, {})[f"{mesh} {label}"] = per
         if "engine" in s:
-            for name in LAUNCH_COUNTERS:
+            for name in expected():
                 per = [r[name] for r in s["engine"]["launches_a_rank"]]
                 if any(per):
                     launches.setdefault(name, {})[f"{mesh} engine"] = per
@@ -3789,6 +3972,7 @@ def main(argv=None) -> int:
     fq_row, train_state, train_step_s = phase_train(checks, args, smi)
     table.append(fq_row)
     phase_grouped_kernel(checks, args.seed + 5)
+    phase_lstm_kernel(checks, args)
 
     books = phase_codebook_train(checks, args, smi)
     points = books["generator/kernel"].cpu()
@@ -3805,7 +3989,7 @@ def main(argv=None) -> int:
     from_disk = phase_artifact(checks, args, model, params, books, train_state, smi)
     del train_state
     for row in table:  # the launches of the two searches from disk
-        counts = {k: from_disk["uniform"][k] + from_disk["lut"][k] for k in LAUNCH_COUNTERS}
+        counts = {k: from_disk["uniform"][k] + from_disk["lut"][k] for k in expected()}
         row["artifact_launches"] = counts.get(row["name"], 0)
     fq_row["paths"] = {
         "vision_train": phase_vision_train(checks, args, smi),

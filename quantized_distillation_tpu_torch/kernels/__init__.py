@@ -1,5 +1,5 @@
 """Packed weight format, the hand-written serving kernels, the fake-quant
-kernel of the train step and the grouped expert matmul.
+kernel of the train step, the grouped expert matmul and the LSTM cell.
 
 Each kernel wrapper dispatches on its input's device: a CPU tensor runs the
 plain PyTorch version beside it, a CUDA tensor launches the CUDA kernel
@@ -20,6 +20,7 @@ from .beam_combine import (
 from .dequant_matmul import dequant_matmul, dequant_matmul_plan, dequant_matmul_reference
 from .fake_quant import fake_quant_buckets, fake_quant_buckets_reference
 from .grouped_matmul import grouped_matmul, grouped_matmul_reference
+from .lstm_cell import lstm_cell, lstm_cell_reference
 from .packed import (
     BUCKET,
     PackedLinear,
@@ -47,6 +48,8 @@ LAUNCH_COUNTERS = {
     "fake_quant_buckets": (fake_quant_buckets, "launches"),
     "grouped_matmul": (grouped_matmul, "launches"),
     "grouped_matmul_wgrad": (grouped_matmul, "launches_wgrad"),
+    "lstm_cell": (lstm_cell, "launches"),
+    "lstm_cell_backward": (lstm_cell, "launches_backward"),
 }
 
 
@@ -94,6 +97,8 @@ __all__ = [
     "grouped_matmul_reference",
     "launch_counts",
     "launches_since",
+    "lstm_cell",
+    "lstm_cell_reference",
     "pack_linear",
     "pick_generator_group",
     "plane_unpack",

@@ -34,7 +34,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("dequant_matmul", "topk_fused", "beam_combine", "fake_quant", "grouped_matmul")
+KERNELS = ("dequant_matmul", "topk_fused", "beam_combine", "fake_quant", "grouped_matmul",
+           "lstm_cell")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -30,6 +30,7 @@ from torch.func import functional_call
 
 from .._device import resolve_device
 from ..convert import fuse_lstm_params
+from ..kernels.lstm_cell import lstm_cell
 from ..parallel.tensor import (
     ModelParallel,
     copy_to_model,
@@ -108,11 +109,10 @@ def lstm_gates(wh, bh, c, h, xw):
     """The cell's step on the recurrent input ``h``: ``z = (h @ wh + bh) +
     xw``, gate blocks i, f, g, o → ``(c', h')``. On a rank's shards
     (``wh`` [H, 4H/m], ``bh`` and ``xw`` its gate columns, ``c`` [B, H/m],
-    ``h`` whole) it gives the rank's hidden units."""
-    z = (h @ wh + bh) + xw
-    zi, zf, zg, zo = z.chunk(4, dim=-1)
-    c = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zg)
-    return c, torch.sigmoid(zo) * torch.tanh(c)
+    ``h`` whole) it gives the rank's hidden units. The product is a
+    ``torch.matmul``; the rest is :func:`..kernels.lstm_cell` (one kernel
+    forward and one backward on the card)."""
+    return lstm_cell(h @ wh, bh, xw, c)
 
 
 def split_part(mp: Optional[ModelParallel], *names: str) -> Optional[ModelParallel]:
