@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
+It checks the port on the card and does not time its paths: their speed
+is the benchmark's (``python3 -m portbench.program``). The device times it
+prints are each kernel's, against its plain version, a PyTorch yardstick
+and its bound.
+
 Phases, each printing one JSON line:
 
 1. device: the card's name, count and ``nvidia-smi`` power limit; exits
    non-zero without a result when PyTorch sees no card;
 2. build: compiles the four CUDA sources of ``csrc/`` (one ``nvcc`` each,
    in parallel; the LUT variants are template instances in two of them) and
-   reports the seconds and ``ptxas`` resource lines; fails if ``ptxas``
+   reports the ``ptxas`` resource lines; fails if ``ptxas``
    serialized the wgmma of any instance (warning C7518) or spilled in a
    tensor-core instance; then ``cuobjdump -sass`` of the dequant-matmul and
    fused-generator libraries counts the tensor-core instructions (HGMMA,
@@ -36,16 +41,8 @@ Phases, each printing one JSON line:
    standalone combine; the LSTM cell kernel once an encoder layer and
    source position), finite scores, and f32 tokens and scores of the
    graph equal to the eager loop's on the card, the tokens also to the
-   port's CPU plain path, on 16 sentences; then the packed bf16 path and
-   the dense FP32 ``beam_search``, each eager and graphed, in turns: host
-   seconds, tokens/s, device ms, kernels launched and busy share per
-   search (phase eager_vs_graph);
-5. profile: device time by kernel over one packed beam search
-   (``torch.profiler``; the graphed search, then the eager loop and the
-   dense legs), the dequant-matmul and generator kernels' device ms in it
-   (the generator's merge pass apart), the kernels launched, and the
-   device's busy share of that run; where the profiler traces no kernel of
-   a graph replay, the device time comes from CUDA events around the call;
+   port's CPU plain path, on 16 sentences;
+5. (no line: the search's device time by kernel is the benchmark's trace);
 6. train kernel: the fake-quant kernel at the train step's shape (every
    quantizable leaf of student_medium: 105,984 buckets x 256), bit-exact
    against its plain version for 2/4/8 bits x linear/abs-max and on
@@ -79,27 +76,23 @@ Phases, each printing one JSON line:
    then ``make_eval_step``; checks one fake-quant launch per step (and one
    for the eval step), finite loss and gradient norm, a falling loss, and
    one step at B=8 on the card against the port's CPU plain path from the
-   same weights; then times the 4-bit and the FP32 step (both graphed:
-   ``make_train_step`` runs one CUDA graph per signature on the card); then
-   the graphed step against the eager one (``_eager=True``) on a student
-   with dropout 0.3 (:func:`graph_legs`: 10 steps from copies of one state,
-   every tensor and loss bit-equal where two eager runs are, one capture,
-   one fake-quant launch a step, another seed another loss; seconds in
-   turns, busy shares, peak device bytes; phase ``train_graph``);
-8. train profile: device time by kernel over one 4-bit step and the
-   fake-quant kernel's share of it;
+   same weights; then the graphed step (``make_train_step`` runs one CUDA
+   graph per signature on the card) against the eager one (``_eager=True``)
+   on a student with dropout 0.3 (:func:`graph_legs`: 10 steps from copies
+   of one state, every tensor and loss bit-equal where two eager runs are,
+   one capture, one fake-quant launch a step, another seed another loss;
+   phase ``train_graph``);
+8. (no line: the step's device time by kernel is the benchmark's trace);
 9. codebook train: differentiable quantization at the same shape, 4-bit
    learned codebooks (``QuantSpec(method="codebook")``), mode ``joint``:
    10 steps and the eval step with the trained codebooks; checks that no
    kernel launches (the JAX package runs none here either), finite loss and
    gradient norm, a falling loss, that weights and codebooks both move, and
-   one joint step at B=8 on the card against the CPU plain path; times the
-   codebook and the FP32 step in turns, breaks the step into stages (the
-   ``codebook_tree`` among them), profiles one step, holds the graphed
-   joint step to the eager one (:func:`graph_legs`, no launch), times the
-   codebook gather's backward both ways, then runs 2 steps in mode
-   ``codebooks`` that must leave every weight bit-identical and move the
-   codebooks;
+   one joint step at B=8 on the card against the CPU plain path; after the
+   updates of :func:`settle_joint`, holds the graphed joint step to the
+   eager one (:func:`graph_legs`, no launch) and takes the codebooks,
+   then runs 2 steps in mode ``codebooks`` that must leave every weight
+   bit-identical and move the codebooks;
 10. LUT kernels: the LUT variants of dequant-matmul (the three decode-step
    shapes, 2/4/8 bits, f32 and bf16 compute) and of the fused generator
    ([1280, 256] x [256, 32000] padded to 32768 without a -1e9 bias, 4-bit,
@@ -111,26 +104,22 @@ Phases, each printing one JSON line:
    finite scores, f32 tokens and scores of the graph equal to the eager
    loop's on the card and the tokens to the CPU plain path on 16
    sentences; a ``lut_mode="requant8"`` deploy that must launch only the
-   uniform kernels; tokens/s of the exact, requant8 and uniform deploys in
-   turns; and a profile of the exact deploy;
+   uniform kernels;
 12. engine: the continuous-batching ``TranslationEngine`` at ``bench.py
    --engine``'s shape (student_medium, V=32000, S=256 slots x beam 5,
    source length 24, admit_batch 16; phase 4's bf16 decoder): f32 parity,
    32 sentences through an 8-slot engine with staggered arrivals
    (max_tgt_len 24) against the offline graphed ``beam_search_packed`` on
    the card, plain and with ``length_penalty=0.6, coverage_penalty=0.4``
-   (tokens equal, scores rtol 1e-5); the launches of a driven chunk of 8
-   steps (3 dequant-matmul, 1 fused top-k, 1 beam advance a step, through
-   graph replays, no standalone combine; the replays run under
-   ``set_sync_debug_mode("error")``); full occupancy at max_tgt_len 256,
-   bench.py's two-point estimate (chunks of 4 and 32 steps, 6 a drive,
-   median of ``--reps``) in turns with the offline graphed search at B=256,
-   length 24: engine tokens/s = S / t_step and ``vs_offline_same_process``;
-   a profile of one 32-step chunk (device ms a step by kernel, kernels a
-   step, busy share); churn, 3 S requests with seeded Poisson arrivals at
-   0.9 offered load (max_tgt_len 64, chunk_steps 4, busy 1, stage_ahead 2):
-   every request completes with a finite score, occupancy, steady-state
-   occupancy, idle shares and host seconds as bench.py defines them; after
+   (tokens equal, scores rtol 1e-5); at full occupancy (every slot live,
+   max_tgt_len 256) the launches of a driven chunk of 8 steps (3
+   dequant-matmul, 1 fused top-k, 1 beam advance a step, through graph
+   replays, no standalone combine; the replays run under
+   ``set_sync_debug_mode("error")``); churn, 3 S requests with seeded
+   Poisson arrivals at 0.9 offered load (max_tgt_len 64, chunk_steps 4,
+   busy 1, stage_ahead 2): every request completes with a finite score,
+   occupancy, steady-state occupancy and idle shares as bench.py defines
+   them; after
    phase 11, 16 requests through an engine on the exact-LUT deploy, which
    must launch only the LUT kernels (3 + 1) and the advance a step;
 13. vision train: 4-bit STE KD of the WideResNet family at ``bench.py
@@ -146,8 +135,7 @@ Phases, each printing one JSON line:
    statistics at W_RTOL / W_ATOL); 2 steps in mode ``joint`` (learned
    codebooks, as ``examples/cifar100_wrn_diffquant.py`` trains) that launch
    no kernel; the graphed step against the eager one (:func:`graph_legs`,
-   under :func:`cudnn_deterministic`); the 4-bit and FP32 steps in turns (images/s, ``vs_baseline`` = FP32 /
-   4-bit seconds), a stage breakdown and a profile;
+   under :func:`cudnn_deterministic`);
 14. LM train: the 2x650 teacher → ``student_medium`` LSTM LM at ``bench.py
    --train --family lm``'s shape (V = 10000, bptt 35, B = 256) with
    ``lm_task(thread_carry=True)``: on the card each step's input carry is
@@ -155,8 +143,7 @@ Phases, each printing one JSON line:
    task, run with ``_eager=True``: a replay would not record); then the
    checks of phase 13 (24,096 buckets, no statistics), the B = 8 parity
    over two threaded steps (carries at W_RTOL / W_ATOL), the graphed step
-   against the eager one with the carry threaded (:func:`graph_legs`),
-   tokens/s 4-bit and FP32 in turns, a stage breakdown and a profile;
+   against the eager one with the carry threaded (:func:`graph_legs`);
 15. vision families: the CNN (``teacher`` → ``student_small``, CIFAR-10, B
    = 128, ``examples/cifar10_distill.py``) and the ResNet (``resnet18`` →
    ``resnet18_half``, ImageNet stem at 224×224, 1000 classes, B = 64):
@@ -174,9 +161,8 @@ Phases, each printing one JSON line:
    LUT variants for the codebook file), finite scores, f32 tokens of the
    file on the card equal to the CPU plain path's on the same file (16
    sentences); file bytes, fp32 bytes and compression ratio beside the
-   ``model_size_report`` estimate from the measured index streams; save,
-   load, encode and decode seconds; device ms a search from disk and from
-   memory, in turns. Then phase 7's train state (student_medium with its
+   ``model_size_report`` estimate from the measured index streams; the
+   host codec's round trip of the index streams. Then phase 7's train state (student_medium with its
    Adam moments) saved and restored through ``ExperimentManager`` on the
    card, bit-equal, and the port's WMT driver (``python -m
    quantized_distillation_tpu_torch.examples.wmt_distill --device cuda``,
@@ -198,15 +184,9 @@ Phases, each printing one JSON line:
    (one launch per student STE step and per quantized eval batch; the
    teachers, the bit assignment and the codebook stage none), more than
    zero times; the CIFAR-10 student's quantized accuracy must exceed 0.2.
-   One line per driver: wall seconds per stage from the events' ``t``
-   fields, the student epoch's images or tokens per second (epoch event to
-   epoch event: its steps, its eval pass and the checkpoint before it; a
-   lone epoch also builds the student and its state, and says so), the
-   launches, the fake-quant kernel bit-exact against its plain version and
-   timed on the buckets of the driver's student at its bits (after the
-   counted run), and for the vision drivers the host data time: one
-   training epoch of ``batches(..., train_augment=True)`` alone, and its
-   share of the student epoch.
+   One line per driver: its final event, the launches, and the fake-quant
+   kernel bit-exact against its plain version and timed on the buckets of
+   the driver's student at its bits (after the counted run).
 
 18. multi_gpu: the mesh-sharded paths (``parallel/``, ``serve/sharded.py``,
    ``TranslationEngine(mesh=)``, ``make_train_step(mesh=)``). (a) NCCL at
@@ -215,9 +195,7 @@ Phases, each printing one JSON line:
    1 fused top-k and 1 beam advance a step on the capturing call and a
    replay, records its all-gathers, and gives f32 tokens equal to
    ``beam_search_packed``'s (graphed equal to eager), uniform and exact-LUT;
-   bf16 tokens/s sharded and unsharded in turns, and a profile of each; 16
-   requests through a
-   ``TranslationEngine(mesh=)`` equal to the offline sharded search; a
+   16 requests through a ``TranslationEngine(mesh=)`` equal to the offline sharded search; a
    full-width KD step (B = 128) with ``grad_reduce_dtype=torch.bfloat16``
    within the JAX package's tolerance of the mesh-less step (loss rtol
    1e-5, weights rtol 0.05, atol 1e-4), one fake-quant launch each, the
@@ -229,8 +207,7 @@ Phases, each printing one JSON line:
    eager runs of 10 from copies of one state: graphed equal to eager bit
    for bit (the WRN under deterministic cuDNN), one capture, one
    fake-quant launch a STE step (none in ``joint``), and every replay's
-   collectives those of the eager step; step seconds graphed and eager in
-   turns (median of ``--reps``), busy shares and the graph's pool. (b) 4
+   collectives those of the eager step. (b) 4
    ranks sharing the card over gloo (``parallel.launch.run_ranks``), meshes
    (1, 4) and (2, 2), full width: each rank's fused generator kernel at its
    shard width (N = 8192, 16384) against its plain version at rtol = atol =
@@ -279,7 +256,7 @@ Phases, each printing one JSON line:
    100]), the CNN teacher at 0.2 or more and the NMT teacher at 50 BLEU or
    more, and the fake-quant launches its code implies
    (:func:`grid_fake_quant_launches`) and no other. One line per grid with
-   its cells, wall seconds and the JAX package's own run beside it (from
+   its cells and the JAX package's own run beside it (from
    ``BASELINE.md``), and the ``contract_checks``, reported, not gated.
 20. graft: ``graft_entry.entry()`` (the flagship student_medium's 4-bit
    STE forward, V = 8192, B = 8, 24 x 24) eager and as one CUDA graph
@@ -289,8 +266,9 @@ Phases, each printing one JSON line:
    ``graft_entry.dryrun_multichip`` over NCCL at ``torch.cuda.device_count()``
    ranks (one rank a card; the step and the search graphed; the preset's
    dropout) and over gloo at 4 ranks sharing the card (mesh (2, 2), eager,
-   dropout 0), both projecting from phase 7's graphed 4-bit step median and
-   without the multi-process smoke (phase 18 runs that command): finite
+   dropout 0), both projecting from the flagship step measured on the card
+   (``graft_entry.measure_flagship_step``) and without the multi-process
+   smoke (phase 18 runs that command): finite
    losses, equal on every rank, one fake-quant launch a rank a KD step, the
    toy student's search and decode step launching 2 dequant-matmul, 1
    generator (and 1 advance) a step on every rank, each projection line
@@ -299,7 +277,7 @@ Phases, each printing one JSON line:
    equal, its scores within 1e-4, and the gloo run's losses (f32 and
    reduced gradient reduce) within 1e-4. One ``graft`` line: forward shape,
    launches, loss per mesh, backend, card-vs-CPU differences, payloads,
-   efficiencies, budgets, card;
+   the projection and the step it used, budgets, card;
 21. bench: ``quantized_distillation_tpu_torch.bench.main`` in this process
    at full width with short chains (``--lo 1 --hi 2 --trials 1``): serving,
    ``--engine`` and ``--train --family seq2seq|wrn|lm``, each line with
@@ -310,9 +288,8 @@ Phases, each printing one JSON line:
    4-bit train step and nothing else in training; the flagship record
    (``bench_flagship_train_torch.json``) written with ``bench.py``'s keys
    and the card; the bench's own loops: a chain of 3 packed searches
-   launches 3 x (72 / 24 / 24), a chain of 2 dense FP32 searches none, and
-   each leg's device ms a search (CUDA events around one replay); last
-   ``kernels.topk_fused.topk_sorted``, the dense search's top-k, at its
+   launches 3 x (72 / 24 / 24), a chain of 2 dense FP32 searches none;
+   last ``kernels.topk_fused.topk_sorted``, the dense search's top-k, at its
    shape ([B, K * V] = [256, 160000]) on rows with injected ties, -inf runs
    and ±0, indices and values equal to ``torch.sort(stable=True)``'s, and
    its device ms against the sort's and one ``torch.topk``'s (CUDA graphs
@@ -333,20 +310,12 @@ and ``update`` on both devices, the CPU on the card's ReLU sign patterns
 (:func:`relu_masks`), and fail where the CPU's own signs differ on more
 than ``RELU_FLIP_SHARE`` (1 in 10^5) of the ReLU outputs of a step.
 
-Then the kernel table as one JSON object (the generator rows also hold
-their sharded launches and times at the shard widths of phase 18; the
-fake-quant row also holds its launches in the graphed legs of phases 7,
-13 and 14 (``graph_launches``) and in the graphed mesh legs of phase 18
-(``mesh_graph_launches``), its launches, bucket count and times on
-each path of phases 13-15 and its
-launches, bucket counts and times in phase 17's drivers; every row its
-``artifact_launches`` in phase 16's two searches from disk and its
-``quality_launches`` in each script of phase 19, its ``graft_launches``
-in phase 20: the entry's eager and graphed calls, and each dry run's
-ranks, its ``bench_launches`` in each run of phase 21 and, where phase
-22 ran, its ``multi_card_launches`` a rank by mesh and search), then
-the result line
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
+Then the kernel table as one JSON object, each row its kernel's device
+times, plan and bound (the generator rows also their times at the shard
+widths of phase 18; each phase's launches are in its own line), then the
+result line ``{"ok": true, "device": {...}}``. The phases share only what
+they build on: the model, its weights, the trained codebooks and train
+state. Any failed check exits non-zero before
 that line. Weights are random, made from a seed. Imports nothing of JAX.
 """
 
@@ -362,11 +331,9 @@ import json
 import math
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import tempfile
-import time
 import traceback
 from datetime import timedelta
 from pathlib import Path
@@ -387,7 +354,6 @@ from quantized_distillation_tpu_torch.convert import (
     params_to_numpy,
 )
 from quantized_distillation_tpu_torch.data import (
-    batches,
     load_cifar,
     load_imagenet,
     nmt_batches,
@@ -401,7 +367,6 @@ from quantized_distillation_tpu_torch.examples import (
     ptb_lm_distill,
 )
 from quantized_distillation_tpu_torch.kernels import (
-    LAUNCH_COUNTERS,
     _build,
     beam_advance,
     beam_advance_reference,
@@ -423,7 +388,6 @@ from quantized_distillation_tpu_torch.kernels import (
     lstm_cell_reference,
     pack_linear,
     pick_generator_group,
-    set_launch_counts,
 )
 from quantized_distillation_tpu_torch.models import (
     CNN_PRESETS,
@@ -453,7 +417,6 @@ from quantized_distillation_tpu_torch.ops.bucketing import to_buckets
 from quantized_distillation_tpu_torch.ops.sizes import model_size_report
 from quantized_distillation_tpu_torch.serve import (
     TranslationEngine,
-    beam_search,
     beam_search_packed,
     pack_decoder,
 )
@@ -483,7 +446,6 @@ from quantized_distillation_tpu_torch.train.quantize_tree import (
 from quantized_distillation_tpu_torch.train.optim import apply_updates, global_norm
 from quantized_distillation_tpu_torch.train.trainer import (
     Task,
-    _clone_state,
     as_batch,
     map_tensors,
     quantized_params,
@@ -502,14 +464,15 @@ from quantized_distillation_tpu_torch.scripts.multicard_smoke import (
     check_topk,
     cudnn_deterministic,
     decode_matrices,
+    expected as expected_on,
+    graph_leg,
     lut_points,
     path_counts,
     serve_inputs,
     sharded_step_check,
-    state_tensors,
+    zero_counts,
 )
 from quantized_distillation_tpu_torch.utils.artifact import load_artifact, save_artifact
-from quantized_distillation_tpu_torch.utils.search_profile import device_profile, span_ms
 from quantized_distillation_tpu_torch.utils.profiling import CHIP_PEAKS, graph_ms
 
 # the card's data-sheet peaks, one definition (utils/profiling.CHIP_PEAKS)
@@ -532,10 +495,6 @@ SRC = "quantized_distillation_tpu_torch/csrc/"
 ADMIT_BATCH = 16  # bench.py --engine's admission width
 ENGINE_T_MAX = 256  # bench.py --engine's max_tgt_len at full occupancy
 JAXK = "quantized_distillation_tpu/kernels/"
-def zero_counts() -> None:
-    set_launch_counts({name: 0 for name in LAUNCH_COUNTERS})
-
-
 def read_counts() -> dict:
     """The serving and train kernels' counters (the LSTM cell's are read by
     :func:`cell_counts`: they follow each model's layers and steps)."""
@@ -551,25 +510,11 @@ def cell_counts() -> dict:
 
 def expected(**counts) -> dict:
     """Every counter of :func:`read_counts` at 0 except those given."""
-    return path_counts({name: counts.get(name, 0) for name in LAUNCH_COUNTERS})
+    return expected_on(True, **counts)
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds per call over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_BF16):
@@ -626,12 +571,8 @@ def phase_build(checks):
     """Builds every library (anew, so that each compiler log is read) and
     fails on a serialized wgmma or a spilling tensor-core instance; then
     the host codec (``csrc/qdt_native.cpp``, ``g++``)."""
-    t0 = time.perf_counter()
     logs = _build.build_all(force=True)
-    secs = time.perf_counter() - t0
-    t0 = time.perf_counter()
     _build.load_host("qdt_native")
-    host_secs = time.perf_counter() - t0
     ptxas = [
         f"{name}: {line.split('ptxas info    : ')[-1]}"
         for name, log in logs.items()
@@ -645,8 +586,7 @@ def phase_build(checks):
         checks.require(not serialized, f"build: ptxas serialized wgmma in {name}: {serialized[:2]}")
         checks.require(not spills, f"build: spill stores in tensor-core instances: {spills[:4]}")
         faults[name] = {"wgmma_serialized": len(serialized), "tc_spilling": len(spills)}
-    emit({"phase": "build", "seconds": round(secs, 2), "built": sorted(logs), "faults": faults,
-          "host_codec_seconds": round(host_secs, 2), "ptxas": ptxas})
+    emit({"phase": "build", "built": sorted(logs), "faults": faults, "ptxas": ptxas})
 
 
 def cuobjdump() -> str:
@@ -938,34 +878,9 @@ def kernel_beam_advance(checks, b, k, gen) -> dict:
     }
 
 
-def timed_runs(fn, reps: int):
-    """Host seconds of ``reps`` synchronized calls after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        out.append(time.perf_counter() - t0)
-    return out
-
-
-def searches_in_turns(legs: dict, reps: int) -> dict:
-    """Host seconds of each leg's call (synchronized) over ``reps`` rounds
-    in turns, the order reversed every other round, after one warm-up call
-    of each, so drift on the host hits every leg alike."""
-    for run in legs.values():
-        run()
-    torch.cuda.synchronize()
-    times = {name: [] for name in legs}
-    for i in range(reps):
-        for name in (list(legs) if i % 2 == 0 else list(legs)[::-1]):
-            times[name] += timed_runs(legs[name], 1)
-    return times
-
-
 def phase_main_path(checks, args, model, params, smi):
+    """The packed serving search at full width (see the module docstring,
+    phase 4)."""
     dev = torch.device("cuda")
     cfg = BeamConfig(beam_size=args.beam, max_len=args.src_len)
     src, src_len = serve_inputs(args)
@@ -1005,78 +920,13 @@ def phase_main_path(checks, args, model, params, smi):
     tok_equal = torch.equal(g_toks.cpu(), c_toks)
     checks.require(tok_equal, "f32 tokens on the card differ from the CPU plain path")
     score_err = float((g_scores.cpu() - c_scores).abs().max())
-
-    # throughput: B * max_len tokens per beam search (encode included)
-    legs = {
-        "packed_graph": lambda: beam_search_packed(model, dec, src, src_len, cfg, device=dev),
-        "packed_eager": lambda: beam_search_packed(model, dec, src, src_len, cfg, device=dev,
-                                                   _eager=True),
-        "dense_graph": lambda: beam_search(model, src, src_len, cfg, device=dev),
-        "dense_eager": lambda: beam_search(model, src, src_len, cfg, device=dev, _eager=True),
-    }
-    times = searches_in_turns(legs, args.reps)
-    ntok = args.batch * steps
-    med = {name: statistics.median(t) for name, t in times.items()}
     emit({
         "phase": "main_path", "preset": args.preset, "vocab": args.vocab, "batch": args.batch,
         "beam": args.beam, "max_len": steps, "bits": args.bits, "generator_group": group,
         "launches": launches, "cell_launches": cells, "f32_graph_equals_eager": graph_eq,
         "f32_tokens_equal_cpu": tok_equal, "f32_sentences": ns,
-        "f32_score_max_abs_diff": score_err,
-        "packed_bf16_tokens_per_s": ntok / med["packed_graph"],
-        "packed_seconds": times["packed_graph"],
-        "dense_fp32_tokens_per_s": ntok / med["dense_graph"], "dense_seconds": times["dense_graph"],
-        "card": smi,
+        "f32_score_max_abs_diff": score_err, "card": smi,
     })
-    record = {}
-    for name, run in legs.items():
-        prof = phase_profile(run, med[name], phase="profile" if name == "packed_graph"
-                             else f"profile_{name}")
-        record[name] = {
-            "host_seconds": times[name], "tokens_per_s": ntok / med[name],
-            "device_ms": prof["device_ms"], "span_ms": prof["span_ms"],
-            "kernels_per_search": prof["kernels"],
-            "device_busy_share_of_median_run": prof["device_busy_share_of_median_run"],
-            "profiler_traced_kernels": prof["profiler_traced_kernels"],
-        }
-    emit({"phase": "eager_vs_graph", "preset": args.preset, "batch": args.batch,
-          "beam": args.beam, "max_len": steps, "legs": record, "card": smi})
-    return launches, {"packed_bf16_tokens_per_s": ntok / med["packed_graph"],
-                      "dense_fp32_tokens_per_s": ntok / med["dense_graph"]}
-
-
-def phase_profile(run, median_s: float, phase: str = "profile", focus: str = None) -> dict:
-    """Device time by kernel over one run (a packed beam search, a train
-    step) under torch.profiler (``utils.search_profile.device_profile``),
-    the kernels launched, and the device's busy share: of that run's host
-    time (inflated by the profiler's own host overhead) and of the median
-    unprofiled run; the device ms and calls of the dequant-matmul kernels
-    and of the fused generator's; ``span_ms``, CUDA events around one call.
-    Where the profiler traces no kernel (a graph replay it cannot see), the
-    device time is that span and the split by kernel is the eager run's, as
-    the line says. ``focus``: a kernel-name substring whose share of the
-    device time is reported too. Returns the printed line."""
-    prof = device_profile(run, median_s)
-    kernels = prof.pop("by_kernel")
-    out = {"phase": phase, **prof, "span_ms": span_ms(run),
-           "profiler_traced_kernels": bool(kernels)}
-    if not kernels:
-        out["device_ms"] = out["span_ms"]
-        out["device_busy_share"] = out["span_ms"] / prof["wall_ms"]
-        out["device_busy_share_of_median_run"] = out["span_ms"] / (median_s * 1e3)
-        out["kernels"] = None
-        out["note"] = ("the profiler traced no kernel of this run: device_ms is the CUDA-event "
-                       "span of one call; the split by kernel is the eager run's")
-    out["top"] = [{"kernel": k[:90], "ms": ms, "calls": n} for k, ms, n in kernels[:12]]
-    for family, key in (("dequant_matmul", "dequant_matmul"), ("generator", "topk_"),
-                        ("generator_merge", "topk_merge"), ("beam_advance", "beam_advance")):
-        out[f"{family}_device_ms"] = sum(ms for k, ms, _ in kernels if key in k)
-        out[f"{family}_calls"] = sum(n for k, _, n in kernels if key in k)
-    if focus:
-        focus_ms = sum(ms for k, ms, _ in kernels if focus in k)
-        out.update(focus=focus, focus_ms=focus_ms, focus_share=focus_ms / max(out["device_ms"], 1e-9))
-    emit(out)
-    return out
 
 
 def quantizable_buckets(params, spec: QuantSpec) -> torch.Tensor:
@@ -1519,41 +1369,9 @@ def step_parity(checks, label, setup, batches, quant, distill, mode: str = "weig
     return out
 
 
-def step_breakdown(task, state, batch, quant, distill, tx, reps, mode: str = "weights") -> dict:
-    """Median host seconds of each stage of a quantized train step, with a
-    synchronize after each (the body of ``make_train_step``, opened up).
-    The quantize stage is ``fake_quant_tree`` (uniform) or ``codebook_tree``."""
-    times = {}
-
-    def stage(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times.setdefault(name, []).append(time.perf_counter() - t0)
-        return out
-
-    tree = "codebook_tree" if quant.method == "codebook" else "fake_quant_tree"
-    wrt = trainable(state.params, state.codebooks, mode)
-    stats = state.batch_stats or {}
-    drop = torch.Generator(device="cuda").manual_seed(0)
-    for _ in range(reps + 1):
-        torch.cuda.synchronize()
-        qp = stage(tree, lambda: quantized_params(state.params, quant, state.codebooks))
-        logits, _ = stage("student_forward",
-                          lambda: task.student_forward({**qp, **stats}, batch, True, drop))
-        t_logits = (stage("teacher_forward", lambda: task.teacher_forward(batch))
-                    if task.teacher_forward else None)
-        loss, _ = stage("loss", lambda: task.loss_and_metrics(logits, t_logits, batch, distill))
-        grads = stage("backward", lambda: torch.autograd.grad(loss, list(wrt.values())))
-        grads = dict(zip(wrt, grads))
-        stage("optimizer", lambda: apply_updates(wrt, tx.update(grads, state.opt_state, wrt)[0]))
-    return {k: statistics.median(v[1:]) for k, v in times.items()}  # the first warms up
-
-
 def phase_train(checks, args, smi) -> tuple:
     """The full-width 4-bit STE KD train path (see the module docstring) →
-    (the fake-quant kernel's row, the trained state, the graphed 4-bit
-    step's median seconds)."""
+    (the fake-quant kernel's row, the trained state)."""
     dev = torch.device("cuda")
     quant, distill = QuantSpec(bits=args.bits), DistillSpec()
     cfg = TrainConfig(learning_rate=1e-3, clip_norm=5.0)
@@ -1578,72 +1396,65 @@ def phase_train(checks, args, smi) -> tuple:
     checks.require(all(map(math.isfinite, loss + gnorm)), "train loss or grad_norm not finite")
     checks.require(loss[-1] < loss[0], f"train loss did not fall: {loss[0]} -> {loss[-1]}")
     parity = train_parity(checks, args, quant, distill, cfg)
-
-    ntok = args.train_batch * args.src_len
-    fp_step = make_train_step(task, tx, quant=None, distill=distill, device=dev)
-    holder = {"state": state}
-
-    def run(fn):
-        holder["state"], m = fn(holder["state"], batch, args.seed)
-        float(m["loss"])
-
-    t_q, t_fp = [], []
-    for i in range(args.reps):  # in turns, so drift on the host hits both alike
-        for fn, out in ((step, t_q), (fp_step, t_fp))[:: 1 if i % 2 == 0 else -1]:
-            out += timed_runs(lambda: run(fn), 1)
-    med_q, med_fp = statistics.median(t_q), statistics.median(t_fp)
-    stages = step_breakdown(task, holder["state"], as_batch(batch, dev), quant, distill, tx,
-                            args.reps)
-    torch.cuda.reset_peak_memory_stats()
-    run(step)
-    peak = torch.cuda.max_memory_allocated()
     emit({
         "phase": "train", "preset": args.preset, "teacher": "teacher", "vocab": args.vocab,
         "batch": args.train_batch, "len": args.src_len, "bits": args.bits, "steps": len(loss),
         "launches": launches, "loss": loss, "grad_norm": gnorm,
         "eval_nll_per_token": float(ev["nll_sum"]) / float(ev["n_tokens"]),
-        "parity_cuda_vs_cpu": parity,
-        "step_seconds_4bit": t_q, "step_seconds_fp32": t_fp,
-        "tokens_per_s_4bit": ntok / med_q, "tokens_per_s_fp32": ntok / med_fp,
-        "vs_baseline": med_fp / med_q, "peak_device_bytes": peak,
-        "stage_seconds_4bit": stages, "card": smi,
+        "parity_cuda_vs_cpu": parity, "card": smi,
     })
-    phase_profile(lambda: run(step), med_q, phase="train_profile", focus="fake_quant_kernel")
-    row["launches"] = launches["fake_quant_buckets"]
     # the graphed step against the eager one, dropout on (the paper's 0.3)
     d_student, d_task, _ = kd_setup(args, dev, args.train_batch, args.seed + 10, dropout=0.3)
     d_tx = build_optimizer(cfg)
     d_state = create_train_state(dict(d_student.named_parameters()), d_tx, quant=quant,
                                  device=dev)
-    legs = graph_legs(checks, "train", d_task, d_tx, d_state, batch, args.seed, args,
-                      quant=quant, distill=distill, control=True)
-    row["graph_launches"] = {"train": legs["launches"]["fake_quant_buckets"]}
-    return row, holder["state"], med_q
+    graph_legs(checks, "train", d_task, d_tx, d_state, batch, args.seed, args, quant=quant,
+               control=True)
+    return row, state
 
 
-def gather_backward_ms(points, w) -> dict:
-    """Device ms of the codebook gather ``points[idx]`` forward and backward
-    at one leaf's size: through ``ops.codebook.PointGather`` (a weighted
-    histogram) and through autograd's own backward of the index (an
-    index-put with accumulation)."""
-    from quantized_distillation_tpu_torch.ops.codebook import PointGather, quantize
-
-    idx = quantize(w.detach(), points).idx
-    cot = torch.randn(idx.shape, device=idx.device, generator=torch.Generator(
-        device=idx.device).manual_seed(0))
-    p = points.detach().clone().requires_grad_(True)
-    out = {}
-    for name, fn in (("histogram", lambda: PointGather.apply(p, idx)),
-                     ("autograd_index", lambda: p[idx])):
-        out[name] = cuda_ms(lambda: torch.autograd.grad((fn() * cot).sum(), p), iters=5)
-    return out
+def settle_joint(task, tx, step, state, batch, seed, quant, distill, cfg):
+    """The joint state's updates after its counted steps, before its graphed
+    step is checked and its codebooks are taken. Phases 11, 12, 16 and 18
+    serve those codebooks, and phase 16 holds the card's f32 tokens from
+    the file to the CPU path's exactly: these are the updates its codebooks
+    have been held on (with the joint state's 10 counted steps alone, one
+    of its 16 sentences parts at step 10). In this order: 7 rounds of two
+    joint ``step`` calls and two FP32 steps on the same weights (joint
+    first in even rounds, last in odd); 8 optimizer updates at the state's
+    step count, from a step's stages run one by one (dropout from a
+    generator seeded 0); 4 joint steps. Returns the state."""
+    dev = torch.device("cuda")
+    fp_state = create_train_state(state.params, build_optimizer(cfg), device=dev)
+    fp_step = make_train_step(task, build_optimizer(cfg), quant=None, distill=distill, device=dev)
+    holder = {"joint": state, "fp32": fp_state}
+    for i in range(7):
+        legs = (("joint", step), ("fp32", fp_step))
+        for key, fn in legs[:: 1 if i % 2 == 0 else -1]:
+            for _ in range(2):
+                holder[key] = fn(holder[key], batch, seed)[0]
+    state = holder["joint"]
+    b = as_batch(batch, dev)
+    wrt = trainable(state.params, state.codebooks, "joint")
+    stats = state.batch_stats or {}
+    drop = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(8):
+        qp = quantized_params(state.params, quant, state.codebooks)
+        logits, _ = task.student_forward({**qp, **stats}, b, True, drop)
+        t_logits = task.teacher_forward(b) if task.teacher_forward else None
+        loss, _ = task.loss_and_metrics(logits, t_logits, b, distill)
+        grads = dict(zip(wrt, torch.autograd.grad(loss, list(wrt.values()))))
+        apply_updates(wrt, tx.update(grads, state.opt_state, wrt)[0])
+    for _ in range(4):
+        state = step(state, batch, seed)[0]
+    return state
 
 
 def phase_codebook_train(checks, args, smi) -> dict:
     """Differentiable quantization at full width: a joint codebook KD run,
-    its eval, card-vs-CPU parity at B = 8, timing in turns with the FP32
-    step, a stage breakdown, a profile, and a 2-step ``codebooks`` run.
-    Returns the trained codebooks. The JAX package runs no Pallas kernel on
+    its eval, card-vs-CPU parity at B = 8, the updates of
+    :func:`settle_joint`, the graphed joint step against the eager one, and
+    a 2-step ``codebooks`` run. Returns the trained codebooks. The JAX package runs no Pallas kernel on
     this path (its codebook fake-quant is plain XLA), and neither does the
     port: every launch counter must stay at 0."""
     dev = torch.device("cuda")
@@ -1676,33 +1487,10 @@ def phase_codebook_train(checks, args, smi) -> dict:
     eval_nll = float(ev["nll_sum"]) / float(ev["n_tokens"])
     checks.require(math.isfinite(eval_nll), "codebook eval nll not finite")
     parity = train_parity(checks, args, quant, distill, cfg, mode="joint")
-
-    ntok = args.train_batch * args.src_len
-    fp_state = create_train_state(state.params, build_optimizer(cfg), device=dev)
-    fp_step = make_train_step(task, build_optimizer(cfg), quant=None, distill=distill, device=dev)
-    holder = {"joint": state, "fp32": fp_state}
-
-    def run(key, fn):
-        holder[key], m = fn(holder[key], batch, args.seed)
-        float(m["loss"])
-
-    t_cb, t_fp = [], []
-    for i in range(args.reps):  # in turns, so drift on the host hits both alike
-        legs = ((("joint", step), t_cb), (("fp32", fp_step), t_fp))
-        for (key, fn), out in legs[:: 1 if i % 2 == 0 else -1]:
-            out += timed_runs(lambda: run(key, fn), 1)
-    med_cb, med_fp = statistics.median(t_cb), statistics.median(t_fp)
-    state = holder["joint"]
-    stages = step_breakdown(task, state, as_batch(batch, dev), quant, distill, tx, args.reps,
-                            mode="joint")
-    torch.cuda.reset_peak_memory_stats()
-    run("joint", step)
-    peak = torch.cuda.max_memory_allocated()
-    phase_profile(lambda: run("joint", step), med_cb, phase="codebook_train_profile")
-    graph_legs(checks, "codebook_train", task, tx, holder["joint"], batch, args.seed, args,
-               quant=quant, distill=distill, mode="joint", fq_per_step=0)
-    books = {n: b.detach().clone() for n, b in holder["joint"].codebooks.items()}
-    gather = gather_backward_ms(books["generator/kernel"], state.params["generator_kernel"])
+    state = settle_joint(task, tx, step, state, batch, args.seed, quant, distill, cfg)
+    graph_legs(checks, "codebook_train", task, tx, state, batch, args.seed, args, quant=quant,
+               mode="joint", fq_per_step=0)
+    books = {n: b.detach().clone() for n, b in state.codebooks.items()}
 
     # differentiable quantization proper: weights frozen, codebooks trained
     cb_tx = build_optimizer(cfg)
@@ -1726,10 +1514,6 @@ def phase_codebook_train(checks, args, smi) -> dict:
         "loss": loss, "grad_norm": gnorm, "weight_tensors_moved": moved_w,
         "codebooks_moved": moved_b, "codebooks": len(b0), "eval_nll_per_token": eval_nll,
         "parity_cuda_vs_cpu": parity,
-        "step_seconds_codebook": t_cb, "step_seconds_fp32": t_fp,
-        "tokens_per_s_codebook": ntok / med_cb, "tokens_per_s_fp32": ntok / med_fp,
-        "vs_baseline": med_fp / med_cb, "peak_device_bytes": peak,
-        "stage_seconds_codebook": stages, "generator_gather_fwd_bwd_ms": gather,
         "codebooks_mode": {"steps": 2, "loss": cb_loss, "weights_bit_identical": frozen,
                            "codebooks_moved": cb_moved},
         "card": smi,
@@ -1757,11 +1541,10 @@ def phase_lut_kernels(checks, dec, rows, gen):
                              rows, gen, {"uniform_kernel_ms_same_shape": uniform_ms})]
 
 
-def phase_codebook_path(checks, args, model, params, points, smi, uniform) -> dict:
+def phase_codebook_path(checks, args, model, params, points, smi):
     """The exact-LUT codebook deploy at full width: launch counts, finite
     scores, f32 tokens equal to the CPU plain path; then a requant8 deploy
-    (uniform 8-bit kernels only); tokens/s of both and of the uniform packed
-    deploy, in turns; a profile of the exact deploy."""
+    (uniform 8-bit kernels only)."""
     dev = torch.device("cuda")
     cfg = BeamConfig(beam_size=args.beam, max_len=args.src_len)
     src, src_len = serve_inputs(args)
@@ -1805,14 +1588,6 @@ def phase_codebook_path(checks, args, model, params, points, smi, uniform) -> di
     rq_launches = read_counts()
     rq_want = expected(dequant_matmul=3 * steps, dequant_matmul_topk=steps, beam_advance=steps)
     checks.require(rq_launches == rq_want, f"requant8 launches {rq_launches}, expected {rq_want}")
-    uni = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.bfloat16,
-                       generator_group=group, device=dev)
-
-    legs = {name: (lambda d=d: beam_search_packed(model, d, src, src_len, cfg, device=dev))
-            for name, d in (("exact", dec), ("requant8", rq), ("uniform", uni))}
-    times = searches_in_turns(legs, args.reps)
-    ntok = args.batch * steps
-    med = {k: statistics.median(v) for k, v in times.items()}
     emit({
         "phase": "codebook_path", "preset": args.preset, "vocab": args.vocab,
         "batch": args.batch, "beam": args.beam, "max_len": steps, "bits": args.bits,
@@ -1820,17 +1595,8 @@ def phase_codebook_path(checks, args, model, params, points, smi, uniform) -> di
         "generator_group": group, "generator_padded": dec.generator.n_padded,
         "launches": launches, "requant8_launches": rq_launches,
         "f32_graph_equals_eager": graph_eq, "f32_tokens_equal_cpu": tok_equal,
-        "f32_sentences": ns,
-        "f32_score_max_abs_diff": score_err,
-        "exact_bf16_tokens_per_s": ntok / med["exact"],
-        "requant8_bf16_tokens_per_s": ntok / med["requant8"],
-        "uniform_bf16_tokens_per_s": ntok / med["uniform"],
-        "seconds": times,
-        "main_path_phase": uniform, "card": smi,
+        "f32_sentences": ns, "f32_score_max_abs_diff": score_err, "card": smi,
     })
-    phase_profile(lambda: beam_search_packed(model, dec, src, src_len, cfg, device=dev),
-                  med["exact"], phase="codebook_profile")
-    return launches
 
 
 def engine_sentences(n: int, args, gen, min_len: int = 6):
@@ -1894,10 +1660,9 @@ def engine_parity(checks, args, model, dec32, gen) -> dict:
     return out
 
 
-def phase_engine(checks, args, model, params, dec, smi) -> dict:
+def phase_engine(checks, args, model, params, dec, smi):
     """The continuous-batching engine at ``bench.py --engine``'s shape (see
-    the module docstring, phase 12). Returns the launches of one driven
-    chunk, by counter."""
+    the module docstring, phase 12)."""
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(args.seed + 5)
     s_slots, k = args.batch, args.beam
@@ -1907,7 +1672,7 @@ def phase_engine(checks, args, model, params, dec, smi) -> dict:
     parity = engine_parity(checks, args, model, dec32, gen)
     del dec32
 
-    # full occupancy: every slot live, max_tgt_len 256, two-point estimate
+    # full occupancy: every slot live, max_tgt_len 256
     t_big = ENGINE_T_MAX
     cfg = ServeConfig(max_slots=s_slots, max_src_len=args.src_len, max_tgt_len=t_big,
                       beam=BeamConfig(beam_size=k, max_len=t_big),
@@ -1927,45 +1692,14 @@ def phase_engine(checks, args, model, params, dec, smi) -> dict:
                     beam_advance=n_launch)
     checks.require(launches == want, f"engine chunk launches {launches}, expected {want}")
 
-    lo, hi, iters = 4, 32, 6
-    src = torch.tensor(sents, dtype=torch.int64)
-    src_len = torch.full((s_slots,), args.src_len, dtype=torch.int64)
-    ocfg = BeamConfig(beam_size=k, max_len=args.src_len)
-    legs = {
-        f"engine_{lo}": lambda: eng.drive_chunks(iters, chunk_steps=lo),
-        f"engine_{hi}": lambda: eng.drive_chunks(iters, chunk_steps=hi),
-        "offline": lambda: beam_search_packed(model, dec, src, src_len, ocfg, device=dev),
-    }
-    times = searches_in_turns(legs, args.reps)
-    med = {name: statistics.median(t) for name, t in times.items()}
-    t_step = max((med[f"engine_{hi}"] - med[f"engine_{lo}"]) / (iters * (hi - lo)), 1e-12)
-    engine_tok_s = s_slots / t_step
-    offline_tok_s = s_slots * args.src_len / med["offline"]
-    prof = device_profile(lambda: eng.drive_chunks(1, chunk_steps=32), None)
-    kernels = prof.pop("by_kernel")
-    per_step = {name[:90]: ms / 32 for name, ms, _ in kernels[:12]}
-    for family, key in (("dequant_matmul", "dequant_matmul"), ("generator", "topk_"),
-                        ("beam_advance", "beam_advance")):
-        per_step[f"{family}_family"] = sum(ms for n_, ms, _ in kernels if key in n_) / 32
-    emit({"phase": "engine_profile", "steps": 32, "device_ms": prof["device_ms"],
-          "device_ms_per_step": prof["device_ms"] / 32, "kernels_per_step": prof["kernels"] / 32,
-          "wall_ms": prof["wall_ms"], "device_busy_share": prof["device_busy_share"],
-          "ms_per_step_by_kernel": per_step, "profiler_traced_kernels": bool(kernels),
-          "card": smi})
-
     churn = engine_churn(checks, args, model, dec)
     emit({
         "phase": "engine", "preset": args.preset, "vocab": args.vocab, "slots": s_slots,
         "beam": k, "src_len": args.src_len, "admit_batch": ADMIT_BATCH, "bits": args.bits,
         "f32_parity": parity, "launches_per_chunk": {"steps": n_launch, **launches},
         "chunk_sync_free": True,  # the replays ran under sync-debug "error"
-        "max_tgt_len": t_big, "two_point": {"lo": lo, "hi": hi, "iters": iters},
-        "seconds": times, "t_step_ms": t_step * 1e3,
-        "engine_tokens_per_s": engine_tok_s, "offline_tokens_per_s": offline_tok_s,
-        "vs_offline_same_process": engine_tok_s / offline_tok_s,
-        "churn": churn, "card": smi,
+        "max_tgt_len": t_big, "churn": churn, "card": smi,
     })
-    return launches
 
 
 def engine_churn(checks, args, model, dec) -> dict:
@@ -1973,7 +1707,7 @@ def engine_churn(checks, args, model, dec) -> dict:
     at 0.9 offered load, max_tgt_len 64, chunk_steps 4 (1 while requests
     wait), stage_ahead 2. Every request must complete with a finite score.
     Occupancy, steady-state occupancy and idle shares as bench.py defines
-    them, and the host seconds of the loop."""
+    them."""
     dev = torch.device("cuda")
     s_slots, t_churn = args.batch, 64
     cfg = ServeConfig(max_slots=s_slots, max_src_len=args.src_len, max_tgt_len=t_churn,
@@ -1991,7 +1725,6 @@ def engine_churn(checks, args, model, dec) -> dict:
     ss_start = ss_end = None
     idle_queue_empty = idle_midchunk = 0
     scores = []
-    t0 = time.perf_counter()
     while completed < n_req:
         if submitted < n_req:
             for _ in range(arrivals[min(it, len(arrivals) - 1)]):
@@ -2015,7 +1748,6 @@ def engine_churn(checks, args, model, dec) -> dict:
         it += 1
         if it > 100000:
             break
-    host_s = time.perf_counter() - t0
     checks.require(completed == n_req, f"churn: {completed} of {n_req} requests completed")
     checks.require(all(map(math.isfinite, scores)), "churn: a score is not finite")
     occ = eng.tokens_emitted / max(eng.steps_run * s_slots, 1)
@@ -2029,11 +1761,10 @@ def engine_churn(checks, args, model, dec) -> dict:
             "steady_state_occupancy": ss_occ, "steps_run": eng.steps_run,
             "tokens_emitted": eng.tokens_emitted,
             "idle_frac_queue_empty": idle_queue_empty / denom,
-            "idle_frac_midchunk_est": idle_midchunk / denom, "host_seconds": host_s,
-            "host_ms_per_step": host_s * 1e3 / max(eng.steps_run, 1)}
+            "idle_frac_midchunk_est": idle_midchunk / denom}
 
 
-def phase_engine_lut(checks, args, model, params, points, smi) -> dict:
+def phase_engine_lut(checks, args, model, params, points, smi):
     """16 requests through an engine on the exact-LUT deploy (bf16): only
     the LUT kernels launch, 3 dequant-matmul, 1 fused top-k and 1 advance
     a step; finite scores."""
@@ -2058,7 +1789,6 @@ def phase_engine_lut(checks, args, model, params, points, smi) -> dict:
                    "exact-LUT engine: a request did not complete with a finite score")
     emit({"phase": "engine_lut", "requests": len(res), "steps_run": n, "launches": launches,
           "card": smi})
-    return launches
 
 
 def deploy_from_disk(checks, args, label, path, model, points, want, src, src_len, cfg):
@@ -2066,12 +1796,9 @@ def deploy_from_disk(checks, args, label, path, model, points, want, src, src_le
     the exact-LUT deploy), run the graphed packed search twice (capture,
     replay) checking the launch counts ``want``, then hold f32 tokens of
     the file on the card to the CPU plain path on the same file. Returns
-    (launches, load seconds, the bf16 search from disk, f32 results)."""
+    (launches, the file's meta, f32 results)."""
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
     restored, meta = load_artifact(str(path), model, device=dev)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
     tree = params_to_numpy(restored)
     disk = Seq2Seq(model.cfg, device=dev).load_params(tree)
     group = pick_generator_group(args.batch * args.beam)
@@ -2098,8 +1825,7 @@ def deploy_from_disk(checks, args, label, path, model, points, want, src, src_le
         pack(torch.float32, "cpu"), src[:ns], src_len[:ns], cfg, device="cpu")
     equal = torch.equal(g_toks.cpu(), c_toks)
     checks.require(equal, f"{label}: f32 tokens from disk on the card differ from the CPU path")
-    search = (lambda: beam_search_packed(disk, dec, src, src_len, cfg, device=dev))
-    return launches, load_s, search, meta, {
+    return launches, meta, {
         "f32_tokens_equal_cpu": equal, "f32_sentences": ns,
         "f32_score_max_abs_diff": float((g_scores.cpu() - c_scores).abs().max())}
 
@@ -2111,19 +1837,13 @@ def manager_round_trip(checks, args, state, root) -> dict:
     dev = torch.device("cuda")
     mgr = ExperimentManager(str(root))
     mgr.add_new_model("train_phase", {"preset": args.preset, "vocab": args.vocab})
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     mgr.save("train_phase", state, state.step)
-    save_s = time.perf_counter() - t0
     fresh_model = make_seq2seq(args.preset, args.vocab, args.vocab, dropout=0.0, device=dev,
                                seed=args.seed + 99)
     tx = build_optimizer(TrainConfig(learning_rate=1e-3, clip_norm=5.0))
     fresh = create_train_state(dict(fresh_model.named_parameters()), tx,
                                quant=QuantSpec(bits=args.bits), device=dev)
-    t0 = time.perf_counter()
     restored = mgr.restore("train_phase", fresh)
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
     pairs = list(zip(_leaves(state.params) + _leaves(state.opt_state.mu)
                      + _leaves(state.opt_state.nu),
                      _leaves(restored.params) + _leaves(restored.opt_state.mu)
@@ -2134,8 +1854,7 @@ def manager_round_trip(checks, args, state, root) -> dict:
     checks.require(equal, "manager round trip: the restored train state differs")
     path = root / "train_phase" / "checkpoints" / f"{state.step}.pt"
     return {"bit_equal": equal, "tensors": len(pairs), "step": restored.step,
-            "checkpoint_bytes": path.stat().st_size, "save_seconds": save_s,
-            "restore_seconds": restore_s}
+            "checkpoint_bytes": path.stat().st_size}
 
 
 def driver_run(checks, root) -> dict:
@@ -2145,10 +1864,8 @@ def driver_run(checks, root) -> dict:
     cmd = [sys.executable, "-m", "quantized_distillation_tpu_torch.examples.wmt_distill",
            "--device", "cuda", "--workdir", str(workdir), "--epochs", "1",
            "--teacher-epochs", "1", "--toy-size", "1000"]
-    t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
                           text=True, timeout=600)
-    seconds = time.perf_counter() - t0
     events = []
     if (workdir / "metrics.jsonl").exists():
         events = [json.loads(line) for line in (workdir / "metrics.jsonl").read_text().splitlines()]
@@ -2156,20 +1873,18 @@ def driver_run(checks, root) -> dict:
     ok = proc.returncode == 0 and final is not None
     checks.require(ok, f"WMT driver on the card: rc {proc.returncode}, final event "
                        f"{final is not None}; stderr tail: {proc.stderr[-2000:]}")
-    return {"rc": proc.returncode, "seconds": seconds, "events": [e["event"] for e in events],
-            "final": final}
+    return {"rc": proc.returncode, "events": [e["event"] for e in events],
+            "final": final and {k: v for k, v in final.items() if k != "t"}}
 
 
-def phase_artifact(checks, args, model, params, books, train_state, smi) -> dict:
+def phase_artifact(checks, args, model, books, train_state, smi):
     """The deploy loop from disk at full width: the seeded student written
     as a 4-bit uniform ``.qdt`` and as a codebook ``.qdt`` (the codebook
     train phase's codebooks), read back onto the card, packed and served by
     the graphed packed search (launch counts, f32 tokens of the file on the
     card equal to the CPU path's); the size report beside the file's size;
-    the codec's seconds; device ms a search from disk and from memory. Then
-    the train phase's state through the experiment manager, and the WMT
-    driver once. Returns the launches of each search from disk."""
-    dev = torch.device("cuda")
+    the host codec's round trip. Then the train phase's state through the
+    experiment manager, and the WMT driver once."""
     root = Path(__file__).resolve().parent / "runs"
     root.mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_artifact_", dir=root))
@@ -2178,52 +1893,32 @@ def phase_artifact(checks, args, model, params, books, train_state, smi) -> dict
     steps = cfg.max_len
     try:
         spec = QuantSpec(bits=args.bits)
-        t0 = time.perf_counter()
         stats = save_artifact(str(root / "uniform.qdt"), model, spec,
                               meta={"preset": args.preset, "seed": args.seed})
-        save_s = time.perf_counter() - t0
         weights = dict(model.named_parameters())
         streams = index_streams(weights, spec)
         sizes = param_sizes(weights)
         rep = model_size_report(sizes, args.bits, scaling=spec.scaling, index_streams=streams,
                                 exclude=[k for k in sizes if k not in streams])
-        t0 = time.perf_counter()
         coded = {k: native.huffman_encode(v, 1 << args.bits) for k, v in streams.items()}
-        encode_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         back = {k: native.huffman_decode(c[0], c[2], c[1], streams[k].size)
                 for k, c in coded.items()}
-        decode_s = time.perf_counter() - t0
         checks.require(all(np.array_equal(back[k], streams[k]) for k in streams),
                        "codec round trip of the index streams failed")
         symbols = sum(v.size for v in streams.values())
 
         want = expected(dequant_matmul=3 * steps, dequant_matmul_topk=steps, beam_advance=steps)
-        u_launches, u_load_s, u_search, meta, u_f32 = deploy_from_disk(
+        u_launches, meta, u_f32 = deploy_from_disk(
             checks, args, "uniform", root / "uniform.qdt", model, None, want, src, src_len, cfg)
         checks.require(meta == {"preset": args.preset, "seed": args.seed}, f"meta {meta}")
-        group = pick_generator_group(args.batch * args.beam)
-        mem = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.bfloat16,
-                           generator_group=group, device=dev)
-        mem_search = (lambda: beam_search_packed(model, mem, src, src_len, cfg, device=dev))
-        mem_search()
-        u_search()
-        spans = {"from_disk": [], "from_memory": []}
-        for i in range(args.reps):  # in turns
-            for name, run in (("from_disk", u_search), ("from_memory", mem_search))[
-                    :: 1 if i % 2 == 0 else -1]:
-                spans[name].append(span_ms(run))
 
         cb_spec = QuantSpec(bits=args.bits, method="codebook")
-        t0 = time.perf_counter()
         cb_stats = save_artifact(str(root / "codebook.qdt"), model, cb_spec, codebooks=books)
-        cb_save_s = time.perf_counter() - t0
         want_lut = expected(dequant_matmul_lut=3 * steps, dequant_matmul_topk_lut=steps,
                             beam_advance=steps)
-        c_launches, c_load_s, c_search, _, c_f32 = deploy_from_disk(
+        c_launches, _, c_f32 = deploy_from_disk(
             checks, args, "codebook (exact LUT)", root / "codebook.qdt", model,
             books["generator/kernel"].cpu(), want_lut, src, src_len, cfg)
-        cb_span = [span_ms(c_search) for _ in range(args.reps)]
 
         est_bytes = rep.total_bits / 8
         emit({
@@ -2237,26 +1932,20 @@ def phase_artifact(checks, args, model, params, books, train_state, smi) -> dict
                 "file_over_report": stats["file_bytes"] / est_bytes,
                 "mean_bits_per_weight": rep.quantized_bits / max(
                     sum(sizes[k] for k in streams), 1),
-                "save_seconds": save_s, "load_seconds": u_load_s,
                 "launches": u_launches, **u_f32,
-                "search_device_ms_from_disk": spans["from_disk"],
-                "search_device_ms_from_memory": spans["from_memory"],
             },
-            "codec": {"symbols": symbols, "encode_seconds": encode_s,
-                      "decode_seconds": decode_s},
+            "codec": {"symbols": symbols},
             "codebook": {
                 "file_bytes": cb_stats["file_bytes"],
                 "compression_ratio": cb_stats["compression_ratio"],
-                "save_seconds": cb_save_s, "load_seconds": c_load_s,
                 "points": "the codebook train phase's codebooks; deployed exact-LUT on its "
                           "generator/kernel codebook",
-                "launches": c_launches, **c_f32, "search_device_ms_from_disk": cb_span,
+                "launches": c_launches, **c_f32,
             },
             "manager": manager_round_trip(checks, args, train_state, root / "manager"),
             "wmt_driver": driver_run(checks, root),
             "card": smi,
         })
-        return {"uniform": u_launches, "lut": c_launches}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2286,17 +1975,14 @@ def kd_steps(checks, label, task, state, batch, quant, distill, tx, steps, seed,
     the launch counters zeroed before and read after: one fake-quant launch
     a step and one for the eval step, finite losses and gradient norms,
     (``check_falling``) a falling loss, and running statistics that moved.
-    Returns (state, the step, a record for the phase's line)."""
+    Returns (state, a record for the phase's line)."""
     step = make_train_step(task, tx, quant=quant, distill=distill, device="cuda")
     eval_step = make_eval_step(task, quant=quant, device="cuda")
     stats0 = {n: t.clone() for n, t in (state.batch_stats or {}).items()}
     zero_counts()
-    metrics, seconds = [], []
+    metrics = []
     for _ in range(steps):
-        t0 = time.perf_counter()
         state, m = step(state, batch, seed)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
         metrics.append(m)
     ev = eval_step(state, batch)
     launches = read_counts()
@@ -2312,146 +1998,32 @@ def kd_steps(checks, label, task, state, batch, quant, distill, tx, steps, seed,
         checks.require(moved == len(stats0), f"{label}: {moved} of {len(stats0)} statistics moved")
     ev = {k: float(v) for k, v in ev.items() if k != "carry"}
     checks.require(all(map(math.isfinite, ev.values())), f"{label} eval metrics not finite")
-    return state, step, {"steps": steps, "launches": launches, "loss": loss, "grad_norm": gnorm,
-                         "step_seconds": seconds, "statistics_moved": moved, "eval": ev}
+    return state, {"steps": steps, "launches": launches, "loss": loss, "grad_norm": gnorm,
+                   "statistics_moved": moved, "eval": ev}
 
 
-def legs_in_turns(legs: dict, state, batch, seed, reps) -> tuple:
-    """Host seconds of each train step in ``legs`` (name → step), one
-    synchronized call at a time in turns, the order reversed every other
-    round, after one warm-up of each; the state runs on through all."""
-    holder = {"state": state}
-
-    def run(fn):
-        holder["state"], m = fn(holder["state"], batch, seed)
-        float(m["loss"])
-
-    times = searches_in_turns({k: (lambda fn=fn: run(fn)) for k, fn in legs.items()}, reps)
-    return holder["state"], times, {k: statistics.median(v) for k, v in times.items()}
-
-
-def step_bytes(run) -> dict:
-    """``run()`` → (its result, its device bytes), the allocator's cache
-    emptied before and after: the peak allocated above what was allocated
-    before the call (an eager step's activations and gradients), and the
-    bytes the call leaves reserved (a capturing call: the graph's private
-    pool, held as long as the graph lives)."""
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    allocated, reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
-    out = run()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    return out, {"peak_allocated_above": torch.cuda.max_memory_allocated() - allocated,
-                 "held_reserved": torch.cuda.memory_reserved() - reserved}
-
-
-def graph_legs(checks, label, task, tx, state, batch, seed, args, *, quant, distill,
+def graph_legs(checks, label, task, tx, state, batch, seed, args, *, quant,
                mode: str = "weights", fq_per_step: int = 1, control: bool = False,
                **mesh_kw) -> dict:
-    """The graphed train step against the eager one (``_eager=True``), at the
-    phase's width: from four copies of ``state``, three eager runs and one
-    graphed run of ``args.train_steps`` steps on ``batch`` at the same
-    ``(seed, step)``. Every tensor of the state after them (parameters,
-    codebooks, moments, running statistics, carry), and every step's loss,
-    must equal the first eager run's bit for bit where the eager runs are
-    equal bit for bit, and lie within twice the eager-against-eager gap
-    elsewhere (a tensor's largest gap between any two of three eager runs;
-    for the losses, the largest over the steps), for a step whose eager
-    runs differ (the WRN legs run under :func:`cudnn_deterministic`, so
-    theirs should not). The graphed run must launch
-    ``fq_per_step`` fake-quant kernels a step and capture one graph. With ``control``, one graphed step
-    at another seed must give another loss (the student's dropout masks
-    follow the seed). Then the two steps' host seconds in turns (median of
-    ``args.reps``), the device's busy share of one call of each
-    (:func:`phase_profile`), and the device memory of each
-    (:func:`step_bytes`: an eager step's peak above the state, and what
-    the capturing call leaves reserved, the graph's pool). ``mesh_kw``
-    (``mesh``, and ``param_specs`` or ``grad_reduce_dtype``): the steps on
-    that mesh, where each step's collectives (``collective_budget``: kind,
-    bytes, axis, group size) in the graphed run, the capturing call's and
-    every replay's, must equal the first eager run's step for step."""
-    kw = dict(quant=quant, distill=distill, mode=mode, device="cuda", **mesh_kw)
-    mesh = mesh_kw.get("mesh")
-    eager = make_train_step(task, tx, _eager=True, **kw)
-    graph = make_train_step(task, tx, **kw)
-    checks.require(graph.graphed, f"{label}: the step does not run graphed")
-    nbytes = {}
-    runs = []
-    for step in (eager, eager, eager, graph):
-        st, losses, budgets = _clone_state(state), [], []
-        zero_counts()
-        for i in range(args.train_steps):
-            leg = "graph" if step is graph else "eager"
-            with collective_budget(mesh) as budget:
-                if i == 0 and leg not in nbytes:  # the first eager step, the capturing call
-                    (st, m), nbytes[leg] = step_bytes(lambda: step(st, batch, seed))
-                else:
-                    st, m = step(st, batch, seed)
-            losses.append(m["loss"])
-            budgets.append([dataclasses.astuple(op) for op in budget.ops])
-        runs.append((st, torch.stack(losses), read_counts(), budgets))
-    g, lg, launches, g_budgets = runs.pop()
-    want = expected(fake_quant_buckets=fq_per_step * args.train_steps)
-    checks.require(launches == want, f"{label} graphed launches {launches}, expected {want}")
-    checks.require(graph.captures == 1, f"{label}: {graph.captures} captures for one signature")
-    collectives = None
-    if mesh is not None:
-        same = g_budgets == runs[0][3]
-        checks.require(same and bool(g_budgets[0]),
-                       f"{label}: the graphed steps' collectives differ from the eager steps'")
-        kinds = {}
-        for kind, nb, axis, _ in g_budgets[0]:
-            kinds[f"{kind}@{axis}"] = kinds.get(f"{kind}@{axis}", 0) + 1
-        collectives = {"equal_to_eager_every_step": same, "a_step": kinds,
-                       "bytes_a_step": sum(op[1] for op in g_budgets[0])}
-    over, record = 0, {}
-    for what, tensors, tg in (("state", [state_tensors(r[0]) for r in runs], state_tensors(g)),
-                              ("loss", [list(r[1]) for r in runs], list(lg))):
-        ta = tensors[0]
-        gap_e = [max(float((x - y).abs().max()) for x, y in itertools.combinations(ts, 2))
-                 for ts in zip(*tensors, strict=True)]
-        gap_ag = [float((x - y).abs().max()) for x, y in zip(ta, tg, strict=True)]
-        if what == "loss":  # one number a step: the bound is the largest gap of the run
-            gap_e = [e and max(gap_e) for e in gap_e]
-        bad = sum(d > (0.0 if e == 0.0 else 2 * e) for e, d in zip(gap_e, gap_ag))
-        over += bad
-        record[what] = {
-            "tensors": len(ta), "eager_bit_equal": sum(e == 0.0 for e in gap_e),
-            "graph_bit_equal": sum(d == 0.0 for d in gap_ag),
-            "eager_eager_max_abs_gap": max(gap_e), "graph_eager_max_abs_gap": max(gap_ag),
-            "largest_gap_ratio": max((d / e for e, d in zip(gap_e, gap_ag) if e), default=0.0),
-            "graph_over_bound": bad}
-    checks.require(over == 0, f"{label}: graphed against eager past the eager-eager bound "
-                   f"{record}")
-    record["loss_eager"] = [float(x) for x in runs[0][1]]
-    record["loss_graph"] = [float(x) for x in lg]
-    if control:  # a step object of its own, so that ``graph`` keeps one capture
-        _, m = make_train_step(task, tx, **kw)(_clone_state(state), batch, seed + 1)
-        record["loss_other_seed"] = float(m["loss"])
-        checks.require(record["loss_other_seed"] != record["loss_graph"][0],
-                       f"{label}: another seed gave the same loss (dropout off?)")
-    del runs
-    st, times, med = legs_in_turns({"graph": graph, "eager": eager}, g, batch, seed, args.reps)
-    busy = {leg: phase_profile(lambda s=step: s(st, batch, seed), med[leg],
-                               phase=f"{label}_{leg}_profile")
-            for leg, step in (("graph", graph), ("eager", eager))}
-    checks.require(graph.captures == 1, f"{label}: {graph.captures} captures after the timing")
+    """The graphed train step against the eager one at the phase's width,
+    ``args.train_steps`` steps from copies of ``state`` on ``batch`` at
+    ``seed``: ``multicard_smoke.graph_leg`` (three eager runs and one
+    graphed, every tensor and loss held to the eager runs by its
+    ``graph_parity``; one capture, ``fq_per_step`` fake-quant launches a
+    step; with ``control``, another seed another loss; ``mesh_kw``:
+    ``mesh``, and ``param_specs`` or ``grad_reduce_dtype``, the steps on
+    that mesh with the eager step's collectives at every replay). The WRN
+    legs run under :func:`cudnn_deterministic`, so their eager runs agree
+    bit for bit. Prints the phase ``<label>_graph`` line and returns it."""
     out = {"phase": f"{label}_graph", "steps": args.train_steps, "mode": mode,
-           "launches": launches, "captures": graph.captures, "parity": record,
-           "collectives": collectives,
-           "step_seconds_graph": times["graph"], "step_seconds_eager": times["eager"],
-           "median_step_seconds_graph": med["graph"], "median_step_seconds_eager": med["eager"],
-           "device_busy_share_graph": busy["graph"]["device_busy_share_of_median_run"],
-           "device_busy_share_eager": busy["eager"]["device_busy_share_of_median_run"],
-           "device_bytes_eager_step": nbytes["eager"],
-           "device_bytes_capturing_call": nbytes["graph"]}
+           **graph_leg(checks, label, task, tx, state, batch, seed, args.train_steps,
+                       torch.device("cuda"), quant=quant, mode=mode, fq_per_step=fq_per_step,
+                       control=control, **mesh_kw)}
     emit(out)
     return out
 
 
-def phase_vision_train(checks, args, smi) -> dict:
+def phase_vision_train(checks, args, smi):
     """WRN-28-10 → WRN-16-4 on CIFAR-100 (see the module docstring)."""
     dev = torch.device("cuda")
     quant, distill = QuantSpec(bits=args.bits), DistillSpec()
@@ -2469,8 +2041,8 @@ def phase_vision_train(checks, args, smi) -> dict:
                                batch_stats=dict(student.named_buffers()), quant=quant, device=dev)
     fq = fake_quant_at(checks, "vision_train", state.params, quant)
     checks.require(fq["n_buckets"] == WRN_BUCKETS, f"vision_train: {fq['n_buckets']} buckets")
-    state, step, record = kd_steps(checks, "vision_train", task, state, batch, quant, distill, tx,
-                                   args.train_steps, args.seed)
+    state, record = kd_steps(checks, "vision_train", task, state, batch, quant, distill, tx,
+                             args.train_steps, args.seed)
 
     def setup(device):
         s, t = models(device, args.seed + 40)
@@ -2485,17 +2057,7 @@ def phase_vision_train(checks, args, smi) -> dict:
                          [vision_batch(args.parity_batch, 32, 100, args.seed + 43, "cpu")],
                          quant, distill)
     with cudnn_deterministic():  # graphed must equal eager bit for bit
-        legs = graph_legs(checks, "vision_train", task, tx, state, batch, args.seed, args,
-                          quant=quant, distill=distill)
-    fp_step = make_train_step(task, tx, quant=None, distill=distill, device=dev)
-    state, times, med = legs_in_turns({"4bit": step, "fp32": fp_step}, state, batch, args.seed,
-                                      args.reps)
-    stages = step_breakdown(task, state, batch, quant, distill, tx, args.reps)
-    torch.cuda.reset_peak_memory_stats()
-    step(state, batch, args.seed)
-    peak = torch.cuda.max_memory_allocated()
-    prof = phase_profile(lambda: step(state, batch, args.seed), med["4bit"],
-                         phase="vision_train_profile", focus="fake_quant_kernel")
+        graph_legs(checks, "vision_train", task, tx, state, batch, args.seed, args, quant=quant)
 
     # differentiable quantization, as examples/cifar100_wrn_diffquant.py trains
     cb_quant = QuantSpec(bits=args.bits, method="codebook")
@@ -2518,18 +2080,11 @@ def phase_vision_train(checks, args, smi) -> dict:
         "teacher_params": sum(p.numel() for p in teacher.parameters()),
         "student_params": sum(p.numel() for p in student.parameters()),
         "fake_quant": fq, "parity_cuda_vs_cpu": parity,
-        "step_seconds_4bit": times["4bit"], "step_seconds_fp32": times["fp32"],
-        "images_per_s_4bit": args.vision_batch / med["4bit"],
-        "images_per_s_fp32": args.vision_batch / med["fp32"],
-        "vs_baseline": med["fp32"] / med["4bit"], "peak_device_bytes": peak,
-        "stage_seconds_4bit": stages, "device_busy_share": prof["device_busy_share"],
         "joint": {"steps": 2, "loss": cb_loss, "launches": cb_launches}, "card": smi,
     })
-    return {"launches": record["launches"]["fake_quant_buckets"],
-            "graph_launches": legs["launches"]["fake_quant_buckets"], **fq}
 
 
-def phase_lm_train(checks, args, smi) -> dict:
+def phase_lm_train(checks, args, smi):
     """2x650 → student_medium LSTM LM with the carry threaded (see the
     module docstring)."""
     dev = torch.device("cuda")
@@ -2571,8 +2126,8 @@ def phase_lm_train(checks, args, smi) -> dict:
                    "lm_train: the state's carry has gradient history")
     moved = not torch.equal(_leaves(outs[0])[1], _leaves(outs[1])[1])
     checks.require(moved, "lm_train: the carry did not move")
-    state, step, record = kd_steps(checks, "lm_train", task, state, batch, quant, distill, tx,
-                                   args.train_steps, args.seed)
+    state, record = kd_steps(checks, "lm_train", task, state, batch, quant, distill, tx,
+                             args.train_steps, args.seed)
 
     def setup(device):
         s, t = models(device, args.seed + 50, dropout=0.0)
@@ -2584,29 +2139,16 @@ def phase_lm_train(checks, args, smi) -> dict:
     parity = step_parity(checks, "lm_train parity", setup,
                          [lm_batch(args.parity_batch, v, args.lm_bptt, args.seed + 53 + i, "cpu")
                           for i in range(2)], quant, distill)
-    legs = graph_legs(checks, "lm_train", task, tx, state, batch, args.seed, args, quant=quant,
-                      distill=distill)
-    fp_step = make_train_step(task, tx, quant=None, distill=distill, device=dev)
-    state, times, med = legs_in_turns({"4bit": step, "fp32": fp_step}, state, batch, args.seed,
-                                      args.reps)
-    stages = step_breakdown(task, state, batch, quant, distill, tx, args.reps)
-    prof = phase_profile(lambda: step(state, batch, args.seed), med["4bit"],
-                         phase="lm_train_profile", focus="fake_quant_kernel")
-    ntok = b * args.lm_bptt
+    graph_legs(checks, "lm_train", task, tx, state, batch, args.seed, args, quant=quant)
     emit({
         "phase": "lm_train", "teacher": "lm_2x650", "student": "student_medium", "vocab": v,
         "batch": b, "bptt": args.lm_bptt, "bits": args.bits, "thread_carry": True, **record,
         "carry_threaded_on_card": threaded, "fake_quant": fq, "parity_cuda_vs_cpu": parity,
-        "step_seconds_4bit": times["4bit"], "step_seconds_fp32": times["fp32"],
-        "tokens_per_s_4bit": ntok / med["4bit"], "tokens_per_s_fp32": ntok / med["fp32"],
-        "vs_baseline": med["fp32"] / med["4bit"], "stage_seconds_4bit": stages,
-        "device_busy_share": prof["device_busy_share"], "card": smi,
+        "card": smi,
     })
-    return {"launches": record["launches"]["fake_quant_buckets"],
-            "graph_launches": legs["launches"]["fake_quant_buckets"], **fq}
 
 
-def phase_vision_families(checks, args, smi) -> dict:
+def phase_vision_families(checks, args, smi):
     """The CNN and the ImageNet ResNet at the widths of their examples (see
     the module docstring)."""
     dev = torch.device("cuda")
@@ -2622,7 +2164,7 @@ def phase_vision_families(checks, args, smi) -> dict:
             make_resnet("resnet18_half", device=device, seed=seed + 1),
             make_resnet("resnet18", device=device, seed=seed)), 224, 1000, args.resnet_batch),
     }
-    rows, record = {}, {}
+    record = {}
     for i, (name, (models, size, classes, b)) in enumerate(families.items()):
         seed = args.seed + 60 + 10 * i
         student, teacher = models(dev, seed, False)
@@ -2633,8 +2175,8 @@ def phase_vision_families(checks, args, smi) -> dict:
                                    batch_stats=dict(student.named_buffers()), quant=quant,
                                    device=dev)
         fq = fake_quant_at(checks, name, state.params, quant)
-        state, _, rec = kd_steps(checks, name, task, state, batch, quant, distill, tx, 3,
-                                 args.seed, check_falling=False)
+        state, rec = kd_steps(checks, name, task, state, batch, quant, distill, tx, 3, args.seed,
+                              check_falling=False)
 
         def setup(device, models=models, seed=seed):
             s, t = models(device, seed, True)
@@ -2647,15 +2189,12 @@ def phase_vision_families(checks, args, smi) -> dict:
                              [vision_batch(args.family_parity_batch, size, classes, seed + 3,
                                            "cpu")], quant, distill)
         record[name] = {"batch": b, "image": [size, size, 3], "classes": classes, **rec,
-                        "images_per_s_4bit": b / statistics.median(rec["step_seconds"][1:]),
                         "fake_quant": fq, "parity_cuda_vs_cpu": parity}
-        rows[name] = {"launches": rec["launches"]["fake_quant_buckets"], **fq}
         del student, teacher, task, state
     emit({"phase": "vision_families", "bits": args.bits,
           "cnn": {"teacher": "teacher", "student": "student_small", **record["cnn"]},
           "resnet": {"teacher": "resnet18", "student": "resnet18_half", **record["resnet"]},
           "card": smi})
-    return rows
 
 
 # Phase 17: the four paper drivers through their main(argv), on synthetic data.
@@ -2679,13 +2218,6 @@ DRIVER_RUNS = {
         "--teacher", "teacher", "--student", "student_medium", "--synthetic-vocab", "10000",
         "--synthetic-tokens", "200000", "--teacher-epochs", "1", "--epochs", "1"]),
 }
-# stage → the event that ends it (a stage starts where the last one ended,
-# the first at the "data" event)
-DRIVER_STAGES = {
-    "cifar100_wrn": {"teacher": "teacher_eval", "student_uniform": "student_uniform_eval",
-                     "auto_bits": "auto_bits", "diffquant": "final"},
-}
-DEFAULT_STAGES = {"teacher": "teacher_eval", "student": "final"}
 
 
 def vision_driver_launches(n_train, n_test, batch_size, epochs) -> int:
@@ -2700,49 +2232,16 @@ def lm_windows(n_tokens, batch_size, bptt) -> int:
     return len(range(0, (n_tokens - 1) // batch_size - bptt + 1, bptt))
 
 
-def host_epoch_seconds(ds, batch_size, seed) -> float:
-    """One training epoch of ``batches(..., train_augment=True)`` alone, on
-    the host: the drivers' data time."""
-    t0 = time.perf_counter()
-    for _ in batches(ds, batch_size, train_augment=True, seed=seed):
-        pass
-    return time.perf_counter() - t0
-
-
-def driver_timeline(events, stages) -> tuple:
-    """(stage → wall seconds, the student's epoch intervals), from the
-    events' ``t`` fields. A student epoch's interval runs from the epoch
-    or stage-ending event before it (the periodic ``train`` events do not
-    count) to it: its steps, its eval pass and the checkpoint of the epoch
-    before it; the first one also builds the student and its state."""
-    ends = {end: stage for stage, end in stages.items()}
-    seconds, epochs, in_student = {}, [], False
-    start = prev = events[0]["t"]
-    for e in events[1:]:
-        stage = ends.get(e["event"])
-        if e["event"] == "epoch":
-            if in_student:
-                epochs.append(e["t"] - prev)
-            prev = e["t"]
-        elif stage:
-            seconds[stage] = e["t"] - start
-            start = prev = e["t"]
-            in_student = stage == "teacher"
-    return seconds, epochs
-
-
 def driver_plan(name, a) -> dict:
     """What the driver ``name`` run at the flags ``a`` implies: its
-    registry's teacher and student, its fake-quant launches, the items of a
-    student epoch, its student model (for the bucket count) and, for the
-    vision drivers, its training split (for the host data time)."""
+    registry's teacher and student, its fake-quant launches and its student
+    model (for the bucket count)."""
     if name == "ptb":
         per_epoch = lm_windows(a.synthetic_tokens, a.batch_size, a.bptt)
         eval_windows = lm_windows(max(a.synthetic_tokens // 10, 2000), a.batch_size, a.bptt)
         return {"models": (f"lm_{a.teacher}_fp32", f"lm_{a.student}_{a.bits}bit"),
                 "launches": a.epochs * per_epoch + (a.epochs + 1) * eval_windows,
-                "items": per_epoch * a.batch_size * a.bptt, "unit": "tokens",
-                "student": make_lm(a.student, a.synthetic_vocab, device="cuda"), "train": None}
+                "student": make_lm(a.student, a.synthetic_vocab, device="cuda")}
     data_dir = a.data_dir or BASE_DATA_FOLDER
     if name == "imagenet":
         prefix, n_test = "imagenet", (a.synthetic_size or 2000) // 4
@@ -2761,33 +2260,27 @@ def driver_plan(name, a) -> dict:
     n_train = len(train.labels)
     return {"models": (f"{prefix}_{a.teacher}_fp32", f"{prefix}_{a.student}_{a.bits}bit"),
             "launches": vision_driver_launches(n_train, n_test, a.batch_size, a.epochs),
-            "items": (n_train // a.batch_size) * a.batch_size, "unit": "images",
-            "student": student, "train": train}
+            "student": student}
 
 
-def phase_drivers(checks, args, smi) -> dict:
+def phase_drivers(checks, args, smi):
     """The four paper drivers through their ``main(argv)`` with ``--device
     cuda`` at the widths of DRIVER_RUNS, each under its own workdir in a
-    temporary directory (see the module docstring). Returns the fake-quant
-    launches and bucket counts of each."""
+    temporary directory (see the module docstring)."""
     root = Path(__file__).resolve().parent / "runs"
     root.mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="chip_smoke_drivers_", dir=root))
-    out = {}
     try:
         for name, (module, flags) in DRIVER_RUNS.items():
             a = module.parse_args(flags)
             workdir = root / name
             zero_counts()
-            t0 = time.perf_counter()
             try:
                 with contextlib.redirect_stdout(io.StringIO()):
                     rc = module.main([*flags, "--device", "cuda", "--workdir", str(workdir)])
             except Exception:  # the phase fails, the script goes on to report it
                 traceback.print_exc()
                 rc = None
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
             launches = read_counts()
             path = workdir / "metrics.jsonl"
             events = [json.loads(line) for line in path.read_text().splitlines()] \
@@ -2813,27 +2306,14 @@ def phase_drivers(checks, args, smi) -> dict:
                 checks.require(acc > CIFAR10_MIN_ACCURACY,
                                f"cifar10 student quantized accuracy {acc} <= "
                                f"{CIFAR10_MIN_ACCURACY}")
-            stages, epochs = driver_timeline(events, DRIVER_STAGES.get(name, DEFAULT_STAGES)) \
-                if final else ({}, [])
-            epoch_s = statistics.median(epochs[1:] or epochs) if epochs else float("nan")
-            record = {
-                "phase": "drivers", "driver": name, "argv": flags, "rc": rc,
-                "wall_seconds": wall, "stage_seconds": stages, "student_epoch_seconds": epochs,
-                f"student_{plan['unit']}_per_s": plan["items"] / epoch_s,
-                "student_epoch_includes_setup": len(epochs) == 1,
-                "fake_quant_launches": got, "expected_launches": want,
-                "fake_quant": {"bits": a.bits, **fq}, "registry": saved,
-                "final": {k: v for k, v in final.items() if k not in ("event", "t")},
-            }
-            if plan["train"] is not None:
-                host = host_epoch_seconds(plan["train"], a.batch_size, a.seed)
-                record.update(host_data_seconds=host, host_data_share=host / epoch_s)
-            emit({**record, "card": smi})
-            out[name] = {"launches": got, "bits": a.bits, **fq}
+            emit({"phase": "drivers", "driver": name, "argv": flags, "rc": rc,
+                  "fake_quant_launches": got, "expected_launches": want,
+                  "fake_quant": {"bits": a.bits, **fq}, "registry": saved,
+                  "final": {k: v for k, v in final.items() if k not in ("event", "t")},
+                  "card": smi})
             del plan
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return out
 
 
 def vision_batch(n, size, classes, seed, device) -> dict:
@@ -2975,7 +2455,7 @@ def _tp_models(a, dev, family: str, seed: int):
 def _tp_step(a, dev, family, seed, mesh, tensor_parallel: bool) -> dict:
     """One SGD KD step of a fresh seeded student (whole, or this rank's
     shards with ``tensor_parallel``) → loss, parameters, fake-quant launches,
-    collectives by kind and axis, seconds."""
+    collectives by kind and axis."""
     student, task, batch = _tp_models(a, dev, family, seed)
     quant = QuantSpec(bits=a.bits)
     whole = dict(student.named_parameters())
@@ -2989,18 +2469,15 @@ def _tp_step(a, dev, family, seed, mesh, tensor_parallel: bool) -> dict:
         batch = place_batch(batch, mesh, device=dev)
     zero_counts()
     with collective_budget(mesh) as budget:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         state, m = step(state, batch, a.seed)
         loss = float(m["loss"])
-        seconds = time.perf_counter() - t0
     kinds = {}
     for op in budget.ops:
         kinds[f"{op.kind}@{op.axis}"] = kinds.get(f"{op.kind}@{op.axis}", 0) + 1
     return {"loss": loss, "grad_norm": float(m["grad_norm"]), "params": state.params,
             "launches": read_counts()["fake_quant_buckets"], "collectives": kinds,
             "graphed": step.graphed,
-            "wire_bytes_by_axis": budget.bytes_by_axis(wire=True), "seconds": seconds,
+            "wire_bytes_by_axis": budget.bytes_by_axis(wire=True),
             "specs": specs, "mp": None if specs is None else ModelParallel(mesh, specs)}
 
 
@@ -3047,7 +2524,7 @@ def _mg_tp_rank(rank, world, spec):
     return out
 
 
-def mg_tp_train(checks, args, smi) -> dict:
+def mg_tp_train(checks, args, smi):
     """(d) tensor-parallel training: the full-width seq2seq KD step on 4
     gloo ranks at TP_SHAPES and the LM's on 2 at LM_TP_SHAPE, each rank's
     SGD-updated shard against the slice of the one-process step on the card
@@ -3062,11 +2539,8 @@ def mg_tp_train(checks, args, smi) -> dict:
                 "ref": {n: t.detach().cpu() for n, t in ref["params"].items()}}
         del ref["params"]
         world = shapes[0][0] * shapes[0][1]
-        t0 = time.perf_counter()
         ranks = run_ranks(_mg_tp_rank, world, args=(spec,), timeout=MG_TIMEOUT, join_timeout=600)
-        spawn_s = time.perf_counter() - t0
-        fam = {"one_process": {k: ref[k] for k in ("loss", "grad_norm", "launches", "seconds")},
-               "spawn_seconds": spawn_s}
+        fam = {"one_process": {k: ref[k] for k in ("loss", "grad_norm", "launches")}}
         for shape in shapes:
             per = [r[str(shape)] for r in ranks]
             for rk, p in enumerate(per):
@@ -3097,13 +2571,11 @@ def mg_tp_train(checks, args, smi) -> dict:
                                       timeout=300),
     }
     emit({"phase": "tp_train", **out, "card": smi})
-    return out
 
 
 def run_script(checks, name: str, argv, timeout: float) -> dict:
     """``python -m quantized_distillation_tpu_torch.scripts.<name>`` as a
-    subprocess that must exit 0 → its seconds and last lines."""
-    t0 = time.perf_counter()
+    subprocess that must exit 0 → its return code and last lines."""
     try:
         r = subprocess.run([sys.executable, "-m", f"quantized_distillation_tpu_torch.scripts.{name}",
                             *argv], capture_output=True, text=True, timeout=timeout)
@@ -3113,8 +2585,7 @@ def run_script(checks, name: str, argv, timeout: float) -> dict:
         stdout = stdout.decode() if isinstance(stdout, bytes) else stdout
         stderr = stderr.decode() if isinstance(stderr, bytes) else stderr
     checks.require(rc == 0, f"scripts.{name} exited {rc}: {stderr[-2000:]}")
-    return {"rc": rc, "seconds": time.perf_counter() - t0,
-            "last_lines": stdout.strip().splitlines()[-8:]}
+    return {"rc": rc, "last_lines": stdout.strip().splitlines()[-8:]}
 
 
 def shard_kernel_times(checks, args, params, points, group) -> dict:
@@ -3156,14 +2627,11 @@ def shard_kernel_times(checks, args, params, points, group) -> dict:
     return out
 
 
-MESH_GRAPH_LEGS = ("dp_bf16", "tp_weights", "tp_joint", "lm_tp", "vision_dp")
-
-
-def mesh_graph_legs(checks, args, mesh) -> dict:
+def mesh_graph_legs(checks, args, mesh):
     """(a) the KD steps on mesh (1, 1) over NCCL as CUDA graphs, each leg
     through :func:`graph_legs` (three eager runs and one graphed of
     ``args.train_steps`` steps from copies of one state, Adam with
-    clipping; then timings, busy shares and pools): the seq2seq (teacher
+    clipping): the seq2seq (teacher
     2x500 → ``args.preset``, V = ``args.vocab``, B = ``train_batch``, L =
     ``src_len``, dropout 0.3) data parallel with the bf16 gradient reduce,
     then tensor parallel on ``place_params_seq2seq`` shards in modes
@@ -3174,17 +2642,15 @@ def mesh_graph_legs(checks, args, mesh) -> dict:
     Graphed equal to eager bit for bit (the WRN under
     :func:`cudnn_deterministic`), one capture, one fake-quant launch a STE
     step and none in ``joint``, the eager step's collectives at every
-    replay. Returns each leg's line."""
+    replay."""
     dev = torch.device("cuda")
     cfg = TrainConfig(learning_rate=1e-3, clip_norm=5.0)
-    quant, distill = QuantSpec(bits=args.bits), DistillSpec()
+    quant = QuantSpec(bits=args.bits)
     cb_quant = QuantSpec(bits=args.bits, method="codebook")
-    out = {}
 
     def leg(name, task, state, batch, **kw):
-        out[name] = graph_legs(checks, f"mesh_{name}", task, tx, state,
-                               place_batch(batch, mesh, device=dev), args.seed, args,
-                               distill=distill, mesh=mesh, **{"quant": quant, **kw})
+        graph_legs(checks, f"mesh_{name}", task, tx, state, place_batch(batch, mesh, device=dev),
+                   args.seed, args, mesh=mesh, **{"quant": quant, **kw})
 
     seed = args.seed + 80
     student, task, batch = kd_setup(args, dev, args.train_batch, seed, dropout=0.3)
@@ -3219,7 +2685,6 @@ def mesh_graph_legs(checks, args, mesh) -> dict:
                                batch_stats=dict(student.named_buffers()), quant=quant,
                                device=dev),
             vision_batch(args.vision_batch, 32, 100, seed + 22, dev))
-    return out
 
 
 def mg_nccl(checks, args, model, params, points, smi) -> dict:
@@ -3240,7 +2705,6 @@ def mg_nccl(checks, args, model, params, points, smi) -> dict:
         checks.require(out["graphed"], "multi_gpu: the NCCL sharded search does not run graphed")
         searches = {}
         for label, kw in (("f32", dict(compute_dtype=torch.float32)),
-                          ("bf16", dict(compute_dtype=torch.bfloat16)),
                           ("lut_f32", dict(compute_dtype=torch.float32, points=points,
                                            lut_mode="exact"))):
             dec = pack_decoder(params, model.cfg, args.bits, generator_group=group, device=dev,
@@ -3277,23 +2741,6 @@ def mg_nccl(checks, args, model, params, points, smi) -> dict:
             checks.require(res["score_max_abs_diff"] <= F32_TOL,
                            f"multi_gpu {label}: scores {res['score_max_abs_diff']} apart")
             out[label] = res
-        # bf16 tokens/s, sharded and unsharded in turns
-        dec16, sdec16 = searches["bf16"]
-        legs = {
-            "sharded": lambda: beam_search_sharded(model, sdec16, src, src_len, cfg, mesh,
-                                                   device=dev),
-            "unsharded": lambda: beam_search_packed(model, dec16, src, src_len, cfg, device=dev),
-        }
-        times = searches_in_turns(legs, args.reps)
-        ntok = args.batch * steps
-        out["bf16_seconds"] = times
-        out["bf16_tokens_per_s"] = {k: ntok / statistics.median(v) for k, v in times.items()}
-        out["bf16_profile"] = {}
-        for name, run in legs.items():
-            prof = phase_profile(run, statistics.median(times[name]),
-                                 phase=f"multi_gpu_profile_{name}")
-            out["bf16_profile"][name] = {k: prof[k] for k in (
-                "device_ms", "span_ms", "kernels", "device_busy_share_of_median_run")}
         # the engine on the mesh: 16 requests against the offline sharded search
         dec32, sdec32 = searches["f32"]
         n = 16
@@ -3350,9 +2797,8 @@ def mg_nccl(checks, args, model, params, points, smi) -> dict:
         out["kd_tp_1x1"] = {"batch": args.train_batch, "loss": tp1["loss"],
                             "mesh_less_loss": one["loss"], "params_excess_over_rtol": tp_excess,
                             "fake_quant_launches": tp1["launches"],
-                            "collectives": tp1["collectives"], "seconds": tp1["seconds"],
-                            "mesh_less_seconds": one["seconds"], "graphed": tp1["graphed"]}
-        out["graphed_steps"] = mesh_graph_legs(checks, args, mesh)
+                            "collectives": tp1["collectives"], "graphed": tp1["graphed"]}
+        mesh_graph_legs(checks, args, mesh)
     finally:
         torch.distributed.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -3361,9 +2807,9 @@ def mg_nccl(checks, args, model, params, points, smi) -> dict:
 
 def phase_multi_gpu(checks, args, model, params, points, smi) -> dict:
     """Phase 18: (a) NCCL at world size 1, (b) 4 ranks sharing the card over
-    gloo, (c) 2 ranks over gloo, then the generator at the shard widths.
-    Returns the sharded launches and shard-width times of the generator
-    rows."""
+    gloo, (c) 2 ranks over gloo, then the generator at the shard widths and
+    (d) tensor-parallel training. Returns the generator rows' device times
+    at the shard widths, by kernel."""
     a = mg_nccl(checks, args, model, params, points, smi)
     spec = {"args": vars(args), "group": pick_generator_group(args.batch * args.beam)}
     # the one-process f32 search, for a count of the sentences the sharded
@@ -3376,9 +2822,7 @@ def phase_multi_gpu(checks, args, model, params, points, smi) -> dict:
                          generator_group=spec["group"], device="cuda")
     want_toks = beam_search_packed(model, dec32, src, src_len, cfg, device="cuda")[0].cpu().numpy()
     del dec32
-    t0 = time.perf_counter()
     ranks = run_ranks(_mg_serve_rank, 4, args=(spec,), timeout=MG_TIMEOUT, join_timeout=600)
-    serve_s = time.perf_counter() - t0
     b = {}
     steps = args.src_len
     want = expected(dequant_matmul=3 * steps, dequant_matmul_topk=steps, beam_advance=steps)
@@ -3405,9 +2849,7 @@ def phase_multi_gpu(checks, args, model, params, points, smi) -> dict:
                   "beam_advance_bit_exact": [p["beam_advance_bit_exact"] for p in per]}
     for r in ranks:
         checks.failed += r["failed"]
-    t0 = time.perf_counter()
     train = run_ranks(_mg_train_rank, 2, args=(spec,), timeout=MG_TIMEOUT, join_timeout=600)
-    train_s = time.perf_counter() - t0
     for r, t in enumerate(train):
         checks.require(abs(t["loss"] - t["one_rank_loss"]) <= LOSS_RTOL * abs(t["one_rank_loss"]),
                        f"multi_gpu DP rank {r}: loss {t['loss']} vs {t['one_rank_loss']}")
@@ -3417,31 +2859,10 @@ def phase_multi_gpu(checks, args, model, params, points, smi) -> dict:
                        f"multi_gpu DP rank {r}: {t['fake_quant_launches']} fake-quant launches")
         checks.require(not t["graphed"], f"multi_gpu DP rank {r}: a gloo step ran graphed")
     shards = shard_kernel_times(checks, args, params, points, spec["group"])
-    tp = mg_tp_train(checks, args, smi)
-    emit({"phase": "multi_gpu", "nccl": a, "gloo_serve": b, "gloo_serve_seconds": serve_s,
-          "gloo_dp_train": train, "gloo_dp_train_seconds": train_s, "shard_kernels": shards,
-          "card": smi})
-    launches = {
-        "dequant_matmul_topk": {"nccl_1x1": a["f32"]["replay"]["launches"]["dequant_matmul_topk"],
-                                **{f"gloo_{k}": [x["dequant_matmul_topk"] for x in v["launches"]]
-                                   for k, v in b.items()}},
-        "dequant_matmul_topk_lut": {
-            "nccl_1x1": a["lut_f32"]["replay"]["launches"]["dequant_matmul_topk_lut"]},
-    }
-    out = {name: {"sharded_launches": launches[name], "shard_widths": shards[name]}
-           for name in shards}
-    out["fake_quant_buckets"] = {
-        "mesh_graph_launches": {leg: r["launches"]["fake_quant_buckets"]
-                                for leg, r in a["graphed_steps"].items()},
-        "tp_launches": {
-            "nccl_1x1": a["kd_tp_1x1"]["fake_quant_launches"],
-            **{f"gloo_{fam}_{shape}": [p["launches"] for p in tp[fam][shape]]
-               for fam, shapes in (("s2s", TP_SHAPES), ("lm", (LM_TP_SHAPE,)))
-               for shape in map(str, shapes)}},
-        "tp_gathered_tree": {fam: next(p["fake_quant"] for p in tp[fam][str(shapes[0])]
-                                       if "fake_quant" in p)
-                             for fam, shapes in (("s2s", TP_SHAPES), ("lm", (LM_TP_SHAPE,)))}}
-    return out
+    mg_tp_train(checks, args, smi)
+    emit({"phase": "multi_gpu", "nccl": a, "gloo_serve": b, "gloo_dp_train": train,
+          "shard_kernels": shards, "card": smi})
+    return shards
 
 
 # ------------------------------------------------------- quality scripts (19)
@@ -3509,22 +2930,20 @@ def grid_fake_quant_launches(a) -> dict:
 def run_main(module, argv, report) -> tuple:
     """``module.main(argv, report=report)`` in this process with the
     counters at 0 → (its return code, its last stdout line as JSON, the
-    other stdout lines, wall seconds, the launches)."""
+    other stdout lines, the launches)."""
     zero_counts()
     buf = io.StringIO()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = module.main(argv, report=report)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     lines = buf.getvalue().strip().splitlines()
-    return rc, json.loads(lines[-1]), lines[:-1], wall, read_counts()
+    return rc, json.loads(lines[-1]), lines[:-1], read_counts()
 
 
-def quality_topk(checks, smi) -> dict:
-    """``topk_divergence --vocab 32000`` → the launches of its run."""
+def quality_topk(checks, smi):
+    """``topk_divergence --vocab 32000`` (see the module docstring, phase
+    19)."""
     report = {}
-    rc, out, _, wall, launches = run_main(
+    rc, out, _, launches = run_main(
         topk_divergence, ["--vocab", str(QUALITY_VOCAB)], report)
     ex = out["per_step"]["exact"]
     checks.require(rc == 0 and list(out) == TOPK_KEYS and list(out["per_step"]) == ["exact"],
@@ -3552,8 +2971,8 @@ def quality_topk(checks, smi) -> dict:
     checks.require(got == searches and launches == want,
                    f"topk_divergence launches: searches {report['search_launches']}, expected "
                    f"{searches}; run {launches}, expected {want}")
-    emit({"phase": "quality", "script": "topk_divergence", "rc": rc, "wall_seconds": wall,
-          "train_seconds": report["train_seconds"], "train_losses": report["train_losses"],
+    emit({"phase": "quality", "script": "topk_divergence", "rc": rc,
+          "train_losses": report["train_losses"],
           "vocab": out["vocab"], "per_step": ex, "end_to_end": out["end_to_end"],
           "f32_control": {"mismatches": out["f32_shared_rounding_unsound"],
                           "past_bound": report["f32_mismatch_past_bound"],
@@ -3564,16 +2983,15 @@ def quality_topk(checks, smi) -> dict:
           "search_launches_per_step": {k: {c: v / n for c, v in d.items()}
                                        for k, d in report["search_launches"].items()},
           "launches": launches, "jax_package_reference": JAX_TOPK, "card": smi})
-    return launches
 
 
-def quality_grid(checks, smi) -> dict:
+def quality_grid(checks, smi):
     """``accuracy_grid --wrn`` at the JAX script's defaults but
-    QUALITY_WRN_DATA WRN images → the launches of its run."""
+    QUALITY_WRN_DATA WRN images (see the module docstring, phase 19)."""
     argv = ["--wrn", "--wrn-data", str(QUALITY_WRN_DATA)]
     want = grid_fake_quant_launches(accuracy_grid.parse_args(argv))
     report = {}
-    rc, out, lines, wall, launches = run_main(accuracy_grid, argv, report)
+    rc, out, _, launches = run_main(accuracy_grid, argv, report)
     checks.require(rc == 0 and list(out) == GRID_KEYS, f"accuracy_grid: rc {rc}, keys {list(out)}")
     for key, label in (("cnn_synthetic_cifar100", "cnn"), ("wrn_synthetic_cifar100", "wrn"),
                        ("nmt_toy", "nmt")):
@@ -3585,8 +3003,7 @@ def quality_grid(checks, smi) -> dict:
         got = path_counts(report[label]["launches"])
         checks.require(got == ({"fake_quant_buckets": want[label]} if want[label] else {}),
                        f"accuracy_grid {label}: launches {got}, expected {want[label]} fake-quant")
-        emit({"phase": "quality", "script": "accuracy_grid", "grid": key, "flags": argv,
-              "wall_seconds": report[label]["seconds"], **g,
+        emit({"phase": "quality", "script": "accuracy_grid", "grid": key, "flags": argv, **g,
               "fake_quant_launches": got.get("fake_quant_buckets", 0),
               "expected_launches": want[label], "jax_package_run": JAX_GRIDS[key],
               "card": smi})
@@ -3599,15 +3016,14 @@ def quality_grid(checks, smi) -> dict:
                    f"accuracy_grid launches {launches}, expected {sum(want.values())} fake-quant")
     # the paper's orderings are reported, not gated: the JAX run at these
     # defaults breaks its own cnn_4bit_within_2pts_of_fp (0.574 → 0.553)
-    emit({"phase": "quality", "script": "accuracy_grid", "rc": rc, "wall_seconds": wall,
-          "contract_checks": out["contract_checks"], "lines": lines, "card": smi})
-    return launches
+    emit({"phase": "quality", "script": "accuracy_grid", "rc": rc,
+          "contract_checks": out["contract_checks"], "card": smi})
 
 
-def phase_quality(checks, smi) -> dict:
-    """Phase 19 → the launches of each script's run."""
-    return {"topk_divergence": quality_topk(checks, smi),
-            "accuracy_grid": quality_grid(checks, smi)}
+def phase_quality(checks, smi):
+    """Phase 19: the two quality scripts."""
+    quality_topk(checks, smi)
+    quality_grid(checks, smi)
 
 
 # -------------------------------------------------------- graft entry (20)
@@ -3622,13 +3038,11 @@ def graft_dryrun(checks, label: str, n: int, step_seconds: float, dropout) -> di
     KD step, the one-layer toy student's search: 2 dequant-matmul, 1
     generator, 1 advance a step; and decode step) and its results held to
     the same dry run on the CPU (:func:`graft_vs_cpu`)."""
-    t0 = time.perf_counter()
     out = io.StringIO()
     try:
         with contextlib.redirect_stdout(out):
             report = graft_entry.dryrun_multichip(n, step_seconds=step_seconds, dropout=dropout,
                                                   dcn_smoke=False)
-        report["seconds"] = time.perf_counter() - t0
         report["vs_cpu"] = graft_vs_cpu(checks, label, report, dropout)
     except Exception:  # recorded: the phase reports what else it can
         checks.require(False, f"graft {label}: dryrun_multichip({n}) raised:\n"
@@ -3665,8 +3079,7 @@ def graft_vs_cpu(checks, label: str, report: dict, dropout) -> dict:
     every kernel's plain version, the same seeded weights): each rank's
     search tokens equal and scores within ``F32_TOL`` (rtol = atol), and
     at dropout 0 each rank's loss with the f32 and the reduced gradient
-    reduce too → the largest differences and the CPU run's seconds."""
-    t0 = time.perf_counter()
+    reduce too → the largest differences."""
     with contextlib.redirect_stdout(io.StringIO()):
         cpu = graft_entry.dryrun_multichip(report["n"], device="cpu", dropout=dropout,
                                            dcn_smoke=False)
@@ -3685,17 +3098,15 @@ def graft_vs_cpu(checks, label: str, report: dict, dropout) -> dict:
                            for a, b in losses),
                        f"graft {label}: losses card vs CPU {losses}")
         out["losses_max_abs"] = max(abs(a - b) for a, b in losses)
-    out["cpu_seconds"] = time.perf_counter() - t0
     return out
 
 
-def phase_graft(checks, smi, step_seconds: float) -> dict:
+def phase_graft(checks, smi):
     """Phase 20: ``graft_entry.entry()`` eager and as a CUDA graph against
     a CPU run of the same forward, then ``dryrun_multichip`` over NCCL (one
     rank a card) and over gloo (4 ranks sharing the card), both projecting
-    from ``step_seconds`` (phase 7's graphed 4-bit step) → each kernel's
-    launches in the phase, by run."""
-    t0 = time.perf_counter()
+    from the flagship step measured on the card
+    (``graft_entry.measure_flagship_step``)."""
     fn, example = graft_entry.entry()
     params, *inputs = example
     zero_counts()
@@ -3717,9 +3128,9 @@ def phase_graft(checks, smi, step_seconds: float) -> dict:
     bit_equal = torch.equal(graphed, eager)
     checks.require(bit_equal, "graft entry: the graphed forward is not bit-equal to the eager one")
     checks.require(err <= F32_TOL, f"graft entry: card vs CPU max |diff| {err} > {F32_TOL}")
-    entry_s = time.perf_counter() - t0
     shape = tuple(eager.shape)
     del fn, example, params, inputs, eager, graphed, call, cpu_fn, cpu_inputs, cpu
+    step_seconds = graft_entry.measure_flagship_step()
 
     # the NCCL run at the preset's dropout (the JAX function's call), the
     # gloo one at 0 so that its losses hold to the CPU's too
@@ -3732,21 +3143,14 @@ def phase_graft(checks, smi, step_seconds: float) -> dict:
     emit({"phase": "graft", "entry": {"shape": shape, "dtype": "float32",
                                       "launches_eager": eager_launches["fake_quant_buckets"],
                                       "launches_graph": graph_launches["fake_quant_buckets"],
-                                      "graph_bit_equal_eager": bit_equal, "card_vs_cpu_max_abs": err,
-                                      "seconds": entry_s},
+                                      "graph_bit_equal_eager": bit_equal, "card_vs_cpu_max_abs": err},
           "dryrun": {k: {key: r[key] for key in ("n", "mesh", "backend", "rule", "dropout", "loss",
                                                   "losses", "graphed", "vs_cpu", "payloads",
-                                                  "projection", "step_seconds", "seconds")}
+                                                  "projection", "step_seconds")}
                      for k, r in done.items()},
           "budgets": {k: {key: budget_summary(b) for key, b in r["budgets"].items()}
                       for k, r in done.items()},
           "card": smi})
-    out = {}
-    for name in expected():
-        out[name] = {"entry_eager": eager_launches[name], "entry_graph": graph_launches[name],
-                     **{k: [sum(stage.get(name, 0) for stage in rank.values())
-                            for rank in r["launches"]] for k, r in done.items()}}
-    return out
 
 
 # ------------------------------------------------------------- bench (21)
@@ -3764,19 +3168,17 @@ BENCH_RUNS = {"serve": [], "engine": ["--engine"],
 
 
 def bench_run(checks, label: str, flags, units: int, step_launches: dict) -> dict:
-    """``bench.main(BENCH_CHAINS + flags)`` → its line, wall seconds and
-    launches, with the line's keys and values checked and the launches
+    """``bench.main(BENCH_CHAINS + flags)`` → its line and launches, with
+    the line's keys and values checked and the launches
     held to ``units`` (the 4-bit or packed units the run chains) times
     ``step_launches`` (the engine: its 3 / 1 / 1 ratio)."""
     zero_counts()
-    t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(io.StringIO()):
             line = bench.main(BENCH_CHAINS + flags)
     except Exception:  # recorded: the phase reports what else it can
         checks.require(False, f"bench {label}: raised\n{traceback.format_exc()}")
         return {"line": None, "launches": {}}
-    wall = time.perf_counter() - t0
     launches = read_counts()
     keys, positive = BENCH_KEYS, ["value", "vs_baseline"]
     if label == "engine":  # vs_baseline is null without --offline-tok-s
@@ -3798,7 +3200,7 @@ def bench_run(checks, label: str, flags, units: int, step_launches: dict) -> dic
         checks.require(launches == want, f"bench {label} launches {launches}, expected {want}")
     gc.collect()
     torch.cuda.empty_cache()
-    return {"line": line, "seconds": wall, "launches": launches}
+    return {"line": line, "launches": launches}
 
 
 def bench_topk(checks, rows: int, width: int, k: int) -> dict:
@@ -3828,9 +3230,8 @@ def bench_topk(checks, rows: int, width: int, k: int) -> dict:
             "bound_ms_read_once": read_ms}
 
 
-def phase_bench(checks, args, smi) -> dict:
-    """Phase 21 (see the module docstring) → each run's launches."""
-    t0 = time.perf_counter()
+def phase_bench(checks, args, smi):
+    """Phase 21 (see the module docstring)."""
     steps = args.src_len
     search = {"dequant_matmul": 3 * steps, "dequant_matmul_topk": steps, "beam_advance": steps}
     ns = bench.parse_args(BENCH_CHAINS)
@@ -3846,7 +3247,7 @@ def phase_bench(checks, args, smi) -> dict:
                    and record["card"] == smi and record["train_step_seconds"] > 0,
                    f"bench flagship record {record}")
 
-    # the bench's own serving loops: launches of one chain, device ms a search
+    # the bench's own serving loops: launches of one chain
     fp_loop, q_loop = bench.build(bench.parse_args([]))
     loops = {}
     for name, loop, n, per_search in (("packed", q_loop, 3, search), ("dense_fp32", fp_loop, 2,
@@ -3858,18 +3259,16 @@ def phase_bench(checks, args, smi) -> dict:
         want = expected(**{c: n * m for c, m in per_search.items()})
         checks.require(launches == want, f"bench {name} chain of {n}: launches {launches}, "
                                          f"expected {want}")
-        loops[name] = {"chain": n, "launches": launches,
-                       "device_ms_a_search": span_ms(lambda: loop(1))}
+        loops[name] = {"chain": n, "launches": launches}
     del fp_loop, q_loop
     gc.collect()
     torch.cuda.empty_cache()
     topk = bench_topk(checks, args.batch, args.beam * args.vocab, args.beam)
     emit({"phase": "bench", "flags": BENCH_CHAINS,
-          "runs": {label: {"line": r["line"], "seconds": r.get("seconds"),
-                           "launches": r["launches"]} for label, r in runs.items()},
-          "flagship_record": record, "loops": loops, "topk_sorted": topk,
-          "seconds": time.perf_counter() - t0, "card": smi})
-    return {label: r["launches"] for label, r in runs.items()}
+          "runs": {label: {"keys": list(r["line"] or {}), "launches": r["launches"]}
+                   for label, r in runs.items()},
+          "flagship_record_keys": list(record or {}), "loops": loops, "topk_sorted": topk,
+          "card": smi})
 
 
 # ------------------------------------------------------------ multi-card (22)
@@ -3879,7 +3278,8 @@ MULTI_CARDS = 4
 
 def phase_multi_card(checks, smi) -> dict:
     """Phase 22 (see the module docstring) → each kernel's launches a rank,
-    by mesh and search; empty where it did not run."""
+    by mesh and search, as its line prints them; empty where it did not
+    run."""
     n = torch.cuda.device_count()
     if n < MULTI_CARDS:
         emit({"phase": "multi_card", "ran": False, "cards": n})
@@ -3909,8 +3309,7 @@ def phase_multi_card(checks, smi) -> dict:
             launches.setdefault("fake_quant_buckets", {})[f"{leg} rank 0"] = \
                 rec["launches"]["fake_quant_buckets"]
     emit({"phase": "multi_card", "ran": True, "cards": n, "rc": res["rc"],
-          "seconds": res["seconds"], "last_lines": res["last_lines"], "launches": launches,
-          "card": smi})
+          "last_lines": res["last_lines"], "launches": launches, "card": smi})
     return launches
 
 
@@ -3931,7 +3330,6 @@ def parse_args(argv=None):
     ap.add_argument("--src-len", type=int, default=24)
     ap.add_argument("--bits", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--reps", type=int, default=7)
     ap.add_argument("--cpu-sentences", type=int, default=16)
     ap.add_argument("--train-batch", type=int, default=128)
     ap.add_argument("--train-steps", type=int, default=10)
@@ -3950,7 +3348,7 @@ def main(argv=None) -> int:
     args = parse_args(argv)
 
     dev, smi = phase_device()
-    # f32 matmuls (the FP32 beam_search leg, the f32 parity runs) in true f32
+    # f32 matmuls (the f32 parity runs) in true f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = Checks()
@@ -3963,13 +3361,10 @@ def main(argv=None) -> int:
     dec = pack_decoder(params, model.cfg, args.bits, compute_dtype=torch.bfloat16,
                        generator_group=group, device="cuda")
     table = phase_kernels(checks, dec, rows, torch.Generator().manual_seed(args.seed + 2))
-    launches, uniform = phase_main_path(checks, args, model, params, smi)
-    engine_launches = phase_engine(checks, args, model, params, dec, smi)
-    for row in table:
-        row["launches"] = launches[row["name"]]
-        row["engine_chunk_launches"] = engine_launches[row["name"]]
+    phase_main_path(checks, args, model, params, smi)
+    phase_engine(checks, args, model, params, dec, smi)
     del dec
-    fq_row, train_state, train_step_s = phase_train(checks, args, smi)
+    fq_row, train_state = phase_train(checks, args, smi)
     table.append(fq_row)
     phase_grouped_kernel(checks, args.seed + 5)
     phase_lstm_kernel(checks, args)
@@ -3978,48 +3373,24 @@ def main(argv=None) -> int:
     points = books["generator/kernel"].cpu()
     dec = pack_decoder(params, model.cfg, args.bits, points=points, lut_mode="exact",
                        compute_dtype=torch.bfloat16, generator_group=group, device="cuda")
-    lut_rows = phase_lut_kernels(checks, dec, rows, torch.Generator().manual_seed(args.seed + 4))
+    table += phase_lut_kernels(checks, dec, rows, torch.Generator().manual_seed(args.seed + 4))
     del dec
-    launches = phase_codebook_path(checks, args, model, params, points, smi, uniform)
-    engine_launches = phase_engine_lut(checks, args, model, params, points, smi)
-    for row in lut_rows:
-        row["launches"] = launches[row["name"]]
-        row["engine_launches"] = engine_launches[row["name"]]
-    table += lut_rows
-    from_disk = phase_artifact(checks, args, model, params, books, train_state, smi)
+    phase_codebook_path(checks, args, model, params, points, smi)
+    phase_engine_lut(checks, args, model, params, points, smi)
+    phase_artifact(checks, args, model, books, train_state, smi)
     del train_state
-    for row in table:  # the launches of the two searches from disk
-        counts = {k: from_disk["uniform"][k] + from_disk["lut"][k] for k in expected()}
-        row["artifact_launches"] = counts.get(row["name"], 0)
-    fq_row["paths"] = {
-        "vision_train": phase_vision_train(checks, args, smi),
-        "lm_train": phase_lm_train(checks, args, smi),
-        **phase_vision_families(checks, args, smi),
-    }
-    drivers = phase_drivers(checks, args, smi)
-    sharded = phase_multi_gpu(checks, args, model, params, points, smi)
+    phase_vision_train(checks, args, smi)
+    phase_lm_train(checks, args, smi)
+    phase_vision_families(checks, args, smi)
+    phase_drivers(checks, args, smi)
+    shards = phase_multi_gpu(checks, args, model, params, points, smi)
     for row in table:
-        row.update(sharded.get(row["name"], {}))
-    fq_row["driver_launches"] = {name: d["launches"] for name, d in drivers.items()}
-    fq_row["driver_buckets"] = {name: d["n_buckets"] for name, d in drivers.items()}
-    fq_row["driver_fake_quant"] = {
-        name: {k: d[k] for k in ("bits", "bit_exact", "ms", "plain_ms", "bound_ms", "bound_by")}
-        for name, d in drivers.items()}
-    quality = phase_quality(checks, smi)
-    for row in table:
-        row["quality_launches"] = {script: counts[row["name"]]
-                                   for script, counts in quality.items()}
-    graft = phase_graft(checks, smi, train_step_s)
-    for row in table:
-        row["graft_launches"] = graft[row["name"]]
-    bench_launches = phase_bench(checks, args, smi)
-    for row in table:
-        row["bench_launches"] = {run: counts.get(row["name"], 0)
-                                 for run, counts in bench_launches.items()}
-    multi_card = phase_multi_card(checks, smi)
-    for row in table:
-        if multi_card:
-            row["multi_card_launches"] = multi_card.get(row["name"], {})
+        if row["name"] in shards:
+            row["shard_widths"] = shards[row["name"]]
+    phase_quality(checks, smi)
+    phase_graft(checks, smi)
+    phase_bench(checks, args, smi)
+    phase_multi_card(checks, smi)
     if checks.failed:
         print(f"{len(checks.failed)} check(s) failed", file=sys.stderr)
         return 1

@@ -27,7 +27,8 @@ mesh ``(data, model)`` with ``data * model = cards``, in this order:
    a chunk), each result equal to the offline sharded search on the same
    mesh, every rank replaying the same chunks;
 3. the graphed KD steps (``make_train_step``), each three eager runs and a
-   graphed one of ``--train-steps`` SGD steps from copies of one state:
+   graphed one of ``--train-steps`` SGD steps from copies of one state
+   (:func:`graph_leg`, which ``chip_smoke.py``'s graphed steps run too):
    bit-equal where the eager runs are, else within twice their gap; one
    capture; the eager step's collectives at every replay; one fake-quant
    launch a rank a step (none in ``joint``). The first step is held to the
@@ -46,14 +47,8 @@ subprocess; on the card held to the same dry run on the CPU: tokens equal,
 scores and losses within ``F32_TOL``). Batches are ``--train-batch``
 (``--lm-batch``, ``--vision-batch``) rows a data slice.
 
-On the card it also prints figures, each beside ``nvidia-smi``'s name and
-power limit of every card: the sharded bf16 search's tokens/s against one
-card's ``beam_search_packed`` in turns; each graphed step's seconds
-against its eager step; the data-parallel step at ``(cards, 1)`` against
-the one-card step at the same rows a card, the measured 1 → ``cards``
-efficiency beside ``graft_entry.projection``'s assumed-link figure;
-collectives and bytes a step (``collective_budget``) and rank 0's NCCL
-kernel device ms a step (``torch.profiler``). No figure is a gain.
+The harness checks and does not time: the four-card step's speed is the
+benchmark's (``portbench``, cell ``nmt-kd-train-dp4``).
 
 The last line is one JSON object, ``{"ok": true, "cards": N, ...}``; any
 failed check prints it and exits 1 without that line. ``--out PATH``
@@ -65,7 +60,7 @@ writes the whole report (tokens included) as JSON.
         --src-len 4 --train-batch 4 --train-steps 1 --lm-teacher student_small \\
         --lm-student student_small --lm-vocab 40 --lm-batch 2 --lm-bptt 4 \\
         --wrn-teacher student_small --wrn-student student_small --vision-batch 2 \\
-        --vision-size 8 --requests 8 --reps 1
+        --vision-size 8 --requests 8
 """
 
 from __future__ import annotations
@@ -77,10 +72,8 @@ import gc
 import itertools
 import json
 import math
-import statistics
 import subprocess
 import sys
-import time
 from types import SimpleNamespace
 
 import numpy as np
@@ -438,34 +431,9 @@ def near_ties(model, dec, src, src_len, cfg) -> np.ndarray:
 # ----------------------------------------------------------------- serving
 
 
-def timed(fn, dev) -> float:
-    _sync(dev)
-    t0 = time.perf_counter()
-    fn()
-    _sync(dev)
-    return time.perf_counter() - t0
-
-
-def in_turns(legs: dict, reps: int, dev) -> dict:
-    """Host seconds of each leg over ``reps`` rounds in turns, the order
-    reversed every other round, after one warm-up call of each; every rank
-    runs the same order, so a leg over the mesh runs in lockstep. Timed on
-    the card only (None on the CPU)."""
-    if dev.type != "cuda":
-        return None
-    for fn in legs.values():
-        fn()
-    times = {name: [] for name in legs}
-    for i in range(reps):
-        for name in (list(legs) if i % 2 == 0 else list(legs)[::-1]):
-            times[name].append(timed(legs[name], dev))
-    return times
-
-
 def serve_mesh(c, a, dev, on_card, mesh, model, decs, gen_w) -> dict:
     """Item 1 on one mesh: kernels, the sharded step, the three searches
-    (capture, replay, eager), the bf16 search against one card's in
-    turns; item 2, the engine, where ``data`` > 1."""
+    (capture, replay, eager); item 2, the engine, where ``data`` > 1."""
     shape = tuple(mesh.shape)
     tag = f"{shape} rank {torch.distributed.get_rank()}"
     sdecs = {label: shard_decoder(d, mesh, *gen_w) for label, d in decs.items()}
@@ -498,12 +466,6 @@ def serve_mesh(c, a, dev, on_card, mesh, model, decs, gen_w) -> dict:
         c.require(res["graph_equals_eager"], f"{tag} {label}: graphed search differs from eager")
         res["tokens"], res["scores"] = toks.cpu().numpy(), scores.cpu().numpy()
         out[label] = res
-    legs = {"sharded": lambda: beam_search_sharded(model, sdecs["bf16"], src, src_len, cfg, mesh,
-                                                   device=dev),
-            "one_card": lambda: beam_search_packed(model, decs["bf16"], src, src_len, cfg,
-                                                   device=dev)}
-    out["bf16_seconds"] = in_turns(legs, a.reps, dev)
-    del legs
     if shape[0] > 1 or torch.distributed.get_world_size() == 1:
         out["engine"] = engine_mesh(c, a, tag, mesh, model, sdecs["f32"], dev, on_card)
     return out
@@ -608,82 +570,100 @@ def cudnn_deterministic():
         torch.backends.cudnn.deterministic = was
 
 
-def nccl_profile(step, state, batch, seed, dev, profile: bool) -> dict:
-    """One more call of ``step`` on every rank; on the rank that
-    ``profile``s, under ``torch.profiler``: device ms of the call's kernels
-    and of its NCCL kernels."""
-    if not profile:
-        step(state, batch, seed)
-        _sync(dev)
-        return None
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as prof_ctx
+def graph_parity(eager_states, eager_losses, graph_state, graph_losses) -> tuple:
+    """The graphed run against eager runs from copies of one state: each
+    tensor of ``graph_state`` and each step's loss of ``graph_losses`` must
+    equal the first eager run's bit for bit where the eager runs are equal
+    bit for bit, and lie within twice the eager-against-eager gap elsewhere
+    (a tensor's largest gap between any two eager runs; a loss's, the
+    largest over the steps whose eager losses differ). ``eager_states``:
+    one list of tensors a run; ``eager_losses``: one list of 0-d tensors a
+    run → (the record, how many tensors and losses are past their bound)."""
+    record, over = {}, 0
+    for what, eager, graphed in (("state", eager_states, graph_state),
+                                 ("loss", eager_losses, graph_losses)):
+        with torch.no_grad():
+            gap_e = [max(float((x - y).abs().max()) for x, y in itertools.combinations(ts, 2))
+                     for ts in zip(*eager, strict=True)]
+            gap_g = [float((x - y).abs().max()) for x, y in zip(eager[0], graphed, strict=True)]
+        if what == "loss":  # one number a step: the bound is the largest gap of the run
+            gap_e = [e and max(gap_e) for e in gap_e]
+        bad = sum(d > (0.0 if e == 0.0 else 2 * e) for e, d in zip(gap_e, gap_g))
+        over += bad
+        record[what] = {
+            "tensors": len(graphed), "eager_bit_equal": sum(e == 0.0 for e in gap_e),
+            "graph_bit_equal": sum(d == 0.0 for d in gap_g),
+            "eager_eager_max_abs_gap": max(gap_e), "graph_eager_max_abs_gap": max(gap_g),
+            "largest_gap_ratio": max((d / e for e, d in zip(gap_e, gap_g) if e), default=0.0),
+            "graph_over_bound": bad}
+    return record, over
 
-    with prof_ctx(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(state, batch, seed)
-        _sync(dev)
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    nccl = [r for r in rows if "nccl" in r[0].lower()]
-    return {"device_ms": sum(r[1] for r in rows), "nccl_ms": sum(r[1] for r in nccl),
-            "nccl_kernels": sum(r[2] for r in nccl),
-            "traced": bool(rows)}
 
-
-def graph_leg(c, a, name, task, tx, state, batch, dev, on_card, *, quant, mode="weights",
-              fq_per_step=1, mesh=None, ref=None, local=None, extra_legs=None, **mesh_kw):
-    """The graphed step against three eager runs (see the module
-    docstring), from copies of ``state``; with ``ref`` (the one-process
-    step's loss, parameters and codebooks) the graphed run's first step is
-    held to it (``local(name, whole)``: this rank's slice of a whole
-    parameter). Then graphed and eager seconds in turns (with
-    ``extra_legs``), and on the card rank 0's profile of a graphed step."""
+def graph_leg(c, name, task, tx, state, batch, seed, steps, dev, *, quant, mode="weights",
+              fq_per_step=1, mesh=None, control=False, ref=None, local=None, **mesh_kw) -> dict:
+    """The graphed train step against the eager one (``_eager=True``): from
+    four copies of ``state``, three eager runs and one graphed run of
+    ``steps`` steps on ``batch`` at ``seed``, held to each other by
+    :func:`graph_parity`. On the card the graphed run launches
+    ``fq_per_step`` fake-quant kernels a step and captures one graph, and
+    an eager step and a graphed one more on its state capture none; off the
+    card no kernel launches and nothing is graphed. On a ``mesh`` (with
+    ``param_specs`` or ``grad_reduce_dtype`` in ``mesh_kw``) each step's
+    collectives (``collective_budget``: kind, bytes, axis, group size) in
+    the graphed run, the capturing call's and every replay's, must equal
+    the first eager run's step for step. With ``control``, one graphed step
+    at ``seed + 1`` (a step object of its own) must give another loss (the
+    student's dropout masks follow the seed). With ``ref`` (the
+    one-process step's loss, parameters and codebooks) the graphed run's
+    first step is held to it (``local(name, whole)``: this rank's slice of
+    a whole parameter). → the record."""
+    on_card = dev.type == "cuda"
     kw = dict(quant=quant, distill=DistillSpec(), mode=mode, device=dev, mesh=mesh, **mesh_kw)
     eager = make_train_step(task, tx, _eager=True, **kw)
     graph = make_train_step(task, tx, **kw)
     c.require(graph.graphed == on_card, f"{name}: graphed {graph.graphed} on {dev.type}")
-    seed = a.seed
     runs, first = [], None
     for step in (eager, eager, eager, graph):
         st, losses, budgets = _clone_state(state), [], []
         zero_counts()
-        for i in range(a.train_steps):
+        for i in range(steps):
             with collective_budget(mesh) as budget:
                 st, m = step(st, batch, seed)
             losses.append(m["loss"])
             budgets.append([dataclasses.astuple(op) for op in budget.ops])
-            if step is graph and i == 0:
+            if step is graph and i == 0 and ref is not None:
                 first = (float(m["loss"]), {n: t.detach().clone() for n, t in st.params.items()},
                          None if st.codebooks is None else
                          {n: t.detach().clone() for n, t in st.codebooks.items()})
         _sync(dev)
         runs.append((st, torch.stack(losses), path_counts(launch_counts()), budgets))
     g, lg, launches, g_budgets = runs.pop()
-    want = expected(on_card, fake_quant_buckets=fq_per_step * a.train_steps)
+    want = expected(on_card, fake_quant_buckets=fq_per_step * steps)
     c.require(launches == want, f"{name}: graphed launches {launches}, expected {want}")
     c.require(graph.captures == int(on_card), f"{name}: {graph.captures} captures")
-    same = g_budgets == runs[0][3]
-    c.require(same and bool(g_budgets[0]), f"{name}: the graphed steps' collectives differ from "
-                                           "the eager steps'")
-    kinds = {}
-    for kind, _, axis, _ in g_budgets[0]:
-        kinds[f"{kind}@{axis}"] = kinds.get(f"{kind}@{axis}", 0) + 1
+    parity, over = graph_parity([state_tensors(r[0]) for r in runs], [list(r[1]) for r in runs],
+                                state_tensors(g), list(lg))
+    c.require(over == 0, f"{name}: graphed against eager past the eager-eager bound {parity}")
     record = {"launches": launches, "captures": graph.captures, "losses": [float(x) for x in lg],
-              "collectives_a_step": kinds, "bytes_a_step": sum(op[1] for op in g_budgets[0])}
-    over = 0
-    for what, tensors, tg in (("state", [state_tensors(r[0]) for r in runs], state_tensors(g)),
-                              ("loss", [list(r[1]) for r in runs], list(lg))):
-        gap_e = [max(float((x - y).abs().max()) for x, y in itertools.combinations(ts, 2))
-                 for ts in zip(*tensors, strict=True)]
-        gap_g = [float((x - y).abs().max()) for x, y in zip(tensors[0], tg, strict=True)]
-        if what == "loss":
-            gap_e = [e and max(gap_e) for e in gap_e]
-        bad = sum(d > (0.0 if e == 0.0 else 2 * e) for e, d in zip(gap_e, gap_g))
-        over += bad
-        record[what] = {"tensors": len(tg), "eager_bit_equal": sum(e == 0.0 for e in gap_e),
-                        "graph_bit_equal": sum(d == 0.0 for d in gap_g),
-                        "graph_eager_max_abs_gap": max(gap_g), "graph_over_bound": bad}
-    c.require(over == 0, f"{name}: graphed against eager past the eager-eager bound {record}")
+              "losses_eager": [float(x) for x in runs[0][1]], **parity}
+    if mesh is not None:
+        same = g_budgets == runs[0][3]
+        c.require(same and bool(g_budgets[0]), f"{name}: the graphed steps' collectives differ "
+                                               "from the eager steps'")
+        kinds = {}
+        for kind, _, axis, _ in g_budgets[0]:
+            kinds[f"{kind}@{axis}"] = kinds.get(f"{kind}@{axis}", 0) + 1
+        record.update(collectives_a_step=kinds, bytes_a_step=sum(op[1] for op in g_budgets[0]))
+    for step in (eager, graph):  # on the graphed run's state: the graph replays
+        step(g, batch, seed)
+    _sync(dev)
+    c.require(graph.captures == int(on_card),
+              f"{name}: {graph.captures} captures after an eager and a graphed step more")
+    if control:
+        _, m = make_train_step(task, tx, **kw)(_clone_state(state), batch, seed + 1)
+        record["loss_other_seed"] = float(m["loss"])
+        c.require(record["loss_other_seed"] != record["losses"][0],
+                  f"{name}: another seed gave the same loss (dropout off?)")
     if ref is not None:
         loss, params, books = first
         rtol, atol = ref.get("w_tol", (W_RTOL, W_ATOL))
@@ -700,19 +680,6 @@ def graph_leg(c, a, name, task, tx, state, batch, dev, on_card, *, quant, mode="
                                   "step's")
         record["one_process"] = {"loss": loss, "one_process_loss": ref["loss"],
                                  "weights_excess_over_rtol": excess, "rtol": rtol, "atol": atol}
-    del runs
-    holder = {"state": g}
-
-    def call(step):
-        holder["state"], m = step(holder["state"], batch, seed)
-        float(m["loss"])
-
-    legs = {"graph": lambda: call(graph), "eager": lambda: call(eager), **(extra_legs or {})}
-    record["seconds"] = in_turns(legs, a.reps, dev)
-    if on_card:
-        c.require(graph.captures == 1, f"{name}: {graph.captures} captures after timing")
-        record["profile_rank0"] = nccl_profile(graph, holder["state"], batch, seed, dev,
-                                               torch.distributed.get_rank() == 0)
     return record
 
 
@@ -742,9 +709,8 @@ def _free(dev) -> None:
         torch.cuda.empty_cache()
 
 
-def train_dp(c, a, dev, on_card, mesh) -> dict:
-    """Seq2seq data parallel on ``mesh`` (cards, 1), f32 and bf16 reduce;
-    the one-card step at the same rows a card in turns with the f32 one."""
+def train_dp(c, a, dev, mesh) -> dict:
+    """Seq2seq data parallel on ``mesh`` (cards, 1), f32 and bf16 reduce."""
     cards = torch.distributed.get_world_size()
     quant = QuantSpec(bits=a.bits)
     out = {}
@@ -756,24 +722,11 @@ def train_dp(c, a, dev, on_card, mesh) -> dict:
             ref["w_tol"] = (BF16_W_RTOL, BF16_W_ATOL)
         tx = build_optimizer(SGD)
         state = create_train_state(dict(student.named_parameters()), tx, quant=quant, device=dev)
-        extra = None
-        if reduce is None:  # one card at the same rows a card
-            one_student, one_task, _ = kd_seq2seq(a, dev, a.train_batch, seed)
-            one = {"state": create_train_state(dict(one_student.named_parameters()), tx,
-                                               quant=quant, device=dev)}
-            one_batch = as_dev({k: v[:a.train_batch] for k, v in batch.items()}, dev)
-            one_step = make_train_step(one_task, tx, quant=quant, distill=DistillSpec(), device=dev)
-
-            def one_card():
-                one["state"], m = one_step(one["state"], one_batch, a.seed)
-                float(m["loss"])
-
-            extra = {"one_card": one_card}
         name = f"{label} {(cards, 1)}"
-        out[name] = graph_leg(c, a, name, task, tx, state, place_batch(batch, mesh, device=dev),
-                              dev, on_card, quant=quant, mesh=mesh, grad_reduce_dtype=reduce,
-                              ref=ref, local=lambda n, t: t, extra_legs=extra)
-        del student, task, state, ref, extra
+        out[name] = graph_leg(c, name, task, tx, state, place_batch(batch, mesh, device=dev),
+                              a.seed, a.train_steps, dev, quant=quant, mesh=mesh,
+                              grad_reduce_dtype=reduce, ref=ref, local=lambda n, t: t)
+        del student, task, state, ref
         _free(dev)
     return out
 
@@ -782,7 +735,7 @@ def as_dev(batch, dev) -> dict:
     return {k: v.to(dev) for k, v in batch.items()}
 
 
-def train_tp(c, a, dev, on_card, mesh) -> dict:
+def train_tp(c, a, dev, mesh) -> dict:
     """Seq2seq tensor parallel on ``mesh``, modes ``weights`` and
     ``joint``; each rank's shards held to the one-process step's slices."""
     shape = tuple(mesh.shape)
@@ -799,9 +752,10 @@ def train_tp(c, a, dev, on_card, mesh) -> dict:
         state = create_train_state(place_params_seq2seq(whole, mesh, device=dev), tx, quant=quant,
                                    mode=mode, mesh=mesh, param_specs=specs, device=dev)
         name = f"tp_{mode} {shape}"
-        out[name] = graph_leg(c, a, name, task, tx, state, place_batch(batch, mesh, device=dev),
-                              dev, on_card, quant=quant, mode=mode, fq_per_step=fq, mesh=mesh,
-                              param_specs=specs, ref=ref, local=mp.local)
+        out[name] = graph_leg(c, name, task, tx, state, place_batch(batch, mesh, device=dev),
+                              a.seed, a.train_steps, dev, quant=quant, mode=mode,
+                              fq_per_step=fq, mesh=mesh, param_specs=specs, ref=ref,
+                              local=mp.local)
         out[name]["split"] = sum(mp.is_split(n) for n in whole)
         c.require(out[name]["split"] > 0 or shape[1] == 1, f"{name}: no parameter split over "
                                                            "model")
@@ -810,7 +764,7 @@ def train_tp(c, a, dev, on_card, mesh) -> dict:
     return out
 
 
-def train_lm(c, a, dev, on_card, mesh) -> dict:
+def train_lm(c, a, dev, mesh) -> dict:
     """The LM tensor parallel on ``mesh`` with its carry threaded."""
     shape = tuple(mesh.shape)
     quant = QuantSpec(bits=a.bits)
@@ -825,15 +779,15 @@ def train_lm(c, a, dev, on_card, mesh) -> dict:
     state = create_train_state(place_params_lm(whole, mesh, device=dev), tx, quant=quant,
                                carry=lm_initial_carry(student, a.lm_batch, teacher), device=dev)
     name = f"lm_tp {shape}"
-    out = {name: graph_leg(c, a, name, task, tx, state, place_batch(batch, mesh, device=dev),
-                           dev, on_card, quant=quant, mesh=mesh, param_specs=specs, ref=ref,
-                           local=mp.local)}
+    out = {name: graph_leg(c, name, task, tx, state, place_batch(batch, mesh, device=dev),
+                           a.seed, a.train_steps, dev, quant=quant, mesh=mesh,
+                           param_specs=specs, ref=ref, local=mp.local)}
     del student, teacher, task, state, ref
     _free(dev)
     return out
 
 
-def train_wrn(c, a, dev, on_card, mesh) -> dict:
+def train_wrn(c, a, dev, mesh) -> dict:
     """WRN teacher → student data parallel on ``mesh`` (cards, 1),
     deterministic cuDNN, running statistics averaged over ``data`` in the
     step."""
@@ -850,9 +804,9 @@ def train_wrn(c, a, dev, on_card, mesh) -> dict:
                                batch_stats=dict(student.named_buffers()), quant=quant, device=dev)
     name = f"wrn_dp {(cards, 1)}"
     with cudnn_deterministic():
-        out = {name: graph_leg(c, a, name, vision_task(student, teacher, device=dev), tx, state,
-                               place_batch(batch, mesh, device=dev), dev, on_card, quant=quant,
-                               mesh=mesh)}
+        out = {name: graph_leg(c, name, vision_task(student, teacher, device=dev), tx, state,
+                               place_batch(batch, mesh, device=dev), a.seed, a.train_steps, dev,
+                               quant=quant, mesh=mesh)}
     del teacher, student, state
     _free(dev)
     return out
@@ -864,7 +818,6 @@ def train_wrn(c, a, dev, on_card, mesh) -> dict:
 def _rank(rank: int, world: int, spec: dict) -> dict:
     """One rank: items 1-3 on every mesh (see the module docstring) →
     its failed checks and results."""
-    t0 = time.perf_counter()
     dev = rank_device(spec["device"], rank)
     torch.backends.cudnn.allow_tf32 = False
     on_card = dev.type == "cuda"
@@ -884,25 +837,16 @@ def _rank(rank: int, world: int, spec: dict) -> dict:
                 "tokens": toks.cpu().numpy(), "scores": scores.cpu().numpy(),
                 "near_ties": near_ties(model, decs[label], src, src_len, cfg)}
     mesh = {shape: make_mesh(*shape) for shape in meshes(world)}  # one group per axis each
-    seconds = {"setup": time.perf_counter() - t0}
-
-    def item(name, fn, *args):
-        t = time.perf_counter()
-        result = fn(c, a, dev, on_card, *args)
-        seconds[name] = time.perf_counter() - t
-        return result
-
-    out["serve"] = {str(shape): item(f"serve {shape}", serve_mesh, m, model, decs, gen_w)
+    out["serve"] = {str(shape): serve_mesh(c, a, dev, on_card, m, model, decs, gen_w)
                     for shape, m in mesh.items()}
     del model, decs
     _free(dev)
-    train = item("dp", train_dp, mesh[(world, 1)])
+    train = train_dp(c, a, dev, mesh[(world, 1)])
     for shape in tp_meshes(world):
-        train.update(item(f"tp {shape}", train_tp, mesh[shape]))
-    train.update(item("lm_tp", train_lm, mesh[lm_mesh(world)]))
-    train.update(item("wrn_dp", train_wrn, mesh[(world, 1)]))
+        train.update(train_tp(c, a, dev, mesh[shape]))
+    train.update(train_lm(c, a, dev, mesh[lm_mesh(world)]))
+    train.update(train_wrn(c, a, dev, mesh[(world, 1)]))
     out["train"] = train
-    out["seconds"] = seconds
     out["failed"] = c.failed
     return out
 
@@ -980,7 +924,6 @@ def check_searches(c, ranks) -> dict:
             res["engine"] = {**{k: v for k, v in per[0]["engine"].items() if k != "chunks"},
                              "chunks": len(chunks[0]), "chunk_with_an_empty_slice": idle,
                              "launches_a_rank": [p["engine"]["launches"] for p in per]}
-        res["bf16_seconds_rank0"] = per[0]["bf16_seconds"]
         out[key] = res
     return out
 
@@ -988,11 +931,9 @@ def check_searches(c, ranks) -> dict:
 def dryrun(c, cards: int, dev_type: str) -> dict:
     """``graft_entry.dryrun_multichip(cards)`` without its smoke, at dropout
     0; on the card held to the same dry run on the CPU."""
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(sys.stderr):
         report = graft_entry.dryrun_multichip(cards, device=dev_type, dropout=0.0,
                                               dcn_smoke=False)
-    seconds = time.perf_counter() - t0
     on_card = dev_type == "cuda"
     c.require(report["backend"] == ("nccl" if on_card else "gloo"),
               f"dryrun: backend {report['backend']}")
@@ -1005,9 +946,10 @@ def dryrun(c, cards: int, dev_type: str) -> dict:
             "decode_step": {"dequant_matmul": layers, "dequant_matmul_topk": 1}}
     want = {stage: counts if on_card else {} for stage, counts in want.items()}
     for r, launches in enumerate(report["launches"]):
+        launches = {stage: path_counts(counts) for stage, counts in launches.items()}
         c.require(launches == want, f"dryrun rank {r}: launches {launches}, expected {want}")
     out = {"n": report["n"], "mesh": report["mesh"], "backend": report["backend"],
-           "graphed": report["graphed"], "losses": report["losses"], "seconds": seconds}
+           "graphed": report["graphed"], "losses": report["losses"]}
     if on_card:
         with contextlib.redirect_stdout(sys.stderr):
             cpu = graft_entry.dryrun_multichip(cards, device="cpu", dropout=0.0, dcn_smoke=False)
@@ -1026,28 +968,6 @@ def dryrun(c, cards: int, dev_type: str) -> dict:
                       for x, y in zip(report["losses"][key], cpu["losses"][key])),
                   f"dryrun: losses card vs CPU {report['losses']} vs {cpu['losses']}")
     return out
-
-
-def figures(a, searches, train, cards, card: str) -> dict:
-    """The smoke figures of the card run (no gain is claimed)."""
-    med = statistics.median
-    ntok = a.batch * a.src_len
-    steps = {leg: {**{k: med(v) for k, v in r["seconds"].items()},
-                   "collectives_a_step": r["collectives_a_step"], "bytes_a_step": r["bytes_a_step"],
-                   "profile_rank0": r.get("profile_rank0")}
-             for leg, r in train.items()}
-    dp = steps[f"dp_f32 {(cards, 1)}"]
-    with contextlib.redirect_stdout(sys.stderr):
-        proj = graft_entry.projection(
-            {k: v for k, v in graft_entry.flagship_payloads(1).items() if k.startswith("f32")},
-            dp["one_card"], card)
-    return {"search_tokens_per_s": {
-                key: {leg: ntok / med(t) for leg, t in s["bf16_seconds_rank0"].items()}
-                for key, s in searches.items()},
-            "step_seconds": steps,
-            "dp_efficiency": {"cards": cards, "measured": dp["one_card"] / dp["graph"],
-                              "one_card_step_s": dp["one_card"], "dp_step_s": dp["graph"],
-                              "projection_1_to_2_hosts_25GBps_assumed": proj}}
 
 
 def parse_args(argv=None):
@@ -1074,7 +994,6 @@ def parse_args(argv=None):
     ap.add_argument("--wrn-student", default="student_medium")
     ap.add_argument("--vision-batch", type=int, default=256, help="images a data slice")
     ap.add_argument("--vision-size", type=int, default=32)
-    ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--timeout", type=float, default=600.0, help="seconds a collective may wait")
     ap.add_argument("--out", default=None, help="write the whole report here as JSON")
     return ap.parse_args(argv)
@@ -1093,10 +1012,8 @@ def main(argv=None) -> int:
     if on_card:
         _build.build_all()  # once, before the ranks load the kernels
     spec = {"device": a.device, "args": vars(a)}
-    t0 = time.perf_counter()
     ranks = run_ranks(_rank, a.cards, args=(spec,), backend="nccl" if on_card else "gloo",
                       timeout=a.timeout, join_timeout=6 * a.timeout)
-    ranks_s = time.perf_counter() - t0
     c = Checks()
     for r in ranks:
         c.failed += r["failed"]
@@ -1110,15 +1027,11 @@ def main(argv=None) -> int:
     emit({"item": "train", "legs": train, "cards": cards})
     dry = dryrun(c, a.cards, a.device)
     emit({"item": "dryrun_multichip", **dry, "cards": cards})
-    report = {"cards": a.cards, "device": a.device, "nvidia_smi": cards, "ranks_seconds": ranks_s,
-              "rank_item_seconds": [r["seconds"] for r in ranks],
+    report = {"cards": a.cards, "device": a.device, "nvidia_smi": cards,
               "searches": searches, "one_process": ranks[0]["one_process"],
               "tokens": {key: {label: s[label]["tokens"] for label in SEARCHES}
                          for key, s in ranks[0]["serve"].items()},
               "train": train, "dryrun": dry, "failed": c.failed}
-    if on_card:
-        report["figures"] = figures(a, searches, train, a.cards, cards[0])
-        emit({"item": "figures", **report["figures"], "cards": cards})
     if a.out:
         with open(a.out, "w") as f:
             json.dump(report, f, default=_json)
@@ -1126,8 +1039,7 @@ def main(argv=None) -> int:
         print(f"{len(c.failed)} check(s) failed", file=sys.stderr)
         return 1
     emit({"ok": True, "cards": a.cards, "device": a.device,
-          "meshes": [list(m) for m in meshes(a.cards)], "ranks_seconds": ranks_s,
-          "nvidia_smi": cards})
+          "meshes": [list(m) for m in meshes(a.cards)], "nvidia_smi": cards})
     return 0
 
 

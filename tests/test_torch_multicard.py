@@ -46,7 +46,7 @@ SMALL = ["--preset", "student_small", "--teacher", "student_small", "--vocab", "
          "--train-steps", "1", "--lm-teacher", "student_small", "--lm-student", "student_small",
          "--lm-vocab", "40", "--lm-batch", "2", "--lm-bptt", "4", "--wrn-teacher",
          "student_small", "--wrn-student", "student_small", "--vision-batch", "2",
-         "--vision-size", "8", "--requests", "8", "--reps", "1", "--timeout", "120"]
+         "--vision-size", "8", "--requests", "8", "--timeout", "120"]
 MESHES = ["(1, 4)", "(2, 2)", "(4, 1)"]
 LEGS = ["dp_f32 (4, 1)", "dp_bf16 (4, 1)", "tp_weights (1, 4)", "tp_joint (1, 4)",
         "tp_weights (2, 2)", "tp_joint (2, 2)", "lm_tp (2, 2)", "wrn_dp (4, 1)"]
