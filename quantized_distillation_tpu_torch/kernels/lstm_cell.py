@@ -6,7 +6,7 @@ forward and one backward.
 computed by the caller (``models/seq2seq.py::lstm_gates``), gate blocks i,
 f, g, o of width W; ``c' = sigmoid(z_f) c + sigmoid(z_i) tanh(z_g)``,
 ``h' = sigmoid(z_o) tanh(c')``. ``hw`` and ``xw`` are [B, 4W] (``xw`` may be
-the strided slice ``xw[:, t]`` of a [B, T, 4W] product), ``bh`` [4W], ``c``
+a step of ``xw.unbind(1)``, a strided view of a [B, T, 4W] product), ``bh`` [4W], ``c``
 [B, W]: on a tensor-parallel rank, its shards (W = H/m).
 
 No TPU kernel is replaced (XLA fuses the JAX package's cell). On a CUDA

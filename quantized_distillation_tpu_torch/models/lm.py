@@ -90,8 +90,8 @@ class LSTMLanguageModel(FlaxModel):
                 x.new_zeros((x.shape[0], cfg.hidden)), x.new_zeros((x.shape[0], cfg.hidden)))
             xw = x @ cell.wi
             hs = []
-            for t in range(x.shape[1]):
-                state = cell.step(state, xw[:, t])
+            for xw_t in xw.unbind(1):
+                state = cell.step(state, xw_t)
                 hs.append(state[1])
             finals.append(state)
             x = dropout(torch.stack(hs, dim=1), cfg.dropout, train, generator)

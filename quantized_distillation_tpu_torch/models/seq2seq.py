@@ -143,10 +143,10 @@ def run_lstm_tp(params, prefix: str, x, mp: Optional[ModelParallel], h0=None, c0
     c = c0 if c0 is not None else x.new_zeros((b, width))
     h_whole = h0 if h0 is not None else x.new_zeros((b, wh.shape[0]))
     hs, cs = [], []
-    for step in range(x.shape[1]):
+    for step, xw_t in enumerate(xw.unbind(1)):
         if step:
             h_whole = gather_to_split(hs[-1], mp)
-        c, h = lstm_gates(wh, bh, c, h_whole, xw[:, step])
+        c, h = lstm_gates(wh, bh, c, h_whole, xw_t)
         hs.append(h)
         cs.append(c)
     return torch.stack(hs, dim=1), torch.stack(cs, dim=1)
@@ -187,8 +187,8 @@ class Encoder(nn.Module):
         """One LSTM over time → (outputs [B, T, width], final (c, h))."""
         c = h = x.new_zeros((x.shape[0], self.width))
         cs, hs = [], []
-        for step in range(x.shape[1]):
-            c, h = cell((c, h), x[:, step])
+        for x_t in x.unbind(1):
+            c, h = cell((c, h), x_t)
             cs.append(c)
             hs.append(h)
         out = torch.stack(hs, dim=1)
@@ -337,11 +337,10 @@ class Seq2Seq(nn.Module):
     def decode(self, state: DecoderState, tgt_in, enc_out, enc_mask, *, train=False,
                generator=None):
         """Teacher-forced decode → (final state, logits [B, T_tgt, V])."""
-        y_emb = self.tgt_embed[tgt_in]
         outs = []
-        for step in range(tgt_in.shape[1]):
+        for y_t in self.tgt_embed[tgt_in].unbind(1):
             state, (attn_h, _) = self.decoder(
-                state, y_emb[:, step], enc_out, enc_mask, train=train, generator=generator
+                state, y_t, enc_out, enc_mask, train=train, generator=generator
             )
             outs.append(attn_h)
         return state, self.generator(torch.stack(outs, dim=1))
@@ -471,8 +470,8 @@ class Seq2Seq(nn.Module):
         b, steps = tgt_in.shape
         input_feed = enc_out.new_zeros((b, cfg.hidden))
         outs = []
-        for step in range(steps):
-            x = torch.cat([y_in[:, step], input_feed], dim=-1)
+        for step, y_t in enumerate(y_in.unbind(1)):
+            x = torch.cat([y_t, input_feed], dim=-1)
             new_states = []
             for i, (c, h_whole) in enumerate(states):
                 wi, wh, bh = (p[n] for n in cell_names(f"decoder.cells.{i}"))
